@@ -1,0 +1,621 @@
+"""Driver-side cluster orchestration: ``TPUCluster``.
+
+Port of ``tensorflowonspark_tpu/cluster.py``, itself the equivalent of the
+reference's ``tensorflowonspark/TFCluster.py``.  :class:`LocalProcessBackend`
+spawns N worker processes on this machine (``multiprocessing`` spawn), one
+per card; each runs the node harness (``node.run``) and the user's
+``map_fun``.  The user-facing contract is the reference's:
+
+    cluster = TPUCluster.run(map_fun, args, num_workers, input_mode=...)
+    cluster.train(data, num_epochs)      # InputMode.SPARK feeding
+    preds = cluster.inference(data)
+    cluster.shutdown(grace_secs=0)
+
+The driver never initialises CUDA: workers are spawned (not forked) and
+each applies its ``worker_env`` (``CUDA_VISIBLE_DEVICES`` for instance)
+before its ``map_fun`` first touches ``torch.cuda``.
+
+Not ported yet (ROADMAP queue A): ``run_with_recovery``, live membership
+(``add_workers``/``retire_worker``), the agent backend, TensorBoard, the
+submit-time payload preflight and the ``/metrics`` HTTP endpoint.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import logging
+import multiprocessing as mp
+import os
+import secrets
+import tempfile
+import threading
+import time
+
+from tensorflowonspark_tpu_torch import health as tpu_health
+from tensorflowonspark_tpu_torch import metrics as tpu_metrics
+from tensorflowonspark_tpu_torch import node as tpu_node, util
+from tensorflowonspark_tpu_torch.marker import EndOfFeed, EndPartition
+from tensorflowonspark_tpu_torch.queues import DEFAULT_QUEUES, QueueClient
+from tensorflowonspark_tpu_torch.reservation import Server
+
+logger = logging.getLogger(__name__)
+
+
+class InputMode:
+    """Reference: ``TFCluster.py::InputMode``."""
+
+    SPARK = 0        # driver pushes data partitions into node queues
+    TENSORFLOW = 1   # nodes read their own data
+
+
+def _worker_entry(executor_id: int, env: dict, fn, tf_args, cluster_meta: dict,
+                  queues) -> None:
+    """Top-level child-process entry (must be picklable for mp 'spawn').
+
+    Sets per-worker env before anything in this process initialises CUDA,
+    so visibility flags take effect, then runs the node harness
+    (``node.run``), mirroring how a Spark task process executes
+    ``TFSparkNode._mapfn``.
+    """
+    os.environ.update({k: str(v) for k, v in env.items()})
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s [node {executor_id}] %(message)s")
+    mapfn = tpu_node.run(fn, tf_args, cluster_meta, queues=queues)
+    mapfn(executor_id)
+
+
+class LocalProcessBackend:
+    """Spawn N worker processes on this host (the 'local-cluster' analogue)."""
+
+    def __init__(self, worker_env: dict | None = None):
+        self.worker_env = worker_env or {}
+        self.procs: list[mp.Process] = []
+
+    def start(self, num_workers: int, fn, tf_args, cluster_meta: dict, queues) -> None:
+        self.procs = []
+        ctx = mp.get_context("spawn")  # fork is unsafe once CUDA is initialised
+        for i in range(num_workers):
+            p = ctx.Process(
+                target=_worker_entry,
+                args=(i, self.worker_env, fn, tf_args, cluster_meta, queues),
+                name=f"tfos-node-{i}", daemon=False)
+            p.start()
+            self.procs.append(p)
+
+    def alive(self) -> list[bool]:
+        return [p.is_alive() for p in self.procs]
+
+    def failed(self) -> list[int]:
+        return [i for i, p in enumerate(self.procs)
+                if (not p.is_alive()) and p.exitcode not in (0, None)]
+
+    def exitcodes(self) -> dict[int, int | None]:
+        """Exit codes by executor id (None while alive) — the monitor's
+        crash-vs-preemption classifier reads the signal number from here."""
+        return {i: p.exitcode for i, p in enumerate(self.procs)}
+
+    def join(self, timeout: float | None = None) -> bool:
+        deadline = None if timeout is None else time.monotonic() + timeout
+        for p in self.procs:
+            remaining = None if deadline is None else max(0.0, deadline - time.monotonic())
+            p.join(remaining)
+        return all(not p.is_alive() for p in self.procs)
+
+    def terminate(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+        for p in self.procs:
+            p.join(5)
+
+
+class TPUCluster:
+    """Handle for a running cluster.  Reference: ``TFCluster.py::TFCluster``.
+
+    The name is kept from the JAX package so driver scripts port unchanged;
+    here the workers drive GPUs."""
+
+    # how long shutdown waits for active feeder threads to notice the stop
+    # before closing their QueueClients out from under them
+    FEEDER_JOIN_SECS = 30.0
+
+    def __init__(self, backend, server: Server, cluster_info: list[dict],
+                 cluster_meta: dict, input_mode: int, working_dir: str,
+                 queues=DEFAULT_QUEUES):
+        self.backend = backend
+        self.server = server
+        self.cluster_info = cluster_info
+        self.cluster_meta = cluster_meta
+        self.input_mode = input_mode
+        self.working_dir = working_dir
+        self.queues = queues
+        self._clients: dict[int, QueueClient] = {}
+        self._feed_qnames: set[str] = {"input"}
+        self._shutdown_done = False
+        self._stop_feed = threading.Event()  # one-shot for the cluster's life
+        self._active_feeders: set = set()
+        self._monitor: "tpu_health.ClusterMonitor | None" = None
+
+    @property
+    def monitor(self):
+        """The steady-state :class:`~tensorflowonspark_tpu_torch.health.
+        ClusterMonitor`, or None when disabled (``monitor=False``)."""
+        return self._monitor
+
+    # ------------------------------------------------------------- metrics
+    def metrics(self) -> dict:
+        """Aggregated cluster telemetry.
+
+        ``{"driver": <this process's metrics-registry snapshot>,
+        "nodes": {eid: {"metrics", "goodput", "step", "phase",
+        "age_secs"}}}`` — the per-node view is whatever each worker's
+        :class:`~tensorflowonspark_tpu_torch.health.HeartbeatReporter` last
+        carried in its heartbeat payload, read from the running
+        monitor's cache (empty with ``monitor=False``)."""
+        nodes = (self._monitor.node_metrics()
+                 if self._monitor is not None else {})
+        return {"driver": tpu_metrics.get_registry().snapshot(),
+                "nodes": nodes}
+
+    # ------------------------------------------------------------------ run
+    @classmethod
+    def run(cls, map_fun, tf_args, num_workers: int, num_ps: int = 0,
+            input_mode: int = InputMode.SPARK,
+            master_node: str | None = None, eval_node: bool = False,
+            reservation_timeout: float = 600.0,
+            queues=DEFAULT_QUEUES, backend=None, worker_env: dict | None = None,
+            working_dir: str | None = None, queue_depth: int = 64,
+            default_fs: str = "", queue_shm: bool | None = None,
+            queue_bulk: bool | None = None, monitor: bool = True,
+            hang_timeout: float = 120.0, step_timeout: float | None = None,
+            heartbeat_interval: float = 1.0) -> "TPUCluster":
+        """Boot the cluster and block until every node has registered.
+
+        Mirrors ``TFCluster.py::run``'s signature and behavior: build the
+        job-name template, start the reservation server, launch workers,
+        await reservations, return the handle.
+
+        Once every node has registered, a steady-state
+        :class:`~tensorflowonspark_tpu_torch.health.ClusterMonitor` takes
+        over from the bootstrap crash watcher for the cluster's whole life
+        (``monitor=False`` disables it): crashes are detected from process
+        exit within a poll interval, and a worker whose heartbeat goes
+        stale for ``hang_timeout`` seconds is treated as hung and the
+        cluster is aborted instead of wedging until the shutdown timeout.
+        """
+        assert num_workers > 0, "need at least one worker"
+        cluster_template = _build_cluster_template(
+            num_workers, num_ps, master_node, eval_node)
+        logger.info("cluster template: %s", cluster_template)
+
+        working_dir = working_dir or tempfile.mkdtemp(prefix="tfos_torch_")
+        for i in range(num_workers):  # stale crash files from a reused dir
+            with contextlib.suppress(OSError):
+                os.remove(os.path.join(working_dir, f"error.{i}"))
+        authkey = secrets.token_bytes(16)
+        server = Server(num_workers, authkey=authkey)
+        server_addr = server.start()
+
+        cluster_meta = {
+            "id": secrets.token_hex(4),
+            "cluster_template": cluster_template,
+            "num_workers": num_workers,
+            "server_addr": server_addr,
+            "authkey": authkey,
+            "default_fs": default_fs,
+            "working_dir": working_dir,
+            "queue_mode": "remote",
+            "queue_depth": queue_depth,
+            # None = auto: each feeder↔node connection negotiates the
+            # zero-copy shm transport when it proves same-host (shm.py),
+            # falling back to the chunked bulk transport (transport.py)
+            # cross-host; False pins the tier off for every connection.
+            "queue_shm": queue_shm,
+            "queue_bulk": queue_bulk,
+            "reservation_timeout": reservation_timeout,
+            "heartbeat_interval": heartbeat_interval,
+        }
+
+        backend = backend or LocalProcessBackend(worker_env=worker_env)
+        try:
+            backend.start(num_workers, map_fun, tf_args, cluster_meta, queues)
+        except Exception:
+            server.stop()
+            raise
+
+        status: dict = {}
+        boot_watch = threading.Thread(
+            target=_watch_for_crashes, args=(backend, server, status), daemon=True)
+        boot_watch.start()
+        try:
+            cluster_info = server.await_reservations(
+                timeout=reservation_timeout, status=status)
+        except Exception:
+            backend.terminate()
+            server.stop()
+            _raise_worker_errors(working_dir, num_workers)
+            raise
+        logger.info("all %d nodes registered", num_workers)
+        cluster = cls(backend, server, cluster_info, cluster_meta, input_mode,
+                      working_dir, queues)
+        if monitor:
+            cluster._monitor = tpu_health.ClusterMonitor(
+                cluster, hang_timeout=hang_timeout, step_timeout=step_timeout)
+            cluster._monitor.start()
+        return cluster
+
+    # ---------------------------------------------------------------- feed
+    def _feedable_nodes(self) -> list[dict]:
+        """Nodes that consume the input queue: workers/chief/master, not
+        ps/evaluator (reference: ``TFCluster.py::train`` targets workers)."""
+        feedable = [n for n in self.cluster_info
+                    if n["job_name"] in ("worker", "chief", "master")]
+        return sorted(feedable, key=lambda n: n["executor_id"])
+
+    def _client_for(self, executor_id: int) -> QueueClient:
+        if executor_id not in self._clients:
+            info = next(n for n in self.cluster_info if n["executor_id"] == executor_id)
+            self._clients[executor_id] = QueueClient(
+                info["addr"], info["authkey"],
+                shm=self.cluster_meta.get("queue_shm"),
+                bulk=self.cluster_meta.get("queue_bulk"))
+        return self._clients[executor_id]
+
+    def train(self, data, num_epochs: int = 1, qname: str = "input",
+              feed_timeout: float = 600.0, chunk_size: int = 256,
+              num_partitions: int | None = None) -> None:
+        """Feed ``data`` to the cluster (InputMode.SPARK path).
+
+        Reference: ``TFCluster.py::train`` — unions the RDD ``num_epochs``
+        times (``num_epochs=0`` streams forever) and pushes every partition
+        into whichever executor Spark scheduled; here partitions are routed
+        round-robin over feedable nodes and items travel in ``chunk_size``
+        chunks.  Aborts when a node sets state ``'terminating'``.
+        """
+        assert self.input_mode == InputMode.SPARK, \
+            "train() feeds data only in InputMode.SPARK"
+        self._feed_qnames.add(qname)
+        # _stop_feed is one-shot for the cluster's life, so a stop_feed()/
+        # shutdown() issued before a background feeder thread reaches this
+        # line still takes effect.
+        nodes = self._feedable_nodes()
+        partitions = _partition(data, num_partitions or len(nodes))
+
+        epoch_iter = itertools.count() if num_epochs == 0 else range(num_epochs)
+        self._active_feeders.add(threading.current_thread())
+        try:
+            for epoch in epoch_iter:
+                for pidx, part in enumerate(partitions):
+                    if self._stop_feed.is_set():
+                        logger.info("feed: stop_feed() requested; stopping")
+                        return
+                    target = nodes[pidx % len(nodes)]
+                    client = self._client_for(target["executor_id"])
+                    if client.kv_get("state") == "terminating":
+                        logger.info("feed: node requested termination; stopping")
+                        return
+                    _feed_partition(client, part, qname, chunk_size,
+                                    feed_timeout, stop_event=self._stop_feed)
+                logger.info("feed: epoch %d delivered", epoch)
+        except (ConnectionError, EOFError, OSError) as e:
+            if isinstance(e, TimeoutError):  # a full queue, not a dead worker
+                raise
+            if self._stop_feed.is_set():
+                return  # orderly stop racing a socket close is not an error
+            self._reraise_worker_error(e)
+        finally:
+            self._active_feeders.discard(threading.current_thread())
+
+    def stop_feed(self) -> None:
+        """Stop an in-flight (possibly unbounded) ``train()`` feed from the
+        driver side; ``shutdown()`` then delivers the end-of-feed markers so
+        workers drain what was already queued and exit cleanly."""
+        self._stop_feed.set()
+
+    def inference(self, data, qname: str = "input", qname_out: str = "output",
+                  feed_timeout: float = 600.0, chunk_size: int = 256) -> list:
+        """Push data, collect an equal number of results.
+
+        Reference: ``TFCluster.py::inference`` → ``TFSparkNode._inference``
+        (push n items + EndPartition, pull exactly n results).  Results keep
+        partition order; ordering across nodes follows partition index.
+        """
+        assert self.input_mode == InputMode.SPARK
+        nodes = self._feedable_nodes()
+        partitions = _partition(data, len(nodes))
+        results: list = []
+        lock = threading.Lock()
+        errors: list = []
+
+        # One thread per *node* (not per partition): a node has a single
+        # input/output queue pair, so its partitions must be fed and
+        # collected sequentially or chunks from different partitions would
+        # interleave and threads would steal each other's results.
+        by_node: dict[int, list[tuple[int, list]]] = {}
+        for pidx, part in enumerate(partitions):
+            by_node.setdefault(pidx % len(nodes), []).append((pidx, part))
+
+        def _feed_and_collect(node_idx: int, parts: list[tuple[int, list]]) -> None:
+            try:
+                target = nodes[node_idx]
+                client = QueueClient(target["addr"], target["authkey"],
+                                     shm=self.cluster_meta.get("queue_shm"),
+                                     bulk=self.cluster_meta.get("queue_bulk"))
+                try:
+                    for pidx, part in parts:
+                        # Interleave feeding with result collection: with
+                        # bounded queues, pushing a whole partition before
+                        # draining results deadlocks once the output queue
+                        # fills (worker blocked on put, feeder blocked on
+                        # put).  _feed_partition drains via the callback both
+                        # between chunk puts and *while* a put is blocked.
+                        got: list = []
+
+                        def _drain():
+                            for _ in range(client.qsize(qname_out)):
+                                chunk = client.queue_get(qname_out, timeout=feed_timeout)
+                                got.extend(chunk if isinstance(chunk, list) else [chunk])
+
+                        _feed_partition(client, part, qname, chunk_size,
+                                        feed_timeout, on_progress=_drain)
+                        while len(got) < len(part):
+                            chunk = client.queue_get(qname_out, timeout=feed_timeout)
+                            got.extend(chunk if isinstance(chunk, list) else [chunk])
+                        with lock:
+                            results.append((pidx, got))
+                finally:
+                    client.close()
+            except Exception as e:  # surface feeder errors to caller
+                with lock:
+                    errors.append(e)
+
+        threads = [threading.Thread(target=_feed_and_collect, args=(n, ps), daemon=True)
+                   for n, ps in by_node.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            e = errors[0]
+            if (isinstance(e, (ConnectionError, EOFError, OSError))
+                    and not isinstance(e, TimeoutError)):
+                self._reraise_worker_error(e)
+            raise e
+        out: list = []
+        for _, got in sorted(results, key=lambda r: r[0]):
+            out.extend(got)
+        return out
+
+    def _reraise_worker_error(self, exc: BaseException) -> None:
+        """A feeder-side socket failure usually means the worker died; prefer
+        its traceback over the raw connection error.  Polls briefly because
+        the crash file is written by the dying worker concurrently with the
+        connection reset."""
+        deadline = time.monotonic() + 5.0
+        while True:
+            try:
+                _raise_worker_errors(self.working_dir,
+                                     self.cluster_meta["num_workers"])
+            except Exception as worker_err:
+                raise worker_err from exc
+            if time.monotonic() >= deadline:
+                raise exc
+            time.sleep(0.25)
+
+    # ------------------------------------------------------------ shutdown
+    def shutdown(self, grace_secs: float = 0.0, timeout: float = 259200.0) -> None:
+        """End feeding, join workers, re-raise the first worker error.
+
+        Reference: ``TFCluster.py::shutdown`` (push end-of-feed sentinels →
+        join the node RDD → re-raise worker exceptions → stop the reservation
+        server; default hard timeout 3 days).
+        """
+        if self._shutdown_done:
+            return
+        self._shutdown_done = True
+        self._stop_feed.set()  # unblock any background train() thread first
+        for t in list(self._active_feeders):
+            # wait for feeders to notice the stop before we close the
+            # QueueClients they are using (~2 s put attempts, see _put_chunk)
+            if t is threading.current_thread():
+                continue
+            t.join(timeout=self.FEEDER_JOIN_SECS)
+            if t.is_alive():
+                logger.warning(
+                    "feeder thread %r still running after %.0fs; its "
+                    "QueueClient will be closed out from under it",
+                    t.name, self.FEEDER_JOIN_SECS)
+        if grace_secs:
+            time.sleep(grace_secs)
+        if self.input_mode == InputMode.SPARK:
+            for n in self._feedable_nodes():
+                for qn in self._feed_qnames:
+                    try:
+                        self._client_for(n["executor_id"]).put(qn, EndOfFeed(), timeout=5)
+                    except Exception:
+                        logger.warning("could not send EndOfFeed('%s') to node %d",
+                                       qn, n["executor_id"])
+        finished = self.backend.join(timeout)
+        monitor_failure = None
+        if self._monitor is not None:
+            # keep the monitor alive THROUGH the join above — a crash or
+            # hang mid-drain aborts the join instead of wedging it.  A death
+            # that unblocked the join between monitor polls still needs
+            # classifying: poll once more, synchronously, then stop.  After
+            # a join TIMEOUT, stop before terminate() so those
+            # self-inflicted exits are not read back as failures.
+            if finished:
+                self._monitor.poll_now()
+            self._monitor.stop()
+            monitor_failure = self._monitor.failure
+        if not finished:
+            logger.warning("workers still alive after %.0fs; terminating", timeout)
+            self.backend.terminate()
+        for c in self._clients.values():
+            c.close()
+        self.server.stop()
+        _raise_worker_errors(self.working_dir, self.cluster_meta["num_workers"])
+        if monitor_failure is not None:
+            raise monitor_failure
+        failed = self.backend.failed() if finished else []
+        if failed:
+            raise RuntimeError(f"worker(s) {failed} exited with nonzero status")
+        if not finished:
+            raise TimeoutError(f"cluster shutdown timed out after {timeout}s")
+
+    def _abort(self) -> None:
+        """Hard teardown after a classified failure (the health monitor's
+        fail-fast path): terminate stragglers and release sockets and the
+        reservation server."""
+        self._stop_feed.set()
+        if self._monitor is not None:
+            self._monitor.stop()  # no-op join when called from its thread
+        with contextlib.suppress(Exception):
+            self.backend.terminate()
+        for c in self._clients.values():
+            with contextlib.suppress(Exception):
+                c.close()
+        with contextlib.suppress(Exception):
+            self.server.stop()
+
+
+# -- helpers ---------------------------------------------------------------
+
+def _build_cluster_template(num_workers: int, num_ps: int,
+                            master_node: str | None, eval_node: bool) -> dict:
+    """Map job names to executor-id lists.
+
+    Reference: the template logic at the top of ``TFCluster.py::run``
+    (ps nodes first, then chief/master, evaluator last, workers in between).
+    """
+    assert num_ps < num_workers, "num_ps must leave at least one worker"
+    executors = list(range(num_workers))
+    template: dict[str, list[int]] = {}
+    if num_ps:
+        template["ps"] = executors[:num_ps]
+        executors = executors[num_ps:]
+    if eval_node:
+        assert len(executors) > 1, "eval_node needs a spare executor"
+        template["evaluator"] = [executors[-1]]
+        executors = executors[:-1]
+    if master_node:
+        template[master_node] = [executors[0]]
+        executors = executors[1:]
+    if executors:
+        template["worker"] = executors
+    return template
+
+
+def _partition(data, n: int) -> list[list]:
+    """Split data into n contiguous partitions (RDD-partition stand-in).
+
+    Accepts a list of pre-made partitions (list of lists) via
+    ``Partitioned`` or splits a flat sequence evenly.
+    """
+    if isinstance(data, Partitioned):
+        return [list(p) for p in data.partitions]
+    return util.split_evenly(list(data), n)
+
+
+class Partitioned:
+    """Explicitly pre-partitioned data (the RDD-with-partitions analogue)."""
+
+    def __init__(self, partitions):
+        self.partitions = list(partitions)
+
+
+def _feed_partition(client: QueueClient, part: list, qname: str,
+                    chunk_size: int, feed_timeout: float,
+                    on_progress=None, stop_event=None) -> None:
+    """Push one partition as chunks + EndPartition marker.
+
+    Reference hot loop: ``TFSparkNode.py::_train`` (per-item ``q.put`` with
+    ``feed_timeout``; aborts on state ``'terminating'``) — here chunked.
+    ``on_progress`` (used by inference) is invoked between chunks *and*
+    whenever a put is blocked on a full queue, so the caller can drain the
+    output queue instead of deadlocking against a blocked worker.
+    ``stop_event`` (driver-side ``stop_feed``) aborts between chunks and
+    while a put is blocked.
+    """
+    for i, start in enumerate(range(0, len(part), chunk_size)):
+        if stop_event is not None and stop_event.is_set():
+            return
+        # poll 'state' every 16 chunks, not per chunk — the kv round trip
+        # would otherwise double the driver's per-chunk latency
+        if i % 16 == 0 and client.kv_get("state") == "terminating":
+            return
+        _put_chunk(client, qname, part[start:start + chunk_size],
+                   feed_timeout, on_progress, stop_event)
+        if on_progress is not None:
+            on_progress()
+    if stop_event is not None and stop_event.is_set():
+        return
+    _put_chunk(client, qname, EndPartition(), feed_timeout, on_progress,
+               stop_event)
+
+
+def _put_chunk(client: QueueClient, qname: str, item, feed_timeout: float,
+               on_progress=None, stop_event=None) -> None:
+    """Blocking put that keeps draining via ``on_progress`` while full and
+    gives up promptly when ``stop_event`` fires."""
+    deadline = time.monotonic() + feed_timeout
+    attempt_timeout = (2.0 if (on_progress is not None or stop_event is not None)
+                       else feed_timeout)
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            raise TimeoutError(f"queue '{qname}' full after {feed_timeout}s "
+                               "(feed_timeout)")
+        try:
+            client.put(qname, item, timeout=min(attempt_timeout, remaining))
+            return
+        except TimeoutError:
+            if stop_event is not None and stop_event.is_set():
+                return  # streaming stop: abandoning the chunk is fine
+            if on_progress is None and stop_event is None:
+                raise
+            if on_progress is not None:
+                on_progress()  # free worker-side backpressure, then retry
+
+
+def _watch_for_crashes(backend, server: Server, status: dict) -> None:
+    """Fail-fast bootstrap monitor: if a worker dies before registering,
+    surface it so ``await_reservations`` raises instead of hanging (the
+    reference gets this from Spark job failure + ``spark.task.maxFailures=1``)."""
+    while not server.done.is_set() and not server.reservations.done():
+        failed = backend.failed()
+        if failed:
+            status["error"] = (
+                f"worker(s) {failed} exited during bootstrap. If this driver "
+                "script runs at module top level, wrap it in `if __name__ == "
+                "'__main__':` — worker processes re-import the main module "
+                "(multiprocessing 'spawn'), like PySpark driver scripts."
+            )
+            return
+        time.sleep(0.25)
+
+
+def _raise_worker_errors(working_dir: str, num_workers: int) -> None:
+    """Re-raise worker tracebacks found in crash files — ALL of them.
+
+    Reference: ``TFCluster.py::shutdown`` re-raising errors drained from the
+    per-node ``'error'`` queues.  Every crashed worker's traceback is
+    aggregated into the one ``RuntimeError``, so a multi-worker failure is
+    diagnosed in one read.
+    """
+    found: list[tuple[int, str]] = []
+    for i in range(num_workers):
+        crash = os.path.join(working_dir, f"error.{i}")
+        if os.path.exists(crash):
+            with open(crash) as f:
+                found.append((i, f.read()))
+    if not found:
+        return
+    if len(found) == 1:
+        i, tb = found[0]
+        raise RuntimeError(f"worker {i} failed:\n{tb}")
+    detail = "\n".join(f"--- worker {i} failed ---\n{tb}" for i, tb in found)
+    raise RuntimeError(
+        f"{len(found)} workers failed "
+        f"({', '.join(str(i) for i, _ in found)}):\n{detail}")
