@@ -32,26 +32,21 @@ BERT_BASE = {"vocab_size": 30522, "hidden_size": 768, "num_layers": 12,
              "max_position_embeddings": 512, "dtype": "bfloat16"}
 
 
-def qa_config(config: dict, attention="flash"):
+def qa_config(config: dict, attention="flash", dropout_rate: float = 0.0):
     """A :class:`~tensorflowonspark_tpu_torch.models.bert.BertConfig` from a
-    plain (picklable) dict; ``attention`` is ``"flash"`` (the CUDA kernel
-    on the card), ``"reference"`` (its plain PyTorch version) or an
-    ``attention_fn`` itself."""
+    plain (picklable) dict; ``attention`` is ``"flash"`` (the CUDA kernels
+    on the card), ``"reference"`` (their plain PyTorch versions, forward
+    and backward) or an ``attention_fn`` itself."""
     import torch
 
     from tensorflowonspark_tpu_torch.models.bert import BertConfig
-    from tensorflowonspark_tpu_torch.ops import flash_attention
-    from tensorflowonspark_tpu_torch.ops.flash_attention import (
-        flash_attention_reference)
-
-    def reference(q, k, v, mask=None):
-        return flash_attention_reference(q, k, v, mask=mask)[0]
+    from tensorflowonspark_tpu_torch.ops import flash_attention, flash_attention_plain
 
     attention_fn = attention if callable(attention) else {
-        "flash": flash_attention, "reference": reference}[attention]
+        "flash": flash_attention, "reference": flash_attention_plain}[attention]
     kw = dict(config)
     kw["dtype"] = getattr(torch, kw.get("dtype", "bfloat16"))
-    return BertConfig(dropout_rate=0.0, attention_fn=attention_fn, **kw)
+    return BertConfig(dropout_rate=dropout_rate, attention_fn=attention_fn, **kw)
 
 
 def make_rows(n: int, seq_len: int, vocab_size: int, seed: int,
@@ -81,10 +76,11 @@ def make_rows(n: int, seq_len: int, vocab_size: int, seed: int,
 def build_model(args: dict, device, attention="flash"):
     """The QA model of ``args`` on ``device``: weights from
     ``args["state_dict"]`` when given (carried across, e.g. by
-    ``params_from_flax``), else drawn from ``args["seed"]``."""
+    ``params_from_flax``), else drawn from ``args["seed"]``; dropout rate
+    ``args["dropout"]`` (default 0)."""
     from tensorflowonspark_tpu_torch.models.bert import build_qa_model, init_params
 
-    cfg = qa_config(args["config"], attention)
+    cfg = qa_config(args["config"], attention, args.get("dropout", 0.0))
     sd = args.get("state_dict") or init_params(cfg, args["seed"])
     return build_qa_model(cfg, sd, device)
 

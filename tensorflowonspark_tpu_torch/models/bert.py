@@ -13,7 +13,12 @@ Port of ``tensorflowonspark_tpu/models/bert.py`` (the repo's flagship model,
 - the dense attention path (``attention_fn=None``) computes in float32
   with ``where(mask, s, -1e30)``; ``attention_fn=flash_attention`` runs
   the CUDA kernel (``ops/flash_attention.py``);
-- the QA head is a float32 Dense on ``cfg.dtype`` activations.
+- the QA head is a float32 Dense on ``cfg.dtype`` activations;
+- ``forward(..., train=True, rng=generator)`` applies dropout where the
+  flax module does (embeddings after ``ln_emb``, the attention output, the
+  MLP output, and the attention probabilities on the dense path only),
+  with masks drawn from the explicit ``torch.Generator`` ``rng``, never
+  from the global RNG.  It cannot reproduce JAX's random bits.
 
 :func:`params_from_flax` carries the JAX package's parameters across;
 :func:`init_params` draws random ones from a seed with numpy.  Not ported
@@ -24,6 +29,8 @@ yet (ROADMAP queue A): ``scan_layers``/``remat``, mesh anchoring
 from __future__ import annotations
 
 import dataclasses
+import functools
+import logging
 import math
 from typing import Callable
 
@@ -31,6 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +77,32 @@ def _layer_norm(layer: nn.LayerNorm, x, dtype):
     return layer(x.float()).to(dtype)
 
 
+def _dropout(x, rate: float, train: bool, rng):
+    """flax ``nn.Dropout(rate, deterministic=not train)``: keep each element
+    with probability ``1 - rate`` (the mask drawn from generator ``rng``)
+    and scale the kept ones by ``1 / (1 - rate)``."""
+    if not train or rate <= 0:
+        return x
+    if rng is None:
+        raise ValueError("train=True with dropout needs rng=torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(keep_prob, generator=rng)
+    return torch.where(keep.bool(), x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                                device=x.device))
+
+
+@functools.cache
+def _warn_no_attention_dropout() -> None:
+    """A custom ``attention_fn`` (the flash kernel) computes the softmax
+    inside the kernel and never materialises the probabilities, so the
+    dense path's attention-probability dropout is not applied there; warn
+    once, as the JAX module does."""
+    logger.warning(
+        "BertConfig.dropout_rate > 0 with a custom attention_fn: "
+        "attention-probability dropout is not applied on this path "
+        "(residual/MLP dropout still is)")
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -77,9 +112,8 @@ class SelfAttention(nn.Module):
         self.key = nn.Linear(cfg.hidden_size, hd)
         self.value = nn.Linear(cfg.hidden_size, hd)
         self.out = nn.Linear(hd, cfg.hidden_size)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, *, train: bool = False, rng=None):
         cfg = self.cfg
         B, T, _ = x.shape
         H, D = cfg.num_heads, cfg.head_dim
@@ -87,12 +121,14 @@ class SelfAttention(nn.Module):
         k = _dense(self.key, x, cfg.dtype).view(B, T, H, D)
         v = _dense(self.value, x, cfg.dtype).view(B, T, H, D)
         if cfg.attention_fn is not None:
+            if train and cfg.dropout_rate > 0:
+                _warn_no_attention_dropout()
             ctx = cfg.attention_fn(q, k, v, mask=mask)
         else:
             s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
             if mask is not None:
                 s = torch.where(mask[:, None, None, :], s, -1e30)
-            p = self.dropout(torch.softmax(s, dim=-1))
+            p = _dropout(torch.softmax(s, dim=-1), cfg.dropout_rate, train, rng)
             ctx = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
         ctx = ctx.to(cfg.dtype).reshape(B, T, H * D)
         return _dense(self.out, ctx, cfg.dtype)
@@ -107,15 +143,14 @@ class EncoderLayer(nn.Module):
         self.mlp_up = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.mlp_down = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
         self.ln_mlp = nn.LayerNorm(cfg.hidden_size, eps=cfg.norm_eps)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, *, train: bool = False, rng=None):
         cfg = self.cfg
-        y = self.dropout(self.attn(x, mask))
+        y = _dropout(self.attn(x, mask, train=train, rng=rng), cfg.dropout_rate, train, rng)
         x = _layer_norm(self.ln_attn, x + y, cfg.dtype)
         y = _dense(self.mlp_up, x, cfg.dtype)
         y = F.gelu(y, approximate="none" if cfg.gelu_exact else "tanh")
-        y = self.dropout(_dense(self.mlp_down, y, cfg.dtype))
+        y = _dropout(_dense(self.mlp_down, y, cfg.dtype), cfg.dropout_rate, train, rng)
         return _layer_norm(self.ln_mlp, x + y, cfg.dtype)
 
 
@@ -130,10 +165,10 @@ class Bert(nn.Module):
         self.pos_emb = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
         self.type_emb = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
         self.ln_emb = nn.LayerNorm(cfg.hidden_size, eps=cfg.norm_eps)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None, *,
+                train: bool = False, rng=None):
         cfg = self.cfg
         T = input_ids.shape[1]
         # flax Embed(dtype=bf16) casts the table, then gathers: gathering
@@ -143,10 +178,10 @@ class Bert(nn.Module):
         x = x + self.pos_emb(pos).to(cfg.dtype)
         if token_type_ids is not None:
             x = x + self.type_emb(token_type_ids).to(cfg.dtype)
-        x = self.dropout(_layer_norm(self.ln_emb, x, cfg.dtype))
+        x = _dropout(_layer_norm(self.ln_emb, x, cfg.dtype), cfg.dropout_rate, train, rng)
         mask = None if attention_mask is None else attention_mask.bool()
         for layer in self.layers:
-            x = layer(x, mask)
+            x = layer(x, mask, train=train, rng=rng)
         return x
 
 
@@ -159,8 +194,9 @@ class BertForQuestionAnswering(nn.Module):
         self.bert = Bert(cfg)
         self.qa_head = nn.Linear(cfg.hidden_size, 2)
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
-        x = self.bert(input_ids, attention_mask, token_type_ids)
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None, *,
+                train: bool = False, rng=None):
+        x = self.bert(input_ids, attention_mask, token_type_ids, train=train, rng=rng)
         logits = F.linear(x.float(), self.qa_head.weight, self.qa_head.bias)
         return logits[..., 0], logits[..., 1]
 
@@ -174,6 +210,9 @@ def params_from_flax(flax_params: dict) -> dict[str, torch.Tensor]:
 
     ``Dense`` kernels ``(in, out)`` become ``nn.Linear.weight`` ``(out, in)``;
     ``Embed`` tables and LayerNorm ``scale``/``bias`` carry over as they are.
+    A flax model initialised without ``token_type_ids`` has no ``type_emb``
+    (flax creates the table only when it is called), and neither has the
+    result: :func:`build_qa_model` fills the table with zeros.
     """
     sd: dict[str, torch.Tensor] = {}
 
@@ -233,8 +272,14 @@ def init_params(cfg: BertConfig, seed: int) -> dict[str, torch.Tensor]:
 
 def build_qa_model(cfg: BertConfig, state_dict: dict, device) -> BertForQuestionAnswering:
     """A ``BertForQuestionAnswering`` in eval mode on ``device`` holding
-    ``state_dict`` (float32 parameters, as flax keeps them)."""
+    ``state_dict`` (float32 parameters, as flax keeps them).
+
+    A missing ``bert.type_emb.weight`` (a flax model initialised from ids
+    alone has none) becomes zeros: the model then adds nothing where flax
+    skips the table, and zeros where token types are given."""
+    sd = dict(state_dict)
+    sd.setdefault("bert.type_emb.weight", torch.zeros(cfg.type_vocab_size, cfg.hidden_size))
     with torch.device("meta"):
         model = BertForQuestionAnswering(cfg)
-    model.load_state_dict(state_dict, assign=True)
+    model.load_state_dict(sd, assign=True)
     return model.to(device).eval()

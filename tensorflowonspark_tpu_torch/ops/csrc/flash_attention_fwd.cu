@@ -38,19 +38,11 @@
 // to the value dtype before the p.V product while l sums the unrounded p; the
 // K loop is trimmed to the tiles a causal/windowed query tile can see.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
 
-namespace {
+#include "flash_attention_common.cuh"
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
-constexpr float kEps = 1e-30f;
+namespace {
 
 template <int D>
 constexpr size_t f32_smem_bytes() {
@@ -127,12 +119,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       Ks[r * DP + d] = in ? kb[kj * kst + d] : 0.f;
       Vs[r * D + d] = in ? vb[kj * vst + d] : 0.f;
     }
-    if (tid < kBK) {
-      const int kj = k0 + tid;
-      float bias = kNegInf;  // ragged edge: padded keys never count
-      if (kj < Tk) bias = (mask == nullptr || mask[(long long)b * Tk + kj]) ? 0.f : kNegInf;
-      bias_s[tid] = bias;
-    }
+    if (tid < kBK) bias_s[tid] = key_bias(mask, b, Tk, k0 + tid);
     __syncthreads();
 
     float s[4][8];
@@ -242,60 +229,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // never touches shared memory.  Row max and sum are two xor-shuffles among
 // the four lanes that share a row.
 
-constexpr int kPad = 8;  // bf16 elements of padding per staged row
-
 template <int D>
 constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * size_t(kBQ + 2 * kBK) * (D + kPad) +
          sizeof(float) * kBK;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// c += a (16x16, row-major) * b (16x8, col-major); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [t0, t0 + 64) of a [T, D] slab into shared memory, 16 bytes a load;
-// rows at or past T are zeros.  The wrapper checks the 16-byte alignment.
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long stride_t, int t0, int T,
-                                           int tid) {
-  constexpr int kVec = 8;
-  constexpr int kChunks = D / kVec;
-  for (int idx = tid; idx < 64 * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * kVec;
-    const int t = t0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T) val = *reinterpret_cast<const uint4*>(src + t * stride_t + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
 }
 
 template <int D>
@@ -342,7 +279,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   uint32_t qf[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks)
-    ldmatrix_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+    load_a(qf[ks], Qs, LD, warp * 16, ks * 16, lane);
 
   float o[NO][4];
 #pragma unroll
@@ -354,12 +291,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // the last tile's Ks/Vs reads are done
     stage_rows<D>(Ks, kb, kst, k0, Tk, tid);
     stage_rows<D>(Vs, vb, vst, k0, Tk, tid);
-    if (tid < kBK) {
-      const int kj = k0 + tid;
-      float bias = kNegInf;  // ragged edge: padded keys never count
-      if (kj < Tk) bias = (mask == nullptr || mask[(long long)b * Tk + kj]) ? 0.f : kNegInf;
-      bias_s[tid] = bias;
-    }
+    if (tid < kBK) bias_s[tid] = key_bias(mask, b, Tk, k0 + tid);
     __syncthreads();
 
     float s[NS][4];
@@ -370,8 +302,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t bf[4];  // b0, b1 of key groups 2np and 2np+1
-        ldmatrix_x4(bf, Ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                            ks * 16 + ((lane >> 3) & 1) * 8);
+        load_b_t(bf, Ks, LD, np * 16, ks * 16, lane);
         mma_bf16(s[2 * np], qf[ks], bf[0], bf[1]);
         mma_bf16(s[2 * np + 1], qf[ks], bf[2], bf[3]);
       }
@@ -438,8 +369,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int dp = 0; dp < NO / 2; ++dp) {
         uint32_t bf[4];  // b0, b1 of head-dim groups 2dp and 2dp+1
-        ldmatrix_x4_trans(bf, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                  dp * 16 + (lane >> 4) * 8);
+        load_b(bf, Vs, LD, kk * 16, dp * 16, lane);
         mma_bf16(o[2 * dp], pa, bf[0], bf[1]);
         mma_bf16(o[2 * dp + 1], pa, bf[2], bf[3]);
       }
@@ -477,13 +407,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
     if constexpr (kMma) return &flash_fwd_mma_kernel<D>;
     else return &flash_fwd_f32_kernel<D>;
   }();
-  static bool configured = false;  // the attribute is per device function
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  static bool configured = false;
+  if (cudaError_t err = allow_smem(kernel, smem, configured)) return (int)err;
   dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -514,8 +439,4 @@ extern "C" int tfos_flash_attention_fwd(
   if (dtype == 1 && head_dim == 128) TFOS_LAUNCH(__nv_bfloat16, 128);
 #undef TFOS_LAUNCH
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" const char* tfos_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,13 +1,18 @@
-"""Where a BERT-base QA batch spends its time on the card.
+"""Where a BERT-base QA batch, or a training step, spends its time on the card.
 
-    python -m tensorflowonspark_tpu_torch.profile_bert [--seed 0] [--batches 5]
+    python -m tensorflowonspark_tpu_torch.profile_bert [--seed 0] [--batches 5] [--train]
 
-Runs the slice's worker forward (``bert_inference.forward_batch``, flash
-attention, bf16, random weights from ``--seed``) on one batch of 16
-SQuAD-shaped rows at T=384, warms up, then traces ``--batches`` batches
-with ``torch.profiler``.  Prints device time by kernel family, the
-device's busy share of the traced wall time, and one JSON line with the
-same numbers.  Needs a CUDA card.
+Without ``--train``: the slice-1 worker forward
+(``bert_inference.forward_batch``, flash attention, bf16, random weights
+from ``--seed``) on one batch of 16 SQuAD-shaped rows at T=384.  With
+``--train``: one full training step of the slice-2 worker
+(``bert_train.squad_loss`` through ``DataParallelStrategy``: forward,
+backward through the flash kernels, AdamW at lr 3e-5, dropout 0.1) on 16
+rows.  Either warms up, then traces ``--batches`` batches or steps with
+``torch.profiler``.  Prints device time by kernel family, the device's
+busy share of the traced wall time and of the same loop's wall time with
+the profiler off, and one JSON line with the same
+numbers.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -18,10 +23,14 @@ import subprocess
 import time
 
 FAMILIES = (  # first match wins; names as CUPTI reports them
-    ("flash_attention (CUDA, this repo)", ("flash_fwd",)),
+    ("flash_attention forward (CUDA, this repo)", ("flash_fwd",)),
+    ("flash_attention backward (CUDA, this repo)", ("flash_dq", "flash_dkv")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet")),
+    ("AdamW (multi-tensor)", ("multi_tensor", "adam")),
     ("layer_norm", ("layer_norm",)),
     ("gelu", ("gelu",)),
+    ("dropout masks", ("bernoulli", "philox")),
+    ("reductions (delta, losses, grad sums)", ("reduce",)),
     ("casts and copies", ("copy", "memcpy", "cast")),
     ("embedding", ("embedding", "index")),
 )
@@ -35,18 +44,57 @@ def family(name: str) -> str:
     return "other elementwise"
 
 
+def forward(seed: int, device):
+    """One inference batch of the slice-1 worker, as a callable."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import bert_inference as bi
+
+    model = bi.build_model({"config": bi.BERT_BASE, "seed": seed}, device)
+    rows = bi.make_rows(16, 384, bi.BERT_BASE["vocab_size"], seed)
+    batch = [np.stack([r[c] for r in rows]) for c in range(3)]
+
+    def run():
+        with torch.inference_mode():
+            bi.forward_batch(model, batch, 16, device)
+    return run
+
+
+def train_step(seed: int, device):
+    """One training step of the slice-2 worker (forward, backward, AdamW),
+    as a callable; the loss is read back each step, as the worker does."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import bert_inference as bi
+    from tensorflowonspark_tpu_torch import bert_train as bt
+    from tensorflowonspark_tpu_torch.parallel import DataParallelStrategy
+
+    args = {"config": bi.BERT_BASE, "seed": seed, "dropout": 0.1}
+    strategy = DataParallelStrategy(device, seed=seed)
+    state = strategy.init_state(bt.build_train_model(args, device), bt.adamw(3e-5))
+    step = strategy.build_train_step(bt.squad_loss)
+    rows = bt.make_train_rows(16, 384, bi.BERT_BASE["vocab_size"], seed)
+    batch = bt.pad_batch([np.stack([r[c] for r in rows]) for c in range(5)], 16)
+
+    def run():
+        _, metrics = step(state, strategy.shard_batch(batch))
+        float(metrics["loss"])
+    return run
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batches", type=int, default=5)
+    p.add_argument("--train", action="store_true",
+                   help="profile a training step instead of an inference batch")
     args = p.parse_args()
 
-    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tensorflowonspark_tpu_torch import bert_inference as bi
     from tensorflowonspark_tpu_torch.util import resolve_device, strict_matmul_precision
 
     device = resolve_device("cuda")
@@ -54,25 +102,29 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    model = bi.build_model({"config": bi.BERT_BASE, "seed": args.seed}, device)
-    rows = bi.make_rows(16, 384, bi.BERT_BASE["vocab_size"], args.seed)
-    batch = [np.stack([r[c] for r in rows]) for c in range(3)]
-    with torch.inference_mode():
-        for _ in range(3):
-            bi.forward_batch(model, batch, 16, device)
+    run = train_step(args.seed, device) if args.train else forward(args.seed, device)
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()       # the same work with the profiler off
+    for _ in range(args.batches):
+        run()
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.batches):
+            run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.batches):
-                bi.forward_batch(model, batch, 16, device)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
 
     by_family: dict[str, float] = {}
     by_kernel: dict[str, float] = {}
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:  # kernels only, not the ops
-            continue                              # that launched them
+        # kernels only: not the ops that launched them, nor the ranges that
+        # annotations (``Optimizer.step#AdamW.step``) open on the device
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+            continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = evt.self_cuda_time_total
@@ -82,16 +134,22 @@ def main() -> int:
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dev_us / 1e3
     busy_ms = sum(by_family.values())
     per = args.batches
-    print(f"profile_bert on {card}: {per} batches of 16 x 384, wall {wall_ms / per:.3f} ms "
+    what = "training steps" if args.train else "batches"
+    print(f"profile_bert on {card}: {per} {what} of 16 x 384, wall {wall_ms / per:.3f} ms "
           f"a batch, device busy {busy_ms / per:.3f} ms a batch "
-          f"({busy_ms / wall_ms:.3f} of wall; idle share {1 - busy_ms / wall_ms:.3f})")
+          f"({busy_ms / wall_ms:.3f} of wall; idle share {1 - busy_ms / wall_ms:.3f}); "
+          f"with the profiler off: wall {plain_wall_ms / per:.3f} ms a batch, idle share "
+          f"{1 - busy_ms / plain_wall_ms:.3f}")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:36s} {ms / per:9.3f} ms a batch  {ms / busy_ms:6.3f} of device time")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {ms / per:9.3f} ms a batch  {name[:100]}")
-    print(json.dumps({"card": card, "batches": per, "wall_ms_per_batch": wall_ms / per,
+    print(json.dumps({"card": card, "mode": "train" if args.train else "inference",
+                      "batches": per, "wall_ms_per_batch": wall_ms / per,
                       "device_busy_ms_per_batch": busy_ms / per,
                       "idle_share": 1 - busy_ms / wall_ms,
+                      "wall_ms_per_batch_unprofiled": plain_wall_ms / per,
+                      "idle_share_unprofiled": 1 - busy_ms / plain_wall_ms,
                       "device_ms_per_batch": {f: ms / per for f, ms in by_family.items()}}))
     return 0
 

@@ -170,6 +170,8 @@ def test_port_imports_no_jax_nor_the_jax_package():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "tensorflowonspark_tpu_torch.ops.flash_attention" in report["imported"]
     assert "tensorflowonspark_tpu_torch.bert_inference" in report["imported"]
+    assert "tensorflowonspark_tpu_torch.bert_train" in report["imported"]
+    assert "tensorflowonspark_tpu_torch.parallel.strategy" in report["imported"]
     assert [m for m in report["new"] if _forbidden(m)] == []
 
 

@@ -1,18 +1,28 @@
-"""The port's flash-attention forward against the JAX package's Pallas kernel.
+"""The port's flash attention, forward and backward, against the JAX
+package's Pallas kernels.
 
 The JAX side runs ``tensorflowonspark_tpu.ops.flash_attention`` as
 ``tests/test_ops.py`` does on the CPU (Pallas interpret mode, 16x16 blocks),
-and ``_fwd_impl`` directly for ``lse``.  The port's ``flash_attention`` on
-CPU tensors is its plain PyTorch version (the CUDA kernel itself is held
-against that plain version on the card by ``test_torch_kernels_cuda.py``).
-Inputs are made with numpy from a seed and handed to both.
+``_fwd_impl`` directly for ``lse``, and ``jax.vjp`` through the wrapper for
+the gradients.  The port's ``flash_attention`` on CPU tensors runs its plain
+PyTorch versions (the CUDA kernels themselves are held against those plain
+versions on the card by ``test_torch_kernels_cuda.py``).  Inputs are made
+with numpy from a seed and handed to both.
 
-Tolerances: float32 ``atol=2e-5, rtol=1e-5`` (the two sum the same f32
-products in another order); bfloat16 ``atol=2e-2`` (``p`` is rounded to
+Forward tolerances: float32 ``atol=2e-5, rtol=1e-5`` (the two sum the same
+f32 products in another order); bfloat16 ``atol=2e-2`` (``p`` is rounded to
 bf16 against the running max in the kernel and the final max in the plain
 version, a relative 2^-8 either way).
+
+Backward tolerances: float32 ``atol=2e-5, rtol=1e-5`` on gradients of
+magnitude ~1 (same arithmetic, another summation order).  bfloat16
+``atol = 2e-2 * max|g|``: each side's gradients are rounded to bf16 (2^-8
+relative), and dQ rounds ``ds`` to bf16 before ``ds.K`` on both sides,
+where a one-ulp difference in the bf16 forward output (through ``delta``)
+can move a rounding.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +33,8 @@ from tensorflowonspark_tpu.ops.flash_attention import NEG_INF as JAX_NEG_INF
 from tensorflowonspark_tpu.ops.flash_attention import _fwd_impl, _pick_block
 from tensorflowonspark_tpu_torch.ops import flash_attention as torch_flash
 from tensorflowonspark_tpu_torch.ops.flash_attention import (
-    flash_attention_fwd, flash_attention_reference)
+    flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
+    flash_attention_reference)
 
 BLOCK = 16
 
@@ -128,11 +139,77 @@ def test_rejects_window_without_causal():
         torch_flash(x, x, x, causal=True, window=0)
 
 
-def test_backward_raises_until_ported():
-    q = torch.randn(1, 8, 1, 64, requires_grad=True)
-    out = torch_flash(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        out.sum().backward()
+def _jax_grads(q, k, v, mask, causal, window, g):
+    """``(dq, dk, dv)`` of ``sum(out * g)`` by ``jax.vjp`` through the
+    Pallas kernels in interpret mode."""
+    def f(q, k, v):
+        return jax_flash(q, k, v, mask=mask, causal=causal, window=window,
+                         block_q=BLOCK, block_k=BLOCK, interpret=True)
+    _, vjp = jax.vjp(f, q, k, v)
+    return [np.asarray(x, np.float32) for x in vjp(g)]
+
+
+#: the backward's cases: every masking path, both head dims, f32 and bf16
+BWD_CASES = [(c, "float32") for c in sorted(CASES)] + [
+    ("fully_masked_row", "bfloat16"), ("causal_window", "bfloat16"),
+    ("tq_ne_tk", "bfloat16"), ("d128_causal", "bfloat16")]
+
+
+@pytest.mark.parametrize("case,dtype", BWD_CASES)
+def test_backward_matches_pallas(case, dtype):
+    B, Tq, Tk, H, D, lens, causal, window = CASES[case]
+    (jq, jk, jv), (tq, tk, tv), jm, tm = _inputs(
+        sum(map(ord, case)) + 1, B, Tq, Tk, H, D, dtype, lens)
+    g = np.random.default_rng(len(case)).standard_normal((B, Tq, H, D), dtype=np.float32)
+    if dtype == "bfloat16":
+        g = np.asarray(g, dtype=jnp.bfloat16)
+        tg = torch.from_numpy(g.astype(np.float32)).to(torch.bfloat16)
+    else:
+        tg = torch.from_numpy(g)
+    want = _jax_grads(jq, jk, jv, jm, causal, window, jnp.asarray(g))
+
+    # the autograd node, and the plain backward called directly
+    tq, tk, tv = (x.requires_grad_() for x in (tq, tk, tv))
+    launches = (torch_flash.launches, flash_attention_bwd.launches_dq,
+                flash_attention_bwd.launches_dkv)
+    out = torch_flash(tq, tk, tv, mask=tm, causal=causal, window=window)
+    got = torch.autograd.grad(out, (tq, tk, tv), tg)
+    o, lse = flash_attention_fwd(tq.detach(), tk.detach(), tv.detach(), mask=tm,
+                                 causal=causal, window=window)
+    direct = flash_attention_bwd_reference(tq.detach(), tk.detach(), tv.detach(), tm,
+                                           o, lse, tg, causal=causal, window=window)
+    assert (torch_flash.launches, flash_attention_bwd.launches_dq,
+            flash_attention_bwd.launches_dkv) == launches == (0, 0, 0)  # CPU: no kernel
+    for name, a, b, w, x in zip("qkv", got, direct, want, (tq, tk, tv)):
+        assert a.dtype == x.dtype and a.shape == x.shape, name
+        assert torch.equal(a, b), name  # the node runs exactly the plain backward
+        a = a.float().numpy()
+        assert np.isfinite(a).all(), name
+        if dtype == "float32":
+            np.testing.assert_allclose(a, w, atol=2e-5, rtol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_allclose(a, w, atol=2e-2 * np.abs(w).max(), rtol=0,
+                                       err_msg=name)
+    if lens is not None and 0 in lens:
+        b = lens.index(0)
+        # a fully masked row: no gradient reaches its queries, keys or values
+        for a in got:
+            assert (a[b] == 0).all()
+
+
+def test_backward_takes_a_strided_grad_out():
+    """A non-contiguous ``grad_out`` (a transposed view) gives the same
+    gradients as its contiguous copy."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 24, 3, 64), dtype=np.float32))
+               for _ in range(3))
+    g = torch.from_numpy(rng.standard_normal((2, 3, 24, 64), dtype=np.float32)).transpose(1, 2)
+    assert not g.is_contiguous()
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    want = flash_attention_bwd(q, k, v, None, out, lse, g.contiguous(), causal=True)
+    got = flash_attention_bwd(q, k, v, None, out, lse, g, causal=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
 
 
 def test_reference_matches_sdpa_on_rows_with_keys():

@@ -6,19 +6,27 @@ the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: float32 ``atol=2e-5, rtol=1e-5`` (the same f32 products summed
-in another order); bfloat16 ``atol=2e-2`` (``p`` is rounded to bf16
-against the running max in the kernel and the final max in the plain
-version, a relative 2^-8 either way).
+Forward tolerances: float32 ``atol=2e-5, rtol=1e-5`` (the same f32
+products summed in another order); bfloat16 ``atol=2e-2`` (``p`` is
+rounded to bf16 against the running max in the kernel and the final max in
+the plain version, a relative 2^-8 either way).
+
+Backward tolerances, relative to each gradient's largest magnitude:
+float32 ``1e-5`` (the float32 kernels keep every value in f32, as the
+plain version does; another summation order); bfloat16 ``2e-2``: the dK/dV
+kernel rounds ``p`` and ``ds`` to bf16 before its tensor-core products
+where the plain version (and the TPU kernel) keeps them in f32, a relative
+2^-9 a term, and every gradient is rounded to bf16 on output (2^-8).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tensorflowonspark_tpu_torch.ops import flash_attention
+from tensorflowonspark_tpu_torch.ops import flash_attention, flash_attention_plain
 from tensorflowonspark_tpu_torch.ops.flash_attention import (
-    flash_attention_fwd, flash_attention_reference)
+    flash_attention_bwd, flash_attention_bwd_reference, flash_attention_dkv,
+    flash_attention_dq, flash_attention_fwd, flash_attention_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +98,83 @@ def test_flash_rejects_what_the_kernel_cannot_take():
     z = torch.zeros(1, 8, 1, 65, device="cuda", dtype=torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="16 bytes"):
         flash_attention(z, z, z)
+
+
+def _bwd_inputs(case, dtype):
+    B, Tq, Tk, H, D, lens, causal, window = CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, T, H, D), dtype=np.float32))
+               .to("cuda", dtype) for T in (Tq, Tk, Tk))
+    g = torch.from_numpy(rng.standard_normal((B, Tq, H, D), dtype=np.float32)).to("cuda", dtype)
+    mask = None
+    if lens is not None:
+        mask = torch.from_numpy(np.arange(Tk)[None, :] < np.asarray(lens)[:, None]).cuda()
+    return q, k, v, g, mask, causal, window
+
+
+def _check_grads(got, want, dtype):
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, msg=name,
+                                   atol=rel * max(b.float().abs().max().item(), 1e-6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_backward_matches_plain(case, dtype):
+    _card()
+    q, k, v, g, mask, causal, window = _bwd_inputs(case, dtype)
+    out, lse = flash_attention_fwd(q, k, v, mask=mask, causal=causal, window=window)
+    counts = (flash_attention_bwd.launches_dq, flash_attention_bwd.launches_dkv)
+    got = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd.launches_dq, flash_attention_bwd.launches_dkv) == (
+        counts[0] + 1, counts[1] + 1)
+    want = flash_attention_bwd_reference(q, k, v, mask, out, lse, g, causal=causal,
+                                         window=window)
+    _check_grads(got, want, dtype)
+    lens = CASES[case][5]
+    if lens is not None and 0 in lens:
+        b = lens.index(0)
+        for a in got:
+            assert (a[b] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_backward_reads_strided_inputs_and_grad_out(dtype):
+    """q/k/v sliced out of one fused projection and a transposed
+    ``grad_out``, through the autograd node, against the plain node on
+    contiguous copies."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    qkv = torch.randn(2, 96, 3, 4, 64, device="cuda", generator=g).to(dtype)
+    dout = torch.randn(2, 4, 96, 64, device="cuda", generator=g).to(dtype).transpose(1, 2)
+    assert not dout.is_contiguous()
+    leaf = qkv.clone().requires_grad_()
+    q, k, v = leaf.unbind(2)
+    got = torch.autograd.grad(flash_attention(q, k, v, causal=True), leaf, dout)[0]
+    leaf2 = qkv.clone().requires_grad_()
+    q2, k2, v2 = (x.contiguous() for x in leaf2.unbind(2))
+    want = torch.autograd.grad(flash_attention_plain(q2, k2, v2, causal=True), leaf2,
+                               dout.contiguous())[0]
+    _check_grads(got.unbind(2), want.unbind(2), dtype)
+
+
+def test_flash_backward_rejects_what_the_kernels_cannot_take():
+    _card()
+    q = torch.zeros(1, 8, 1, 64, device="cuda")
+    _, lse = flash_attention_fwd(q, q, q)
+    delta = torch.zeros_like(lse)
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_dq(q, q, q, None, torch.zeros(1, 8, 1, 32, device="cuda"), lse, delta)
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_dkv(q, q, q, None, q.to(torch.bfloat16), lse, delta)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_dq(q, q, q, None, q, lse[:, :, :4], delta)
+    with pytest.raises(ValueError, match="delta"):
+        flash_attention_dkv(q, q, q, None, q, lse, delta.double())
+    x = torch.zeros(1, 8, 1, 32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_dq(x, x, x, None, x, lse, delta)
