@@ -11,11 +11,17 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
 2. build: every kernel source compiled by ``nvcc`` from the checkout
    (``ops/csrc/flash_attention_fwd.cu`` and ``flash_attention_bwd.cu``, at
    once) into ``build/torch_kernels/``, with each kernel's ptxas report;
+   then ``cuobjdump -sass`` must show wgmma (``HGMMA``) and TMA loads
+   (``UTMALDG``) in every bf16 K1 and K3 kernel;
 3. kernels: the forward (K1) and the dQ (K2) and dK/dV (K3) backward
    kernels each held against their plain PyTorch versions on the card, at
-   the main path's shapes and at edge cases, then timed beside their bound,
-   their plain version and the one PyTorch call that computes the same
-   function (a yardstick only; the port never calls it);
+   the main path's shapes and at edge cases (single TMA tiles, boxes that
+   overhang ragged edges, D = 128), then timed beside their bound, their
+   plain version and the one PyTorch call that computes the same function
+   (a yardstick only; the port never calls it), kernel and yardstick in
+   turns behind a sleep that hides the host's enqueue
+   (``tensorflowonspark_tpu_torch/devtime.py``); each wrapper's host cost
+   a call is printed too;
 4. model gradients: one full-width BERT-base QA batch, backward through
    the kernels against backward through the plain versions, same weights,
    at three seeds; each half (forward kernel, backward kernels) alone; and
@@ -44,6 +50,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +77,11 @@ SEQ_LEN = 384
 #: "Gate calibration")
 TRAIN_TOL = {"loss": 2e-2, "max": 0.35, "median": 0.08, "noise": 2.03}
 
+#: the bf16 K1 and K3 kernels, which must show wgmma and TMA in SASS (at
+#: D = 64 and 128 each)
+HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_dkv_tma_kernel")
+HOPPER_DESIGN = "tma+wgmma"
+
 FLASH_SOURCE = "tensorflowonspark_tpu_torch/ops/csrc/flash_attention_fwd.cu"
 FLASH_REPLACES = "tensorflowonspark_tpu/ops/flash_attention.py:107"  # _fwd_kernel
 BWD_SOURCE = "tensorflowonspark_tpu_torch/ops/csrc/flash_attention_bwd.cu"
@@ -92,25 +104,38 @@ def gpu_name_and_limit() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def time_ms(fn, reps: int = KERNEL_REPS, inner: int = 10, warmup: int = 3) -> float:
-    """Device time of one call: the median over ``reps`` samples, each a
-    CUDA-event span around ``inner`` back-to-back calls divided by
-    ``inner`` (so the host's per-call overhead hides behind the queue)."""
-    import torch
+def sass_counts(libs: dict) -> dict:
+    """``{kernel: {"HGMMA": n, "UTMALDG": n, "HMMA": n}}`` for every
+    kernel of the built libraries, read from ``cuobjdump -sass`` (found
+    beside ``nvcc``); a kernel is named by its source name and template
+    arguments, e.g. ``flash_fwd_tma_kernel<64>``."""
+    from tensorflowonspark_tpu_torch.ops.flash_attention import find_nvcc
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    counts = {}
+    for so in libs.values():
+        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        for chunk in sass.split("Function : ")[1:]:
+            mangled = chunk.split("\n", 1)[0].strip()
+            m = re.search(r"(flash_[a-z]+_[a-z0-9]+_kernel)I((?:Li\d+E)+)E", mangled)
+            key = f"{m[1]}<{','.join(re.findall(r'\d+', m[2]))}>" if m else mangled
+            counts[key] = {op: chunk.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    return counts
+
+
+def check_sass(libs: dict) -> dict:
+    """Every bf16 K1 and K3 kernel must issue wgmma (``HGMMA``) and TMA
+    loads (``UTMALDG``) in its SASS; K2 keeps ``mma.sync`` (``HMMA``).
+    Returns the counts of each kernel."""
+    counts = sass_counts(libs)
+    for key, c in sorted(counts.items()):
+        log(f"  sass: {key}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}, HMMA {c['HMMA']}")
+    hopper = {k: c for k, c in counts.items() if k.startswith(HOPPER_KERNELS)}
+    missing = [k for k, c in hopper.items() if not (c["HGMMA"] and c["UTMALDG"])]
+    if len(hopper) != 2 * len(HOPPER_KERNELS) or missing:
+        raise SystemExit(f"the bf16 K1/K3 kernels lack wgmma or TMA in SASS: {missing or hopper}")
+    return counts
 
 
 # ----------------------------------------------------------------- kernels
@@ -132,6 +157,11 @@ def flash_cases(seed: int):
         ("causal_window_d128", 2, 512, 512, 8, 128, bf16, None, True, 128, 2e-2),
         ("tq_ne_tk", 4, 100, 300, 12, 64, bf16, [300, 250, 17, 299], False, None, 2e-2),
         ("ragged_37", 4, 37, 37, 12, 64, f32, [37, 30, 1, 36], True, None, 2e-5),
+        # one TMA box each way; boxes overhanging both ragged edges
+        ("single_tile", 1, 64, 64, 1, 64, bf16, None, False, None, 2e-2),
+        ("single_tile_d128", 1, 64, 64, 1, 128, bf16, None, False, None, 2e-2),
+        ("ragged_129_257", 3, 129, 257, 12, 64, bf16, [257, 0, 130], False, None, 2e-2),
+        ("d128_padding", 4, 384, 384, 12, 128, bf16, [384, 200, 1, 333], False, None, 2e-2),
     ]
 
 
@@ -154,6 +184,7 @@ def check_flash(seed: int) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from tensorflowonspark_tpu_torch.devtime import host_us, time_in_turns, time_ms
     from tensorflowonspark_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_attention_reference)
 
@@ -180,23 +211,25 @@ def check_flash(seed: int) -> dict:
             raise SystemExit(f"flash kernel disagrees with its plain version in {name}")
         if i > 0:
             continue
-        # main path's shape: time the kernel, its plain version and SDPA
-        kernel_ms = time_ms(lambda: flash_attention_fwd(q, k, v, mask=mask))
-        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, mask=mask))
+        # main path's shape: the kernel and SDPA in turns, the plain version
         # SDPA returns NaN on a fully masked row: give that row its keys back
         sdpa_mask = mask.clone()
         sdpa_mask[lens.index(0)] = True
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=sdpa_mask[:, None, None, :]))
+        kernel = lambda: flash_attention_fwd(q, k, v, mask=mask)  # noqa: E731
+        turns = time_in_turns({"kernel": kernel, "sdpa": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask[:, None, None, :])}, KERNEL_REPS)
+        kernel_ms, library_ms = turns["kernel"], turns["sdpa"]
+        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, mask=mask), KERNEL_REPS)
         elt = q.element_size()
         bytes_moved = (3 * B * Tk * H * D * elt + B * Tq * H * D * elt   # q k v in, out
                        + B * H * Tq * 4 + B * Tk)                        # lse out, mask in
         flops = 4 * B * H * Tq * Tk * D            # no causal trim on this path
         summary = {
             "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": FLASH_REPLACES, "launches": None, "max_abs_err": err,
-            "tolerance": atol, "ms": kernel_ms, "plain_ms": plain_ms,
+            "replaces": FLASH_REPLACES, "design": HOPPER_DESIGN, "launches": None,
+            "max_abs_err": err, "tolerance": atol, "ms": kernel_ms, "plain_ms": plain_ms,
+            "host_us": host_us(kernel), "library_timed": "in turns with the kernel",
             **bound(bytes_moved, flops), "library_ms": library_ms,
             "shape": f"B={B} T={Tq} H={H} D={D} bf16",
             "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
@@ -222,6 +255,7 @@ def check_flash_bwd(seed: int) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
+    from tensorflowonspark_tpu_torch.devtime import host_us, time_in_turns, time_ms
     from tensorflowonspark_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_reference, flash_attention_dkv,
         flash_attention_dkv_reference, flash_attention_dq, flash_attention_dq_reference,
@@ -257,20 +291,21 @@ def check_flash_bwd(seed: int) -> list[dict]:
             continue
         # main path's shape: time each kernel, the plain backward and SDPA's
         delta = (out.float() * g.float()).sum(-1).transpose(1, 2).contiguous()
-        dq_ms = time_ms(lambda: flash_attention_dq(q, k, v, mask, g, lse, delta))
-        dkv_ms = time_ms(lambda: flash_attention_dkv(q, k, v, mask, g, lse, delta))
-        dq_plain_ms = time_ms(lambda: flash_attention_dq_reference(q, k, v, mask, g, lse,
-                                                                   delta))
-        dkv_plain_ms = time_ms(lambda: flash_attention_dkv_reference(q, k, v, mask, g, lse,
-                                                                     delta))
         sdpa_mask = mask.clone()                     # SDPA: NaN on a fully masked row
         sdpa_mask[lens.index(0)] = True
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt,
                                                   attn_mask=sdpa_mask[:, None, None, :])
         gt = g.transpose(1, 2)
-        library_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), gt,
-                                                         retain_graph=True))
+        dq_fn = lambda: flash_attention_dq(q, k, v, mask, g, lse, delta)  # noqa: E731
+        dkv_fn = lambda: flash_attention_dkv(q, k, v, mask, g, lse, delta)  # noqa: E731
+        turns = time_in_turns({"dq": dq_fn, "dkv": dkv_fn, "sdpa": lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), gt, retain_graph=True)}, KERNEL_REPS)
+        dq_ms, dkv_ms, library_ms = turns["dq"], turns["dkv"], turns["sdpa"]
+        dq_plain_ms = time_ms(lambda: flash_attention_dq_reference(q, k, v, mask, g, lse,
+                                                                   delta), KERNEL_REPS)
+        dkv_plain_ms = time_ms(lambda: flash_attention_dkv_reference(q, k, v, mask, g, lse,
+                                                                     delta), KERNEL_REPS)
         elt = q.element_size()
         tensor = B * Tq * H * D * elt                # one of q, k, v, dO, dq, dk, dv
         rows = 2 * B * H * Tq * 4 + B * Tk           # lse and delta (f32), the mask
@@ -278,17 +313,19 @@ def check_flash_bwd(seed: int) -> list[dict]:
         shape = f"B={B} T={Tq} H={H} D={D} bf16"
         common = {"route": "cuda", "source": BWD_SOURCE, "launches": None,
                   "tolerance": rel, "tolerance_relative_to": "max |plain gradient|",
-                  "library_ms": library_ms, "shape": shape,
+                  "library_ms": library_ms, "library_timed": "in turns with both kernels",
+                  "shape": shape,
                   "library_note": "scaled_dot_product_attention backward: dq, dk and dv "
                                   "in one call; compare with dq ms + dkv ms"}
         entries = [
-            {"name": "flash_attention_dq", "replaces": DQ_REPLACES,
-             "max_abs_err": errs["dq"], "ms": dq_ms, "plain_ms": dq_plain_ms, **common,
+            {"name": "flash_attention_dq", "replaces": DQ_REPLACES, "design": "mma.sync",
+             "max_abs_err": errs["dq"], "ms": dq_ms, "plain_ms": dq_plain_ms,
+             "host_us": host_us(dq_fn), **common,
              **bound(5 * tensor + rows, 3 * prod),
              "achieved_tflops": 3 * prod / (dq_ms * 1e-3) / 1e12},
-            {"name": "flash_attention_dkv", "replaces": DKV_REPLACES,
+            {"name": "flash_attention_dkv", "replaces": DKV_REPLACES, "design": HOPPER_DESIGN,
              "max_abs_err": max(errs["dk"], errs["dv"]), "ms": dkv_ms,
-             "plain_ms": dkv_plain_ms, **common,
+             "plain_ms": dkv_plain_ms, "host_us": host_us(dkv_fn), **common,
              **bound(6 * tensor + rows, 4 * prod),
              "achieved_tflops": 4 * prod / (dkv_ms * 1e-3) / 1e12},
         ]
@@ -670,21 +707,26 @@ def main() -> int:
             for line in f:
                 if "registers" in line or "spill" in line or "Compiling" in line:
                     log("  ptxas: " + line.strip())
+    sass = check_sass(libs)
 
     # 3. kernels against their plain versions, and their times
     flash = check_flash(args.seed)
     log(f"flash_attention_fwd at {flash['shape']} on {card}: kernel "
-        f"{flash['ms']:.4f} ms, plain {flash['plain_ms']:.4f} ms, SDPA "
-        f"{flash['library_ms']:.4f} ms, bound {flash['bound_ms']:.4f} ms "
+        f"{flash['ms']:.6f} ms, SDPA {flash['library_ms']:.6f} ms (in turns), plain "
+        f"{flash['plain_ms']:.6f} ms, bound {flash['bound_ms']:.6f} ms "
         f"({flash['bound_by']}), {flash['achieved_tflops']:.2f} TFLOP/s")
     dq, dkv = check_flash_bwd(args.seed)
     for e in (dq, dkv):
-        log(f"{e['name']} at {e['shape']} on {card}: kernel {e['ms']:.4f} ms, plain "
-            f"{e['plain_ms']:.4f} ms, bound "
-            f"{e['bound_ms']:.4f} ms ({e['bound_by']}), {e['achieved_tflops']:.2f} TFLOP/s")
-    log(f"backward at {dq['shape']} on {card}: dq + dkv kernels {dq['ms'] + dkv['ms']:.4f} ms, "
-        f"plain {dq['plain_ms'] + dkv['plain_ms']:.4f} ms, SDPA backward "
-        f"{dq['library_ms']:.4f} ms")
+        log(f"{e['name']} at {e['shape']} on {card}: kernel {e['ms']:.6f} ms, plain "
+            f"{e['plain_ms']:.6f} ms, bound "
+            f"{e['bound_ms']:.6f} ms ({e['bound_by']}), {e['achieved_tflops']:.2f} TFLOP/s")
+    log(f"backward at {dq['shape']} on {card}: dq + dkv kernels {dq['ms'] + dkv['ms']:.6f} ms, "
+        f"SDPA backward {dq['library_ms']:.6f} ms (in turns), plain "
+        f"{dq['plain_ms'] + dkv['plain_ms']:.6f} ms")
+    for e in (flash, dq, dkv):
+        log(f"{e['name']}: host {e['host_us']:.1f} us a call (wrapper, no sync)")
+    for e, kernel in ((flash, "flash_fwd_tma_kernel<64"), (dkv, "flash_dkv_tma_kernel<64")):
+        e["sass"] = next(c for k, c in sass.items() if k.startswith(kernel))
 
     # 4. model gradients through the kernels against the plain versions
     check_model_grads(args.seed)

@@ -16,31 +16,32 @@
 // matrix never leaves the chip, each CTA reads its Q tile once and streams K/V
 // once, and ragged edges are masked in the kernel instead of copying padded
 // tensors.  q/k/v are read in their [B, T, H, D] layout through strides, so the
-// caller makes no transposes.  What keeps it from the bound: the bf16 kernel
-// uses the tensor cores through mma.sync (not wgmma, which Hopper needs for
-// its full rate) and loads K/V synchronously (no TMA, no double buffering), so
-// loads and math do not overlap inside a CTA; the float32 kernel runs its
-// inner products as f32 FMAs on CUDA cores (67 TFLOP/s peak).  wgmma, TMA and
-// warp specialisation are later work.
+// caller makes no transposes.
 //
-// Both kernels: one CTA of 128 threads per (64-query tile, head, batch), K/V
-// tiles of 64 keys staged through shared memory, o/m/l in f32 registers.
+// bfloat16 (flash_fwd_tma_kernel, see the comment above it) is built for
+// Hopper: TMA loads K/V tiles into a ring of shared-memory stages guarded by
+// mbarriers, so the next tile's copy overlaps this tile's math, and every
+// product is a wgmma (hopper.cuh).  Each CTA's K/V loop is short at BERT's
+// shape (384 keys: six 64-key tiles), so the load of the first tile is not
+// hidden inside a CTA; two CTAs share an SM instead.  The softmax takes
+// exp(x) as 2^(x log2 e) on the SFU, with log2 e folded into the scale.
+// The tiles (64 queries a CTA, 64-key K/V tiles, 3 stages) were the
+// fastest of four choices timed at the BERT shape (PERF.md, Findings).
 //
-// float32 (flash_fwd_f32_kernel): tiles staged as f32.  Thread (tr, tc) =
-// (tid / 8, tid % 8) owns query rows tr + 16*i (i < 4); for the score tile it
-// owns key columns tc + 8*j (j < 8), for the output tile head columns tc + 8*j
-// (j < D/8).  The eight threads of a row are eight adjacent lanes, so row max
-// and row sum are three xor-shuffles.
-//
-// bfloat16 (flash_fwd_mma_kernel): see the comment above it.
+// float32 (flash_fwd_f32_kernel): one CTA of 128 threads per (64-query tile,
+// head, batch), K/V tiles of 64 keys staged through shared memory as f32,
+// inner products as f32 FMAs on the CUDA cores (67 TFLOP/s peak).  Thread
+// (tr, tc) = (tid / 8, tid % 8) owns query rows tr + 16*i (i < 4); for the
+// score tile it owns key columns tc + 8*j (j < 8), for the output tile head
+// columns tc + 8*j (j < D/8).  The eight threads of a row are eight adjacent
+// lanes, so row max and row sum are three xor-shuffles.
 //
 // Numerics kept from the TPU kernel: o, m, l accumulate in f32; p is rounded
 // to the value dtype before the p.V product while l sums the unrounded p; the
 // K loop is trimmed to the tiles a causal/windowed query tile can see.
 
-#include <type_traits>
-
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -218,111 +219,165 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---------------------------------------------------------------- bf16 path
 //
-// bf16 inputs take the tensor cores: mma.sync m16n8k16 (bf16 in, f32
-// accumulate).  Same CTA shape (128 threads, 64 queries, 64-key tiles); each
-// warp owns 16 query rows.  Q's fragments stay in registers for the whole K
-// loop; K and V tiles are staged in shared memory as bf16 with rows padded by
-// 8 elements so that ldmatrix's eight row reads hit distinct banks.  S = Q.K^T
-// lands in the mma accumulator layout (a thread holds rows g and g+8 of the
-// warp's 16, columns 2t and 2t+1 of each 8-key group); after the online
-// softmax the same registers, rounded to bf16, are the A operand of P.V, so P
-// never touches shared memory.  Row max and sum are two xor-shuffles among
-// the four lanes that share a row.
+// flash_fwd_tma_kernel: a CTA of one consumer warpgroup (64 queries) and
+// one producer warp.  The producer loads the CTA's Q tile once, then
+// streams 64-key K/V tiles through a ring of kFwdStages shared-memory stages
+// by TMA, each stage guarded by a "full" mbarrier (the tile's bytes and the
+// producer's 32 arrivals: its lanes also write the stage's key-padding bias
+// row) and an "empty" one (one arrival a consumer warp).  Per tile, the
+// consumer warpgroup:
+//   S = Q.K^T       SS wgmma m64n64k16, Q and K both K-major;
+//   scale, bias, causal/window mask and the online softmax in the
+//   accumulator registers (per 8-column group the wgmma accumulator is
+//   mma.sync's C layout: rows g and g + 8 of the warp's 16, columns 2t and
+//   2t + 1), row max and sum over the 4 lanes of a row;
+//   P rounded to bf16 and packed as A fragments in registers;
+//   O += P.V        RS wgmma m64n64k16 per 64-column half, V MN-major;
+// and releases the stage once the wgmma.wait_group that covers P.V returns,
+// while the producer's next loads are already in flight.  Rows past Tk in a
+// tile arrive as zeros (the TMA box's out-of-bounds fill) and carry a -1e30
+// bias; rows past Tq are computed and not stored.
+
+constexpr int kFwdStages = 3;               // K/V tiles in flight
+constexpr int kFwdThreads = kThreads + 32;  // the consumer warpgroup, the producer warp
 
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * size_t(kBQ + 2 * kBK) * (D + kPad) +
-         sizeof(float) * kBK;
-}
+struct FwdTiles {
+  static constexpr uint32_t kStageBytes = 2u * kBK * D * 2;  // K and V
+  static constexpr size_t kSmem = kAtomBytes  // room to align the base to 1024
+                                  + size_t(kBQ) * D * 2 + size_t(kFwdStages) * kStageBytes +
+                                  size_t(kFwdStages) * kBK * sizeof(float);
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const uint8_t* __restrict__ mask,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                     int H, int Tq, int Tk, long long qsb, long long qst,
-                     long long qsh, long long ksb, long long kst, long long ksh,
-                     long long vsb, long long vst, long long vsh, float scale,
+__global__ void __launch_bounds__(kFwdThreads)
+flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int H, int Tq, int Tk, float scale,
                      int causal, int window) {
-  constexpr int LD = D + kPad;
-  constexpr int KS = D / 16;    // k-steps of Q.K^T
-  constexpr int NS = kBK / 8;   // 8-key column groups of S
-  constexpr int NO = D / 8;     // 8-wide column groups of O
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* Ks = Qs + kBQ * LD;
-  __nv_bfloat16* Vs = Ks + kBK * LD;
-  float* bias_s = reinterpret_cast<float*>(Vs + kBK * LD);
+  constexpr int STAGES = kFwdStages;
+  constexpr int HALVES = D / 64;  // 64-column halves of the head
+  constexpr int KS = D / 16;      // k-steps of Q.K^T
+  constexpr int NS = kBK / 8;     // 8-key column groups of S
+  constexpr int KK = kBK / 16;    // k-steps of P.V
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t q_bar, full_bar[STAGES], empty_bar[STAGES];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAtomBytes - 1) & ~uintptr_t(kAtomBytes - 1));
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(base);  // [HALVES][kBQ][64]
+  __nv_bfloat16* Ks = Qs + kBQ * D;            // [STAGES][HALVES][kBK][64]
+  __nv_bfloat16* Vs = Ks + STAGES * kBK * D;   // [STAGES][HALVES][kBK][64]
+  float* bias_s = reinterpret_cast<float*>(Vs + STAGES * kBK * D);  // [STAGES][kBK]
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
 
-  stage_rows<D>(Qs, q + b * qsb + h * qsh, qst, q0, Tq, tid);
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
-
+  // Keys this query tile can see: all of them, or under causal masking
+  // those at or below its last row, and under a window those above its
+  // first row's band.
   int kbeg = 0, kend = Tk;
   if (causal) {
     kend = min(Tk, q0 + kBQ);
     if (window > 0) kbeg = max(0, q0 - (window - 1));
   }
   const int j0 = kbeg / kBK;
-  const int nk = (kend + kBK - 1) / kBK;
+  const int nk = max(0, (kend + kBK - 1) / kBK - j0);
 
+  if (tid == 0) {
+    mbar_init(&q_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 32);
+      mbar_init(&empty_bar[s], 4);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    load_a(qf[ks], Qs, LD, warp * 16, ks * 16, lane);
 
-  float o[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  for (int jt = j0; jt < nk; ++jt) {
-    const int k0 = jt * kBK;
-    __syncthreads();  // the last tile's Ks/Vs reads are done
-    stage_rows<D>(Ks, kb, kst, k0, Tk, tid);
-    stage_rows<D>(Vs, vb, vst, k0, Tk, tid);
-    if (tid < kBK) bias_s[tid] = key_bias(mask, b, Tk, k0 + tid);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t bf[4];  // b0, b1 of key groups 2np and 2np+1
-        load_b_t(bf, Ks, LD, np * 16, ks * 16, lane);
-        mma_bf16(s[2 * np], qf[ks], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], bf[2], bf[3]);
+  if (warp == 4) {  // the producer warp
+    if (lane == 0) {
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      mbar_arrive_expect_tx(&q_bar, kBQ * D * 2);
+      for (int hf = 0; hf < HALVES; ++hf)
+        tma_load_tile(Qs + hf * kBQ * 64, &tm_q, &q_bar, hf * 64, h, q0, b);
+    }
+    for (int i = 0; i < nk; ++i) {
+      const int st = i % STAGES;
+      const int k0 = (j0 + i) * kBK;
+      if (i >= STAGES) mbar_wait(&empty_bar[st], ((i / STAGES) & 1) ^ 1);
+      for (int c = lane; c < kBK; c += 32)
+        bias_s[st * kBK + c] = key_bias(mask, b, Tk, k0 + c) * kLog2e;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full_bar[st], FwdTiles<D>::kStageBytes);
+        for (int hf = 0; hf < HALVES; ++hf) {
+          tma_load_tile(Ks + (st * HALVES + hf) * kBK * 64, &tm_k, &full_bar[st], hf * 64, h,
+                        k0, b);
+          tma_load_tile(Vs + (st * HALVES + hf) * kBK * 64, &tm_v, &full_bar[st], hf * 64, h,
+                        k0, b);
+        }
+      } else {
+        mbar_arrive(&full_bar[st]);
       }
     }
+    return;
+  }
 
+  // the consumer warpgroup: rows wl * 16 + g (+ 8) of the CTA's tile
+  const int wl = warp;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + wl * 16 + g;
+
+  float o[HALVES][32];
+#pragma unroll
+  for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) o[hf][r] = 0.f;
+  // Scores are kept in log2 units (x log2 e): m is the running max of those,
+  // p = 2^(x - m), and lse = m ln 2 + log l at the end.
+  const float scale2 = scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(&q_bar, 0);
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % STAGES;
+    const int k0 = (j0 + i) * kBK;
+    const __nv_bfloat16* Kst = Ks + st * HALVES * kBK * 64;
+    const __nv_bfloat16* Vst = Vs + st * HALVES * kBK * 64;
+    const float* bias = bias_s + st * kBK;
+    mbar_wait(&full_bar[st], (i / STAGES) & 1);
+
+    float s[NS * 4];
+#pragma unroll
+    for (int r = 0; r < NS * 4; ++r) s[r] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_ss_n64<0>(s, desc_k_major(Qs + (ks / 4) * kBQ * 64, 0, ks % 4),
+                      desc_k_major(Kst + (ks / 4) * kBK * 64, 0, ks % 4), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + 2 * t + (e & 1);
-        float x = s[j][e] * scale + bias_s[col];
+        float x = fmaf(s[4 * j + e], scale2, bias[col]);
         if (causal) {
-          const int qpos = q0 + warp * 16 + g + (e >> 1) * 8;
+          const int qpos = row0 + (e >> 1) * 8;
           const int kpos = k0 + col;
           bool keep = qpos >= kpos;
           if (window > 0) keep = keep && (kpos > qpos - window);
           if (!keep) x = kNegInf;
         }
-        s[j][e] = x;
+        s[4 * j + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
@@ -332,17 +387,14 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
       mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
       const float m_new = fmaxf(m[hh], mx[hh]);
-      alpha[hh] = expf(m[hh] - m_new);
+      alpha[hh] = ex2(m[hh] - m_new);
       m[hh] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - m[e >> 1]);
-        psum[e >> 1] += p;
-        s[j][e] = p;
-      }
+    for (int r = 0; r < NS * 4; ++r) {
+      const float p = ex2(s[r] - m[(r >> 1) & 1]);
+      psum[(r >> 1) & 1] += p;
+      s[r] = p;
     }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -351,70 +403,97 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       l[hh] = alpha[hh] * l[hh] + psum[hh];
     }
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
+    for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+      for (int r = 0; r < 32; ++r) o[hf][r] *= alpha[(r >> 1) & 1];
 
     // O += P.V: P's A fragments come straight from S's accumulators, rounded
     // to bf16 (the TPU kernel's p.astype(v.dtype)).
+    uint32_t pa[KK][4];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < NO / 2; ++dp) {
-        uint32_t bf[4];  // b0, b1 of head-dim groups 2dp and 2dp+1
-        load_b(bf, Vs, LD, kk * 16, dp * 16, lane);
-        mma_bf16(o[2 * dp], pa, bf[0], bf[1]);
-        mma_bf16(o[2 * dp + 1], pa, bf[2], bf[3]);
-      }
+    for (int kk = 0; kk < KK; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
+#pragma unroll
+    for (int hf = 0; hf < HALVES; ++hf) fence_regs(o[hf]);
+    wgmma_fence();  // o was rescaled and pa written outside wgmma
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf)
+        wgmma_rs_n64<1>(o[hf], pa[kk], desc_mn_major(Vst + hf * kBK * 64, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hf = 0; hf < HALVES; ++hf) fence_regs(o[hf]);
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) fence_regs(pa[kk]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_bar[st]);  // this warp is done with the stage
   }
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int qi = q0 + warp * 16 + g + hh * 8;
+    const int qi = row0 + hh * 8;
     if (qi >= Tq) continue;
     const bool valid = m[hh] > kNegInf * 0.5f;
     const float lsafe = fmaxf(l[hh], kEps);
     __nv_bfloat16* orow = out + (((long long)b * Tq + qi) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      const float x0 = valid ? o[j][2 * hh] / lsafe : 0.f;
-      const float x1 = valid ? o[j][2 * hh + 1] / lsafe : 0.f;
-      *reinterpret_cast<uint32_t*>(orow + j * 8) = pack_bf16(x0, x1);
-    }
+    for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float x0 = valid ? o[hf][4 * j + 2 * hh] / lsafe : 0.f;
+        const float x1 = valid ? o[hf][4 * j + 2 * hh + 1] / lsafe : 0.f;
+        *reinterpret_cast<uint32_t*>(orow + hf * 64 + j * 8) = pack_bf16(x0, x1);
+      }
     if (t == 0)
-      lse[((long long)b * H + h) * Tq + qi] = valid ? m[hh] + logf(lsafe) : -kNegInf;
+      lse[((long long)b * H + h) * Tq + qi] = valid ? m[hh] * kLn2 + logf(lsafe) : -kNegInf;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* mask,
-           void* out, void* lse, int B, int H, int Tq, int Tk, long long qsb,
-           long long qst, long long qsh, long long ksb, long long kst,
-           long long ksh, long long vsb, long long vst, long long vsh,
-           float scale, int causal, int window, cudaStream_t stream) {
-  // bf16 takes the tensor-core kernel, float32 the f32-FMA one
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  constexpr size_t smem = kMma ? mma_smem_bytes<D>() : f32_smem_bytes<D>();
-  auto kernel = [] {
-    if constexpr (kMma) return &flash_fwd_mma_kernel<D>;
-    else return &flash_fwd_f32_kernel<D>;
-  }();
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, const void* mask, void* out,
+                void* lse, int B, int H, int Tq, int Tk, long long qsb, long long qst,
+                long long qsh, long long ksb, long long kst, long long ksh, long long vsb,
+                long long vst, long long vsh, float scale, int causal, int window,
+                cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err;
+  if ((err = make_tile_map(&tm_q, q, B, Tq, H, D, qsb, qst, qsh, kBQ)) ||
+      (err = make_tile_map(&tm_k, k, B, Tk, H, D, ksb, kst, ksh, kBK)) ||
+      (err = make_tile_map(&tm_v, v, B, Tk, H, D, vsb, vst, vsh, kBK)))
+    return (int)err;
+  auto kernel = &flash_fwd_tma_kernel<D>;
+  static bool configured = false;
+  if ((err = allow_smem(kernel, FwdTiles<D>::kSmem, configured))) return (int)err;
+  dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
+  kernel<<<grid, kFwdThreads, FwdTiles<D>::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<const uint8_t*>(mask),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), H, Tq, Tk, scale, causal,
+      window);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
+               void* lse, int B, int H, int Tq, int Tk, long long qsb, long long qst,
+               long long qsh, long long ksb, long long kst, long long ksh, long long vsb,
+               long long vst, long long vsh, float scale, int causal, int window,
+               cudaStream_t stream) {
+  constexpr size_t smem = f32_smem_bytes<D>();
+  auto kernel = &flash_fwd_f32_kernel<D>;
   static bool configured = false;
   if (cudaError_t err = allow_smem(kernel, smem, configured)) return (int)err;
   dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), static_cast<float*>(lse), H, Tq, Tk, qsb, qst,
-      qsh, ksb, kst, ksh, vsb, vst, vsh, scale, causal, window);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(out), static_cast<float*>(lse), H, Tq, Tk, qsb, qst, qsh, ksb,
+      kst, ksh, vsb, vst, vsh, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -430,13 +509,13 @@ extern "C" int tfos_flash_attention_fwd(
     long long ksh, long long vsb, long long vst, long long vsh, float scale,
     int causal, int window, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TFOS_LAUNCH(T, D)                                                      \
-  return launch<T, D>(q, k, v, mask, out, lse, B, H, Tq, Tk, qsb, qst, qsh,    \
-                      ksb, kst, ksh, vsb, vst, vsh, scale, causal, window, s)
-  if (dtype == 0 && head_dim == 64) TFOS_LAUNCH(float, 64);
-  if (dtype == 0 && head_dim == 128) TFOS_LAUNCH(float, 128);
-  if (dtype == 1 && head_dim == 64) TFOS_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) TFOS_LAUNCH(__nv_bfloat16, 128);
+#define TFOS_LAUNCH(F, D)                                                      \
+  return F<D>(q, k, v, mask, out, lse, B, H, Tq, Tk, qsb, qst, qsh, ksb, kst,  \
+              ksh, vsb, vst, vsh, scale, causal, window, s)
+  if (dtype == 0 && head_dim == 64) TFOS_LAUNCH(launch_f32, 64);
+  if (dtype == 0 && head_dim == 128) TFOS_LAUNCH(launch_f32, 128);
+  if (dtype == 1 && head_dim == 64) TFOS_LAUNCH(launch_bf16, 64);
+  if (dtype == 1 && head_dim == 128) TFOS_LAUNCH(launch_bf16, 128);
 #undef TFOS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

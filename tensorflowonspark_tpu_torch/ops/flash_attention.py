@@ -7,8 +7,11 @@ kernels become CUDA C++ for ``sm_90a``: ``_fwd_kernel`` is
 two kernels of ``csrc/flash_attention_bwd.cu``.  Each source is built with
 ``nvcc`` at first use into ``build/torch_kernels/`` (both at once, in
 parallel) and called through a plain C entry point with ``ctypes``.  The
-sources' headers say what bounds them on the H100 and what their design
-does about it.
+bf16 forward and dK/dV kernels are built for Hopper from
+``csrc/hopper.cuh``: TMA tensor maps (encoded in C from the strides passed
+here), an mbarrier-guarded ring of tiles and ``wgmma``.  The sources'
+headers say what bounds them on the H100 and what their design does about
+it.
 
 :func:`flash_attention` keeps the JAX wrapper's contract: ``[B, T, H, D]``
 in and out, an optional ``[B, Tk]`` bool key-padding mask (an additive
@@ -42,7 +45,7 @@ _EPS = 1e-30
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SOURCES = {"flash_attention_fwd": "flash_attention_fwd.cu",
             "flash_attention_bwd": "flash_attention_bwd.cu"}
-_HEADERS = ("flash_attention_common.cuh",)
+_HEADERS = ("flash_attention_common.cuh", "hopper.cuh")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
@@ -56,7 +59,7 @@ _libs = None
 _lib_lock = threading.Lock()
 
 
-def _find_nvcc() -> str:
+def find_nvcc() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
                  "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
         if cand and os.path.isfile(cand):
@@ -86,7 +89,7 @@ def build_kernels() -> dict[str, str]:
     if not todo:
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _find_nvcc()
+    nvcc = find_nvcc()
     procs = {}
     for name in todo:
         tmp = f"{paths[name]}.{os.getpid()}.tmp"
@@ -262,8 +265,10 @@ def _check_window(causal: bool, window):
 
 
 def _rows_staged_ok(t) -> bool:
-    """Head_dim contiguous and, for bf16 (whose kernels stage rows with
-    16-byte loads), rows that start on 16 bytes."""
+    """Head_dim contiguous and, for bf16, a base on 16 bytes and strides
+    of whole 16 bytes: the bf16 forward and dK/dV kernels read q, k, v and
+    dO through TMA tensor maps, which need both, and the dQ kernel stages
+    rows with 16-byte loads."""
     return t.stride(3) == 1 and (t.dtype != torch.bfloat16 or not (
         t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])))
 

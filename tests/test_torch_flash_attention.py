@@ -224,3 +224,30 @@ def test_reference_matches_sdpa_on_rows_with_keys():
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=mask[:, None, None, :]).transpose(1, 2)
     torch.testing.assert_close(out, want, atol=2e-5, rtol=1e-5)
+
+
+def _bf16_layout(kind):
+    """A bf16 [2, 40, 4, 64] view of one buffer, laid out as ``kind``."""
+    buf = torch.zeros(2 * 40 * 3 * 4 * 64 + 64, dtype=torch.bfloat16)
+    n = 2 * 40 * 4 * 64
+    if kind == "contiguous":
+        return buf[:n].view(2, 40, 4, 64)
+    if kind == "fused_qkv":                      # k of a fused [B, T, 3, H, D] projection
+        return buf[:3 * n].view(2, 40, 3, 4, 64)[:, :, 1]
+    if kind == "offset_8_bytes":
+        return buf[4:4 + n].view(2, 40, 4, 64)
+    # rows 4 elements (8 bytes) longer than a head's: a row stride off 16 bytes
+    return buf.as_strided((2, 40, 4, 64), (40 * 260, 260, 64, 1))
+
+
+@pytest.mark.parametrize("kind,ok", [("contiguous", True), ("fused_qkv", True),
+                                     ("offset_8_bytes", False), ("row_stride_plus_4", False)])
+def test_tma_layout_rule(kind, ok):
+    """The host-side rule that lets a bf16 tensor into the TMA kernels: a
+    16-byte-aligned base and strides of whole 16 bytes (TMA's own rule for
+    a tensor map); anything else raises before a launch."""
+    from tensorflowonspark_tpu_torch.ops.flash_attention import _rows_staged_ok
+
+    t = _bf16_layout(kind)
+    assert t.stride(3) == 1
+    assert _rows_staged_ok(t) is ok

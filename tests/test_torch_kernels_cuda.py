@@ -41,6 +41,11 @@ CASES = {
     "tq_ne_tk": (2, 24, 140, 2, 64, [140, 33], False, None),
     "tq_gt_tk_window": (1, 150, 40, 2, 128, None, True, 16),
     "bert": (2, 384, 384, 12, 64, [384, 100], False, None),
+    # one TMA tile each way, and boxes that overhang both ragged edges
+    "single_tile": (1, 64, 64, 1, 64, None, False, None),
+    "single_tile_d128": (1, 64, 64, 1, 128, None, False, None),
+    "ragged_129_257": (3, 129, 257, 2, 64, [257, 0, 130], False, None),
+    "d128_padding": (2, 256, 256, 4, 128, [256, 77], False, None),
 }
 
 
@@ -98,6 +103,16 @@ def test_flash_rejects_what_the_kernel_cannot_take():
     z = torch.zeros(1, 8, 1, 65, device="cuda", dtype=torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="16 bytes"):
         flash_attention(z, z, z)
+
+
+def test_flash_rejects_a_batch_stride_off_16_bytes():
+    """TMA reads bf16 rows through a tensor map whose strides must be whole
+    16 bytes: a batch stride of 516 elements (1032 bytes) is refused."""
+    _card()
+    buf = torch.zeros(2 * 516, device="cuda", dtype=torch.bfloat16)
+    x = buf.as_strided((2, 8, 1, 64), (516, 64, 64, 1))
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_fwd(x, x, x)
 
 
 def _bwd_inputs(case, dtype):
