@@ -12,7 +12,7 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    (``ops/csrc/flash_attention_fwd.cu`` and ``flash_attention_bwd.cu``, at
    once) into ``build/torch_kernels/``, with each kernel's ptxas report;
    then ``cuobjdump -sass`` must show wgmma (``HGMMA``) and TMA loads
-   (``UTMALDG``) in every bf16 K1 and K3 kernel;
+   (``UTMALDG``) in every bf16 K1, K2 and K3 kernel;
 3. kernels: the forward (K1) and the dQ (K2) and dK/dV (K3) backward
    kernels each held against their plain PyTorch versions on the card, at
    the main path's shapes and at edge cases (single TMA tiles, boxes that
@@ -77,9 +77,9 @@ SEQ_LEN = 384
 #: "Gate calibration")
 TRAIN_TOL = {"loss": 2e-2, "max": 0.35, "median": 0.08, "noise": 2.03}
 
-#: the bf16 K1 and K3 kernels, which must show wgmma and TMA in SASS (at
-#: D = 64 and 128 each)
-HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_dkv_tma_kernel")
+#: the bf16 K1, K2 and K3 kernels, which must show wgmma and TMA in SASS
+#: (at D = 64 and 128 each)
+HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_dq_tma_kernel", "flash_dkv_tma_kernel")
 HOPPER_DESIGN = "tma+wgmma"
 
 FLASH_SOURCE = "tensorflowonspark_tpu_torch/ops/csrc/flash_attention_fwd.cu"
@@ -125,16 +125,17 @@ def sass_counts(libs: dict) -> dict:
 
 
 def check_sass(libs: dict) -> dict:
-    """Every bf16 K1 and K3 kernel must issue wgmma (``HGMMA``) and TMA
-    loads (``UTMALDG``) in its SASS; K2 keeps ``mma.sync`` (``HMMA``).
-    Returns the counts of each kernel."""
+    """Every bf16 K1, K2 and K3 kernel must issue wgmma (``HGMMA``) and
+    TMA loads (``UTMALDG``) in its SASS.  Returns the counts of each
+    kernel."""
     counts = sass_counts(libs)
     for key, c in sorted(counts.items()):
         log(f"  sass: {key}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}, HMMA {c['HMMA']}")
     hopper = {k: c for k, c in counts.items() if k.startswith(HOPPER_KERNELS)}
     missing = [k for k, c in hopper.items() if not (c["HGMMA"] and c["UTMALDG"])]
     if len(hopper) != 2 * len(HOPPER_KERNELS) or missing:
-        raise SystemExit(f"the bf16 K1/K3 kernels lack wgmma or TMA in SASS: {missing or hopper}")
+        raise SystemExit(f"the bf16 K1/K2/K3 kernels lack wgmma or TMA in SASS: "
+                         f"{missing or hopper}")
     return counts
 
 
@@ -318,7 +319,7 @@ def check_flash_bwd(seed: int) -> list[dict]:
                   "library_note": "scaled_dot_product_attention backward: dq, dk and dv "
                                   "in one call; compare with dq ms + dkv ms"}
         entries = [
-            {"name": "flash_attention_dq", "replaces": DQ_REPLACES, "design": "mma.sync",
+            {"name": "flash_attention_dq", "replaces": DQ_REPLACES, "design": HOPPER_DESIGN,
              "max_abs_err": errs["dq"], "ms": dq_ms, "plain_ms": dq_plain_ms,
              "host_us": host_us(dq_fn), **common,
              **bound(5 * tensor + rows, 3 * prod),
@@ -725,7 +726,8 @@ def main() -> int:
         f"{dq['plain_ms'] + dkv['plain_ms']:.6f} ms")
     for e in (flash, dq, dkv):
         log(f"{e['name']}: host {e['host_us']:.1f} us a call (wrapper, no sync)")
-    for e, kernel in ((flash, "flash_fwd_tma_kernel<64"), (dkv, "flash_dkv_tma_kernel<64")):
+    for e, kernel in ((flash, "flash_fwd_tma_kernel<64"), (dq, "flash_dq_tma_kernel<64"),
+                      (dkv, "flash_dkv_tma_kernel<64")):
         e["sass"] = next(c for k, c in sass.items() if k.startswith(kernel))
 
     # 4. model gradients through the kernels against the plain versions

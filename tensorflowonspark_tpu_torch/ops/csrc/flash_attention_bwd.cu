@@ -24,10 +24,9 @@
 // caller makes no transposes or padded copies.  Each kernel owns its output
 // tile, so no atomics are needed and the results are deterministic.
 //
-//   dQ (flash_dq_*): CTA of 128 threads per 64 queries; K/V tiles of 64 keys
-//     stream through shared memory, staged synchronously; dq accumulates in
-//     f32.  bf16 runs mma.sync m16n8k16 (not wgmma) with fragments from
-//     ldmatrix: the next kernel to take the Hopper pieces of hopper.cuh.
+//   dQ (flash_dq_*): CTA per 64 queries (bf16: flash_dq_tma_kernel, a TMA
+//     ring + wgmma, see the comment above it); K/V tiles of 64 keys stream
+//     over the causal/window range of keys; dq accumulates in f32.
 //   dK/dV (flash_dkv_*): CTA per 64 keys (bf16: flash_dkv_tma_kernel, a TMA
 //     ring + wgmma, see the comment above it); Q/dO/lse/delta tiles stream
 //     from the causal diagonal up to the end of the window; dk, dv
@@ -36,14 +35,12 @@
 // Numerics: dQ rounds ds to k's dtype before ds.K, as the TPU kernel does;
 // dK/dV rounds p and ds to bf16 before p^T.dO and ds^T.q, where the TPU kernel
 // keeps them in f32, so its bf16 results differ from the plain version by a
-// relative ~2^-9 a term.  The bf16 dQ kernel keeps each warp's 16 rows of the
-// score-shaped accumulators (S, dP) in the mma layout and re-packs them to
-// bf16 as the A operand of the next product, so p and ds never touch shared
-// memory.  float32 keeps every value in f32 and runs its products as FMAs on
-// the CUDA cores (67 TFLOP/s peak), with thread (tr, tc) = (tid / 8, tid % 8)
-// owning rows tr + 16 i (i < 4) and columns tc + 8 j of each tile.
-
-#include <type_traits>
+// relative ~2^-9 a term.  Both bf16 kernels keep the score-shaped
+// accumulators (S, dP) in wgmma's register layout and re-pack them to bf16 as
+// the A operand of the next product, so p and ds never touch shared memory.
+// float32 keeps every value in f32 and runs its products as FMAs on the CUDA
+// cores (67 TFLOP/s peak), with thread (tr, tc) = (tid / 8, tid % 8) owning
+// rows tr + 16 i (i < 4) and columns tc + 8 j of each tile.
 
 #include "flash_attention_common.cuh"
 #include "hopper.cuh"
@@ -376,137 +373,236 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ----------------------------------------------------------------- bf16 dQ
 //
-// Each warp owns 16 queries.  Per K/V tile, S = Q.K^T and dP = dO.V^T land in
-// the mma accumulator layout (a thread holds rows g and g + 8 of the warp's
-// 16, columns 2t and 2t + 1 of each 8-key group); ds is formed in place in S's
-// registers, rounded to bf16 and multiplied by the K tile read transposed.
+// flash_dq_tma_kernel: a CTA of one consumer warpgroup, owning 64 queries,
+// and one producer warpgroup.  The producer loads the CTA's Q and dO tiles
+// once by TMA, then streams the 64-key K and V tiles of [kbeg, kend)
+// through a ring of kDqStages shared-memory stages ("full" and "empty"
+// mbarriers as in the forward); its first warp's lanes also write each
+// stage's 64 key-padding biases (times log2 e; -1e30 past Tk).  The
+// producer warpgroup gives its registers up (setmaxnreg) to the consumer,
+// as in the dK/dV kernel.  Per K/V tile, the consumer warpgroup:
+//   S = Q.K^T, dP = dO.V^T          SS wgmma m64n64k16, all four operands
+//                                    K-major in shared memory, in two
+//                                    commit groups;
+//   p = 2^(S scale log2 e + bias - lse log2 e) in S's registers while
+//   dP's product runs, then ds = p * (dP - delta);
+//   dQ += dS.K                       RS wgmma, ds rounded to bf16 and
+//                                    packed from S's accumulators as the A
+//                                    operand (the TPU kernel's
+//                                    ds.astype(k.dtype)), K read MN-major,
+//                                    one product per 64-column half;
+// and releases the stage after the wait_group that covers dQ's product.
+// Q and dO are read from shared memory by every product (SS), so no
+// register A fragment is held across the K/V loop (hopper.cuh); SS was 2%
+// faster than reloading them by ldmatrix every tile.  Rows past Tq have
+// lse = +1e30, so their p is 0, and are not stored; dq is scaled at the
+// end; each CTA owns its queries, so no atomics.  At D = 64 three CTAs share
+// an SM (on an H100 at the BERT shape, 0.037 ms against 0.044 with two;
+// PERF.md, Findings).
+
+constexpr int kDqStages = 3;              // K/V tiles in flight
+constexpr int kDqThreads = 2 * kThreads;  // the consumer and producer warpgroups
 
 template <int D>
-constexpr size_t dq_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * size_t(2 * kBQ + 2 * kBK) * (D + kPad) +
-         sizeof(float) * kBK;
-}
+struct DqTiles {
+  // CTAs an SM, and registers a thread after the split.  D = 64: three CTAs
+  // (67 KB of shared memory each), 80 registers a thread at launch (65536 /
+  // 768, rounded down to 8); the producer keeps 24 and the consumer takes
+  // 136, which hold dq, S, dP and ds's fragments without spilling.  D = 128:
+  // dq is twice as large, so 128 at launch, 40 and 216 as in the dK/dV
+  // kernel (its 131 KB of shared memory hold it to one CTA an SM).
+  static constexpr int kCtasPerSm = D == 64 ? 3 : 2;
+  static constexpr int kProducerRegs = D == 64 ? 24 : 40;
+  static constexpr int kConsumerRegs = D == 64 ? 136 : 216;
+  static constexpr uint32_t kQOBytes = 2u * kBQ * D * 2;     // Q and dO
+  static constexpr uint32_t kStageBytes = 2u * kBK * D * 2;  // K and V
+  static constexpr size_t kSmem = kAtomBytes + kQOBytes + size_t(kDqStages) * kStageBytes +
+                                  size_t(kDqStages) * kBK * sizeof(float);
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const uint8_t* __restrict__ mask,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int H, int Tq, int Tk, Strides st,
-                    float scale, int causal, int window) {
-  constexpr int LD = D + kPad;
-  constexpr int KS = D / 16;   // k-steps over the head dim
-  constexpr int NS = kBK / 8;  // 8-key column groups of S
-  constexpr int NO = D / 8;    // 8-wide column groups of dq
-  extern __shared__ __align__(16) unsigned char smem_dq[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_dq);
-  __nv_bfloat16* dOs = Qs + kBQ * LD;
-  __nv_bfloat16* Ks = dOs + kBQ * LD;
-  __nv_bfloat16* Vs = Ks + kBK * LD;
-  float* bias_s = reinterpret_cast<float*>(Vs + kBK * LD);
+__global__ void __launch_bounds__(kDqThreads, DqTiles<D>::kCtasPerSm)
+flash_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_o,
+                    const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H,
+                    int Tq, int Tk, float scale, int causal, int window) {
+  constexpr int STAGES = kDqStages;
+  constexpr int HALVES = D / 64;
+  constexpr int KS = D / 16;     // k-steps of S and dP over the head dim
+  constexpr int KK = kBK / 16;   // k-steps of dQ over a tile's keys
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t qo_bar, full_bar[STAGES], empty_bar[STAGES];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAtomBytes - 1) & ~uintptr_t(kAtomBytes - 1));
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(base);  // [HALVES][kBQ][64]
+  __nv_bfloat16* dOs = Qs + kBQ * D;                            // [HALVES][kBQ][64]
+  __nv_bfloat16* Ks = dOs + kBQ * D;           // [STAGES][HALVES][kBK][64]
+  __nv_bfloat16* Vs = Ks + STAGES * kBK * D;   // [STAGES][HALVES][kBK][64]
+  float* bias_s = reinterpret_cast<float*>(Vs + STAGES * kBK * D);  // [STAGES][kBK]
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  stage_rows<D>(Qs, q + b * st.qb + h * st.qh, st.qt, q0, Tq, tid);
-  stage_rows<D>(dOs, dout + b * st.ob + h * st.oh, st.ot, q0, Tq, tid);
-  const __nv_bfloat16* kb = k + b * st.kb + h * st.kh;
-  const __nv_bfloat16* vb = v + b * st.vb + h * st.vh;
-
-  float lse_r[2], delta_r[2];  // rows g and g + 8; past Tq: p = 0
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int qi = q0 + warp * 16 + g + 8 * hh;
-    const long long at = ((long long)b * H + h) * Tq + qi;
-    lse_r[hh] = qi < Tq ? lse[at] : -kNegInf;
-    delta_r[hh] = qi < Tq ? delta[at] : 0.f;
-  }
 
   int kbeg, kend;
   key_range(q0, Tk, causal, window, kbeg, kend);
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int j0 = kbeg / kBK;
+  const int nk = max(0, (kend + kBK - 1) / kBK - j0);
 
-  for (int jt = kbeg / kBK; jt < (kend + kBK - 1) / kBK; ++jt) {
-    const int k0 = jt * kBK;
-    __syncthreads();  // the last tile's Ks/Vs reads are done (and Qs/dOs staged)
-    stage_rows<D>(Ks, kb, st.kt, k0, Tk, tid);
-    stage_rows<D>(Vs, vb, st.vt, k0, Tk, tid);
-    if (tid < kBK) bias_s[tid] = key_bias(mask, b, Tk, k0 + tid);
-    __syncthreads();
+  if (tid == 0) {
+    mbar_init(&qo_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 32);
+      mbar_init(&empty_bar[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4], oa[4];
-      load_a(qa, Qs, LD, warp * 16, ks * 16, lane);
-      load_a(oa, dOs, LD, warp * 16, ks * 16, lane);
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t kf[4], vf[4];
-        load_b_t(kf, Ks, LD, np * 16, ks * 16, lane);
-        load_b_t(vf, Vs, LD, np * 16, ks * 16, lane);
-        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * np], oa, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], oa, vf[2], vf[3]);
+  if (warp >= 4) {  // the producer warpgroup; its first warp works
+    setmaxnreg_dec<DqTiles<D>::kProducerRegs>();
+    if (warp != 4) return;
+    if (lane == 0) {
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      mbar_arrive_expect_tx(&qo_bar, DqTiles<D>::kQOBytes);
+      for (int hf = 0; hf < HALVES; ++hf) {
+        tma_load_tile(Qs + hf * kBQ * 64, &tm_q, &qo_bar, hf * 64, h, q0, b);
+        tma_load_tile(dOs + hf * kBQ * 64, &tm_o, &qo_bar, hf * 64, h, q0, b);
       }
     }
-
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const int hh = e >> 1;
-        float x = s[j][e] * scale + bias_s[col];
-        if (!visible(q0 + warp * 16 + g + 8 * hh, k0 + col, causal, window)) x = kNegInf;
-        s[j][e] = expf(x - lse_r[hh]) * (dp[j][e] - delta_r[hh]);  // ds
+    for (int i = 0; i < nk; ++i) {
+      const int st = i % STAGES;
+      const int k0 = (j0 + i) * kBK;
+      if (i >= STAGES) mbar_wait(&empty_bar[st], ((i / STAGES) & 1) ^ 1);
+      for (int c = lane; c < kBK; c += 32)
+        bias_s[st * kBK + c] = key_bias(mask, b, Tk, k0 + c) * kLog2e;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full_bar[st], DqTiles<D>::kStageBytes);
+        for (int hf = 0; hf < HALVES; ++hf) {
+          tma_load_tile(Ks + (st * HALVES + hf) * kBK * 64, &tm_k, &full_bar[st], hf * 64, h,
+                        k0, b);
+          tma_load_tile(Vs + (st * HALVES + hf) * kBK * 64, &tm_v, &full_bar[st], hf * 64, h,
+                        k0, b);
+        }
+      } else {
+        mbar_arrive(&full_bar[st]);
       }
     }
+    return;
+  }
+  setmaxnreg_inc<DqTiles<D>::kConsumerRegs>();
 
-    // dq += ds.K: ds's A fragments come straight from its accumulators,
-    // rounded to bf16 (the TPU kernel's ds.astype(k.dtype)).
+  // the consumer warpgroup: rows wl * 16 + g (+ 8) of the CTA's tile
+  const int wl = warp;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + wl * 16 + g;
+  // p = 2^(S scale log2 e + bias log2 e - lse log2 e); rows past Tq: p = 0
+  const float scale2 = scale * kLog2e;
+  float lse2[2], delta_r[2];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t da[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qi = row0 + 8 * hh;
+    const long long at = ((long long)b * H + h) * Tq + qi;
+    lse2[hh] = (qi < Tq ? lse[at] : -kNegInf) * kLog2e;
+    delta_r[hh] = qi < Tq ? delta[at] : 0.f;
+  }
+
+  float acc[HALVES][32];
 #pragma unroll
-      for (int dp2 = 0; dp2 < NO / 2; ++dp2) {
-        uint32_t kf[4];
-        load_b(kf, Ks, LD, kk * 16, dp2 * 16, lane);
-        mma_bf16(acc[2 * dp2], da, kf[0], kf[1]);
-        mma_bf16(acc[2 * dp2 + 1], da, kf[2], kf[3]);
-      }
+  for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[hf][r] = 0.f;
+
+  mbar_wait(&qo_bar, 0);
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % STAGES;
+    const int k0 = (j0 + i) * kBK;
+    const __nv_bfloat16* Kst = Ks + st * HALVES * kBK * 64;
+    const __nv_bfloat16* Vst = Vs + st * HALVES * kBK * 64;
+    const float* bias = bias_s + st * kBK;
+    mbar_wait(&full_bar[st], (i / STAGES) & 1);
+
+    float s[32], dp[32];  // S, then p, then ds; dP
+#pragma unroll
+    for (int r = 0; r < 32; ++r) s[r] = dp[r] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_ss_n64<0>(s, desc_k_major(Qs + (ks / 4) * kBQ * 64, 0, ks % 4),
+                      desc_k_major(Kst + (ks / 4) * kBK * 64, 0, ks % 4), 1);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_ss_n64<0>(dp, desc_k_major(dOs + (ks / 4) * kBQ * 64, 0, ks % 4),
+                      desc_k_major(Vst + (ks / 4) * kBK * 64, 0, ks % 4), 1);
+    wgmma_commit();
+
+    // p while dP's product runs
+    wgmma_wait<1>();
+    fence_regs(s);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int col = (r >> 2) * 8 + 2 * t + (r & 1);
+      const int hh = (r >> 1) & 1;
+      float x = fmaf(s[r], scale2, bias[col]);
+      if (!visible(row0 + 8 * hh, k0 + col, causal, window)) x = kNegInf;
+      s[r] = ex2(x - lse2[hh]);
     }
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // ds = p * (dp - delta), rounded to bf16 as dQ's A fragments
+    uint32_t da[KK][4];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) s[r] *= dp[r] - delta_r[(r >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      da[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      da[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      da[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      da[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int hf = 0; hf < HALVES; ++hf) fence_regs(acc[hf]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf)
+        wgmma_rs_n64<1>(acc[hf], da[kk], desc_mn_major(Kst + hf * kBK * 64, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hf = 0; hf < HALVES; ++hf) fence_regs(acc[hf]);
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) fence_regs(da[kk]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_bar[st]);  // this warp is done with the stage
   }
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int qi = q0 + warp * 16 + g + 8 * hh;
+    const int qi = row0 + 8 * hh;
     if (qi >= Tq) continue;
     __nv_bfloat16* row = dq + (((long long)b * Tq + qi) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<uint32_t*>(row + j * 8) =
-          pack_bf16(acc[j][2 * hh] * scale, acc[j][2 * hh + 1] * scale);
+    for (int hf = 0; hf < HALVES; ++hf)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = 4 * j + 2 * hh;
+        *reinterpret_cast<uint32_t*>(row + hf * 64 + j * 8) =
+            pack_bf16(acc[hf][r] * scale, acc[hf][r + 1] * scale);
+      }
   }
 }
-
 
 // -------------------------------------------------------------- bf16 dK/dV
 //
@@ -787,25 +883,45 @@ flash_dkv_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* mask,
-              const void* dout, const void* lse, const void* delta, void* dq, int B,
-              int H, int Tq, int Tk, const Strides& st, float scale, int causal,
-              int window, cudaStream_t stream) {
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  constexpr size_t smem = kMma ? dq_mma_smem_bytes<D>() : dq_f32_smem_bytes<D>();
-  auto kernel = [] {
-    if constexpr (kMma) return &flash_dq_mma_kernel<D>;
-    else return &flash_dq_f32_kernel<D>;
-  }();
+template <int D>
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* mask,
+                  const void* dout, const void* lse, const void* delta, void* dq, int B, int H,
+                  int Tq, int Tk, const Strides& st, float scale, int causal, int window,
+                  cudaStream_t stream) {
+  constexpr size_t smem = dq_f32_smem_bytes<D>();
+  auto kernel = &flash_dq_f32_kernel<D>;
   static bool configured = false;
   if (cudaError_t err = allow_smem(kernel, smem, configured)) return (int)err;
   dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), H, Tq, Tk, st, scale, causal,
+      window);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_bf16(const void* q, const void* k, const void* v, const void* mask,
+                   const void* dout, const void* lse, const void* delta, void* dq, int B,
+                   int H, int Tq, int Tk, const Strides& st, float scale, int causal,
+                   int window, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  cudaError_t err;
+  if ((err = make_tile_map(&tm_q, q, B, Tq, H, D, st.qb, st.qt, st.qh, kBQ)) ||
+      (err = make_tile_map(&tm_k, k, B, Tk, H, D, st.kb, st.kt, st.kh, kBK)) ||
+      (err = make_tile_map(&tm_v, v, B, Tk, H, D, st.vb, st.vt, st.vh, kBK)) ||
+      (err = make_tile_map(&tm_o, dout, B, Tq, H, D, st.ob, st.ot, st.oh, kBQ)))
+    return (int)err;
+  auto kernel = &flash_dq_tma_kernel<D>;
+  static bool configured = false;
+  if ((err = allow_smem(kernel, DqTiles<D>::kSmem, configured))) return (int)err;
+  dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
+  kernel<<<grid, kDqThreads, DqTiles<D>::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, tm_o, static_cast<const uint8_t*>(mask),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Tq, Tk, st, scale, causal, window);
+      static_cast<__nv_bfloat16*>(dq), H, Tq, Tk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -871,13 +987,12 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* mas
 extern "C" int tfos_flash_attention_bwd_dq(TFOS_BWD_ARGS, void* dq, TFOS_BWD_SHAPE) {
   const Strides st{qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TFOS_LAUNCH(T, D)                                                       \
-  return launch_dq<T, D>(q, k, v, mask, dout, lse, delta, dq, B, H, Tq, Tk, st, \
-                         scale, causal, window, s)
-  if (dtype == 0 && head_dim == 64) TFOS_LAUNCH(float, 64);
-  if (dtype == 0 && head_dim == 128) TFOS_LAUNCH(float, 128);
-  if (dtype == 1 && head_dim == 64) TFOS_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) TFOS_LAUNCH(__nv_bfloat16, 128);
+#define TFOS_LAUNCH(F, D)                                                                 \
+  return F<D>(q, k, v, mask, dout, lse, delta, dq, B, H, Tq, Tk, st, scale, causal, window, s)
+  if (dtype == 0 && head_dim == 64) TFOS_LAUNCH(launch_dq_f32, 64);
+  if (dtype == 0 && head_dim == 128) TFOS_LAUNCH(launch_dq_f32, 128);
+  if (dtype == 1 && head_dim == 64) TFOS_LAUNCH(launch_dq_bf16, 64);
+  if (dtype == 1 && head_dim == 128) TFOS_LAUNCH(launch_dq_bf16, 128);
 #undef TFOS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -25,7 +25,10 @@
 // products gave wrong results from the second tile on, in the dK/dV kernel
 // (also with the held fragments pinned by fence_regs around every product
 // and after every wait) and in a trial of the forward without setmaxnreg;
-// the cause is not known.
+// the cause is not known.  So an operand that stays fixed across a loop is
+// either reloaded by ldmatrix every tile (the dK/dV kernel's K and V at
+// D = 64) or read from shared memory by every product (SS: Q in the
+// forward, Q and dO in the dQ kernel).
 #pragma once
 
 #include <cuda.h>

@@ -7,9 +7,9 @@ kernels become CUDA C++ for ``sm_90a``: ``_fwd_kernel`` is
 two kernels of ``csrc/flash_attention_bwd.cu``.  Each source is built with
 ``nvcc`` at first use into ``build/torch_kernels/`` (both at once, in
 parallel) and called through a plain C entry point with ``ctypes``.  The
-bf16 forward and dK/dV kernels are built for Hopper from
-``csrc/hopper.cuh``: TMA tensor maps (encoded in C from the strides passed
-here), an mbarrier-guarded ring of tiles and ``wgmma``.  The sources'
+three bf16 kernels are built for Hopper from ``csrc/hopper.cuh``: TMA
+tensor maps (encoded in C from the strides passed here), an
+mbarrier-guarded ring of tiles and ``wgmma``.  The sources'
 headers say what bounds them on the H100 and what their design does about
 it.
 
@@ -266,9 +266,8 @@ def _check_window(causal: bool, window):
 
 def _rows_staged_ok(t) -> bool:
     """Head_dim contiguous and, for bf16, a base on 16 bytes and strides
-    of whole 16 bytes: the bf16 forward and dK/dV kernels read q, k, v and
-    dO through TMA tensor maps, which need both, and the dQ kernel stages
-    rows with 16-byte loads."""
+    of whole 16 bytes: the bf16 kernels read q, k, v and dO through TMA
+    tensor maps, which need both."""
     return t.stride(3) == 1 and (t.dtype != torch.bfloat16 or not (
         t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])))
 

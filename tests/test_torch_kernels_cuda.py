@@ -26,7 +26,8 @@ import torch
 from tensorflowonspark_tpu_torch.ops import flash_attention, flash_attention_plain
 from tensorflowonspark_tpu_torch.ops.flash_attention import (
     flash_attention_bwd, flash_attention_bwd_reference, flash_attention_dkv,
-    flash_attention_dq, flash_attention_fwd, flash_attention_reference)
+    flash_attention_dq, flash_attention_dq_reference, flash_attention_fwd,
+    flash_attention_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +47,11 @@ CASES = {
     "single_tile_d128": (1, 64, 64, 1, 128, None, False, None),
     "ragged_129_257": (3, 129, 257, 2, 64, [257, 0, 130], False, None),
     "d128_padding": (2, 256, 256, 4, 128, [256, 77], False, None),
+    # rings of K/V (dQ, forward) or Q/dO (dK/dV) tiles: a window whose first
+    # key tile is not tile 0, over 5 key tiles; causal Tq != Tk with 7 key
+    # tiles for the last query tile, so the 3-stage ring wraps twice
+    "window_ring": (1, 640, 640, 2, 64, None, True, 200),
+    "causal_tq_ne_tk_ring": (2, 448, 512, 2, 128, [512, 300], True, None),
 }
 
 
@@ -155,6 +161,27 @@ def test_flash_backward_matches_plain(case, dtype):
         b = lens.index(0)
         for a in got:
             assert (a[b] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_dq_matches_plain(case, dtype):
+    """The dQ kernel alone against its plain version, fed the plain
+    forward's ``lse`` and ``delta``; a fully masked row's dq is exactly 0."""
+    _card()
+    q, k, v, g, mask, causal, window = _bwd_inputs(case, dtype)
+    out, lse = flash_attention_reference(q, k, v, mask=mask, causal=causal, window=window)
+    delta = (out.float() * g.float()).sum(-1).transpose(1, 2).contiguous()
+    launches = flash_attention_bwd.launches_dq
+    got = flash_attention_dq(q, k, v, mask, g, lse, delta, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches_dq == launches + 1
+    want = flash_attention_dq_reference(q, k, v, mask, g, lse, delta, causal=causal,
+                                        window=window)
+    _check_grads((got,), (want,), dtype)
+    lens = CASES[case][5]
+    if lens is not None and 0 in lens:
+        assert (got[lens.index(0)] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
