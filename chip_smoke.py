@@ -36,12 +36,35 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    each kernel must launch 12 times a step, and every step's loss and the
    chief's final weights must agree with a replay in this process through
    the plain attention (forward and backward) from the same seed, batches
-   and generators, where a replay with dK zeroed must not.
+   and generators, where a replay with dK zeroed must not;
+7. ResNet-50 on the card against the CPU: one train-mode forward and
+   backward of full-width ResNet-50 at 224 px, batch 8 (bf16 convolutions,
+   channels_last, cuDNN) against the port's float32 path on the CPU (which
+   the CPU tests hold against flax), same weights (flax's initial kernels,
+   BatchNorm scales from U(0.5, 1.5), each block's last from U(0.05, 0.15)
+   so that no block's branch is silenced), at three seeds: logits,
+   loss, gradients and the updated BatchNorm buffers; a planted fault (the
+   strided 3x3 convolutions padded (1, 1), PyTorch's default, instead of
+   flax's SAME (0, 1)) must fall outside the gate;
+8. ResNet-50 training main path: ``TPUCluster.run`` of
+   ``resnet_train.map_fun`` in ``InputMode.TENSORFLOW``, one worker, full
+   width, batch 128, 224 px, 8 steps of SGD momentum; every step's loss
+   and the chief's final weights and BatchNorm buffers must agree with a
+   replay in this process from the same seed and batches, and the buffers
+   must have moved;
+9. MNIST driver-fed path: ``cluster.train`` of 4096 synthetic rows through
+   ``mnist_train.map_fun`` in one worker: every row consumed, the loss
+   falls, the shared-memory transport carried the feed;
+10. the bench: ``python -m tensorflowonspark_tpu_torch.bench_resnet``'s
+   measurement, its JSON line printed on a line of its own.
 
-The line before the last is the card's name and power limit; the line
-before that is the ``{"kernels": [...]}`` summary; the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
-without a CUDA card or outside a checkout.
+The ResNet and MNIST paths run none of the repo's hand-written kernels
+(their convolutions are cuDNN's); the summary's ``launches_by_path`` shows
+each kernel's launches on every path.  The line before the last is the
+card's name and power limit; the line before that is the ``{"kernels":
+[...]}`` summary; the last line is ``{"ok": true, "device": {...}}``.
+Exits non-zero, with no result line, without a CUDA card or outside a
+checkout.
 """
 
 from __future__ import annotations
@@ -96,12 +119,6 @@ BWD_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
-
-
-def gpu_name_and_limit() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def sass_counts(libs: dict) -> dict:
@@ -672,9 +689,250 @@ def weight_readings(w: dict, w_plain: dict, w0: dict) -> dict:
                          if zero_in_theory(n)) / (TRAIN_LR * TRAIN_STEPS)}
 
 
+# ------------------------------------------------------------------ ResNet
+
+#: the ResNet-50 card-vs-CPU gates: max |logit diff| over max |logit|; the
+#: loss's |diff|; ||g - g_cpu|| / ||g_cpu|| over the parameters (max and
+#: median); max |g| where the CPU gradient is 0 (none at the gate's
+#: scales); and for the BatchNorm buffers after the step, ||b - b_cpu|| /
+#: ||b_cpu - b0|| (max).  Set from the readings of ``--calibrate-resnet``
+#: at seeds 0-2, batches 8 and 2 (PERF.md, "Gate calibration" of the
+#: ResNet slice): sound bf16 runs reach 0.0053 / 0.0010 / 0.347 / 0.252 /
+#: 0 / 0.0054, float32 ones 5.2e-7 / 9.5e-7 / 0.0076 / 0.0028 / 0 / 3.3e-6;
+#: the planted fault reads 0.064 / 0.0033 / 1.46 / 0.84 / 0 / 0.24 at
+#: batch 8, outside every bound but the loss's
+RESNET_TOL = {"logits": 2e-2, "loss": 5e-3, "max": 0.6, "median": 0.4, "zero": 1e-6,
+              "buffers": 0.03}
+RESNET_F32_TOL = {"logits": 1e-5, "loss": 1e-5, "max": 0.05, "median": 1e-2, "zero": 1e-6,
+                  "buffers": 1e-4}
+RESNET_GATE_BATCH, RESNET_IMAGE = 8, 224
+#: the gate's BatchNorm scales: U(0.5, 1.5), each block's last U(0.05,
+#: 0.15).  Every gradient is live, and the residual path still dominates
+#: as it does in training from flax's zero init; with every scale from
+#: U(0.5, 1.5) the BatchNorm-ReLU stacks at init make the step chaotic
+#: (bf16 gradients read a median of 1.28 against float32, float32 on the
+#: card 0.015-0.02 against the CPU), and no tolerance separates a fault
+RESNET_GATE_SCALES = (0.5, 1.5, 0.05, 0.15)
+#: the regimes ``--calibrate-resnet`` reads, at batches 8 and 2
+RESNET_CALIBRATION_SCALES = ((0.5, 1.5), (0.5, 1.5, 0.2, 0.4), RESNET_GATE_SCALES)
+#: the ResNet-50 training gate, against the in-process replay (the same
+#: batches; cuDNN autotunes its algorithms in each process, so the bf16
+#: roundings differ): each step's loss |diff|; ||w - w_replay|| /
+#: ||w_replay - w0|| over the parameters and BatchNorm buffers (max and
+#: median).  Seeds 0 / 1 / 2 read 0.00019 / 0.71 / 0.147, 0.00016 / 0.67 /
+#: 0.124 and 0.00037 / 0.87 / 0.136: the gradients' ~17% bf16 noise
+#: compounds over 8 steps; two batches of the same run differ in loss by
+#: 0.04-0.29, and a chief that saved its initial weights reads 1.0
+RESNET_TRAIN = {"batch_size": 128, "image_size": 224, "steps": 8, "num_samples": 1024}
+RESNET_TRAIN_TOL = {"loss": 1e-2, "max": 1.5, "median": 0.3}
+MNIST_ROWS, MNIST_BATCH = 4096, 64
+
+
+def resnet_step_readings(sd: dict, x, y, device: str, dtype):
+    """One train-mode forward and backward of ResNet-50 with weights
+    ``sd`` on ``device`` (``dtype`` convolutions, float32 BatchNorm;
+    channels_last on the card).  Returns ``(logits, loss, grads,
+    buffers)`` on the CPU in float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch.models import resnet
+
+    model = resnet.ResNet50(dtype=dtype, norm_dtype=torch.float32)
+    model.load_state_dict(sd)
+    model = model.to(device)
+    x = x.to(device)
+    if device == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+        x = x.contiguous(memory_format=torch.channels_last)
+    logits = model(x, train=True)
+    loss = F.cross_entropy(logits, y.to(device))
+    loss.backward()
+    return (logits.detach().float().cpu(), loss.item(),
+            {n: p.grad.float().cpu() for n, p in model.named_parameters()},
+            {n: b.float().cpu() for n, b in model.named_buffers()})
+
+
+def resnet_gate(card_run, cpu_run, b0: dict) -> dict:
+    """The card's step against the CPU's as :data:`RESNET_TOL` reads it."""
+    import numpy as np
+
+    logits, loss, grads, bufs = card_run
+    ref_logits, ref_loss, ref_grads, ref_bufs = cpu_run
+    rel = {n: ((grads[n] - g).norm() / g.norm()).item() for n, g in ref_grads.items()
+           if g.norm() > 0}
+    worst = max(rel, key=rel.get)
+    brel = {n: ((bufs[n] - b).norm() / (b - b0[n]).norm()).item() for n, b in ref_bufs.items()}
+    bworst = max(brel, key=brel.get)
+    return {"logits": ((logits - ref_logits).abs().max() / ref_logits.abs().max()).item(),
+            "loss": abs(loss - ref_loss), "max": rel[worst], "worst": worst,
+            "median": float(np.median(list(rel.values()))), "params": len(rel),
+            "zero": max((grads[n].abs().max().item() for n in ref_grads if n not in rel),
+                        default=0.0),
+            "buffers": brel[bworst], "worst_buffer": bworst}
+
+
+def check_resnet_grads(seed: int, batch: int = RESNET_GATE_BATCH,
+                       scales: tuple = RESNET_GATE_SCALES, gate: bool = True) -> None:
+    """Full-width ResNet-50 with flax's initial kernels from the seed and
+    BatchNorm scales drawn as ``scales`` says (``resnet.init_params``; at
+    flax's init each block's last scale of 0 silences its branch, and with
+    it every convolution but the stem and the shortcuts), one train-mode
+    step at ``RESNET_IMAGE`` px, batch ``batch``: the card with bf16
+    convolutions (:data:`RESNET_TOL`) and with float32 ones
+    (:data:`RESNET_F32_TOL`) against the port's float32 path on the CPU,
+    at ``GRAD_SEEDS`` seeds; a planted fault (symmetric padding of the
+    strided 3x3 convolutions, bf16) must fall outside the bf16 gate.  With
+    ``gate`` false it only logs the readings (``--calibrate-resnet``)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import resnet
+
+    fault_name = "card bf16, strided 3x3 padded (1, 1) (planted fault)"
+    gates = {"card bf16": RESNET_TOL, "card float32": RESNET_F32_TOL}
+    fault, sound = None, []
+    for s in range(seed, seed + GRAD_SEEDS):
+        sd = resnet.init_params(resnet.ResNet50(), s, scales)
+        rng = np.random.default_rng([s, 2])
+        x = torch.from_numpy(rng.standard_normal(
+            (batch, 3, RESNET_IMAGE, RESNET_IMAGE), np.float32))
+        y = torch.from_numpy(rng.integers(0, 1000, batch).astype(np.int64))
+        b0 = {n: t.clone() for n, t in sd.items() if "running" in n}
+        t0 = time.perf_counter()
+        cpu = resnet_step_readings(sd, x, y, "cpu", torch.float32)
+        cpu_s = time.perf_counter() - t0
+        runs = {"card bf16": resnet_step_readings(sd, x, y, "cuda", torch.bfloat16),
+                "card float32": resnet_step_readings(sd, x, y, "cuda", torch.float32)}
+        if s == seed:
+            with mock.patch.object(resnet, "same_padding",
+                                   lambda size, k, stride: ((k - 1) // 2, (k - 1) // 2)):
+                runs[fault_name] = resnet_step_readings(sd, x, y, "cuda", torch.bfloat16)
+        for name, run in runs.items():
+            r = resnet_gate(run, cpu, b0)
+            log(f"ResNet-50 step, scales {scales}, seed {s}, {name} vs the CPU float32 path ({batch}"
+                f" x {RESNET_IMAGE} px; CPU {cpu_s:.1f} s): loss {run[1]:.6f} vs {cpu[1]:.6f} "
+                f"(|diff| {r['loss']:.3g}); max|logit diff|/max|logit| {r['logits']:.4g}; "
+                f"||g-g_cpu||/||g_cpu|| over {r['params']} parameters: max {r['max']:.4g} "
+                f"({r['worst']}), median {r['median']:.4g}; max |g| where g_cpu = 0: "
+                f"{r['zero']:.3g}; BatchNorm buffers ||b-b_cpu||/||b_cpu-b0||: max "
+                f"{r['buffers']:.4g} ({r['worst_buffer']})")
+            if name == fault_name:
+                fault = r
+            else:
+                sound.append((name, within(r, gates[name])))
+    for name, tol in gates.items():
+        log(f"ResNet-50 gate for {name} {tol}: within it at "
+            f"{sum(ok for n, ok in sound if n == name)} of {GRAD_SEEDS} seeds")
+    log(f"planted fault {'outside' if not within(fault, RESNET_TOL) else 'INSIDE'} the bf16 "
+        f"gate")
+    if not gate:
+        return
+    if not all(ok for _, ok in sound):
+        raise SystemExit("ResNet-50 on the card disagrees with the port's CPU path")
+    if within(fault, RESNET_TOL):
+        raise SystemExit("the ResNet-50 gate does not see symmetric strided padding")
+
+
+def run_resnet_training(seed: int, card: str) -> dict:
+    """Train full-width ResNet-50 for 8 steps through ``TPUCluster.run``
+    in ``InputMode.TENSORFLOW`` (one worker on the card); hold every
+    step's loss and the chief's final weights and BatchNorm buffers to a
+    replay in this process (:data:`RESNET_TRAIN_TOL`), and check the
+    buffers moved.  Returns the worker's launches of each kernel."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import resnet_train as rt
+
+    args = {**RESNET_TRAIN, "model": "ResNet50", "seed": seed, "device": "cuda"}
+    torch.cuda.empty_cache()
+    zero_launch_counts()                   # counts start at 0 for the main path
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_") as wd:
+        t0 = time.perf_counter()
+        stats, weights = rt.run_training(args, 1, working_dir=wd, timeout=600)
+        wall = time.perf_counter() - t0
+    st = stats[0]
+    steps, batch = RESNET_TRAIN["steps"], RESNET_TRAIN["batch_size"]
+    log(f"ResNet-50 training path: {len(st['losses'])} steps of {batch} x "
+        f"{RESNET_TRAIN['image_size']} px in {wall:.2f} s wall (cluster boot, shard, steps, "
+        f"shutdown) on {st['device']}; worker launches of the repo's kernels {st['launches']}")
+    if len(st["losses"]) != steps or st["images"] != steps * batch or st["device"] != "cuda":
+        raise SystemExit(f"the ResNet-50 training path did not run {steps} steps on the card")
+    if not all(math.isfinite(x) for x in st["losses"]):
+        raise SystemExit(f"non-finite ResNet-50 training loss: {st['losses']}")
+    med = statistics.median(st["step_ms"][1:])
+    log(f"ResNet-50 training path on {card}: median step {med:.3f} ms over steps 2..{steps} "
+        f"(first, with cuDNN autotuning: {st['step_ms'][0]:.1f} ms; all "
+        f"{[round(x, 2) for x in st['step_ms']]}) = {batch / med * 1e3:.1f} img/s")
+
+    w0 = rt.build_model(args).state_dict()
+    replay, w_replay = rt.train_in_process(args, 1, "cuda")
+    rel = {}
+    for n, w in w_replay.items():
+        moved, diff = ((t - w0[n]).float().norm().item() for t in (w, weights[n]))
+        rel[n] = (weights[n] - w).float().norm().item() / moved if moved else float(diff > 0)
+    worst = max(rel, key=rel.get)
+    r = {"loss": max(abs(a - b) for a, b in zip(st["losses"], replay)), "max": rel[worst],
+         "median": float(np.median(list(rel.values())))}
+    buffers = [n for n in w_replay if "running" in n]
+    unmoved = [n for n in buffers if torch.equal(weights[n], w0[n])]
+    log(f"ResNet-50 training path vs the in-process replay: losses "
+        f"{[round(x, 5) for x in st['losses']]} vs {[round(x, 5) for x in replay]} (max "
+        f"|diff| {r['loss']:.4g}); final weights and buffers ||w-w_replay||/||w_replay-w0|| "
+        f"over {len(rel)} tensors: max {r['max']:.4g} ({worst}), median {r['median']:.4g}; "
+        f"BatchNorm buffers moved: {len(buffers) - len(unmoved)} of {len(buffers)}")
+    if not within(r, RESNET_TRAIN_TOL):
+        raise SystemExit(f"the ResNet-50 training path disagrees with its replay "
+                         f"{RESNET_TRAIN_TOL}")
+    if unmoved:
+        raise SystemExit(f"BatchNorm buffers did not move: {unmoved[:4]}")
+    return st["launches"]
+
+
+def run_mnist_training(seed: int, card: str) -> dict:
+    """Feed ``MNIST_ROWS`` synthetic rows through ``cluster.train`` into
+    ``mnist_train.map_fun`` (one worker on the card): every row consumed,
+    the loss falls, the shared-memory transport negotiated.  Returns the
+    worker's launches of each kernel."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import mnist_train as mt
+
+    images, labels = mt.synthetic_mnist(MNIST_ROWS, seed)
+    zero_launch_counts()                   # counts start at 0 for the main path
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_") as wd:
+        t0 = time.perf_counter()
+        stats, _ = mt.run_training(list(zip(images, labels)), seed=seed,
+                                   batch_size=MNIST_BATCH, num_workers=1, device="cuda",
+                                   working_dir=wd, timeout=600)
+        wall = time.perf_counter() - t0
+    st = stats[0]
+    losses = st["losses"]
+    first, last = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+    log(f"MNIST driver-fed path on {card}: {st['rows']} of {MNIST_ROWS} rows in "
+        f"{len(losses)} steps of {MNIST_BATCH}, {wall:.2f} s wall ({MNIST_ROWS / wall:.0f} "
+        f"rows/s end to end; median step {statistics.median(st['step_ms']):.3f} ms) on "
+        f"{st['device']}; loss, mean of the first 8 steps {first:.4f}, of the last 8 "
+        f"{last:.4f}; shm connections {st['shm_conns']}; worker launches of the repo's "
+        f"kernels {st['launches']}")
+    if st["rows"] != MNIST_ROWS or st["device"] != "cuda":
+        raise SystemExit("the MNIST path did not consume every fed row on the card")
+    if not (all(math.isfinite(x) for x in losses) and last < 0.5 * first):
+        raise SystemExit(f"the MNIST loss did not fall: {first} -> {last}")
+    if st["shm_conns"] < 1:
+        raise SystemExit("the MNIST feed did not go through the shared-memory transport")
+    return st["launches"]
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0, help="weights and data seed")
+    p.add_argument("--calibrate-resnet", action="store_true",
+                   help="only log the ResNet-50 gate's readings at the scales of "
+                        "RESNET_CALIBRATION_SCALES, batches 8 and 2, and exit (no result)")
     args = p.parse_args()
 
     import torch
@@ -691,10 +949,18 @@ def main() -> int:
     from tensorflowonspark_tpu_torch.util import strict_matmul_precision
 
     strict_matmul_precision()
+    if args.calibrate_resnet:
+        for batch in (RESNET_GATE_BATCH, 2):
+            for scales in RESNET_CALIBRATION_SCALES:
+                check_resnet_grads(args.seed, batch, scales, gate=False)
+        return 0
 
+    from tensorflowonspark_tpu_torch.device_info import card_name_and_limit
+
+    t_start = time.perf_counter()
     # 1. device
     kind = torch.cuda.get_device_name(0)
-    card = gpu_name_and_limit()
+    card = card_name_and_limit()
     log(f"device: {kind}; nvidia-smi: {card}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; count {torch.cuda.device_count()}")
 
@@ -739,12 +1005,30 @@ def main() -> int:
     # 6. the training main path (all three kernels)
     training = run_training_path(args.seed, card)
 
+    # 7. ResNet-50 on the card against the port's CPU path
+    check_resnet_grads(args.seed)
+
+    # 8. the ResNet-50 training main path (TENSORFLOW mode, no kernel of the repo)
+    resnet = run_resnet_training(args.seed, card)
+
+    # 9. the MNIST driver-fed path (SPARK mode, no kernel of the repo)
+    mnist = run_mnist_training(args.seed, card)
+
+    # 10. the bench
+    from tensorflowonspark_tpu_torch import bench_resnet
+
+    print(json.dumps(bench_resnet.bench(seed=args.seed)), flush=True)
+
     flash["launches"] = training["flash_attention_fwd"]
     flash["launches_by_path"] = {"inference": inference,
                                  "training": training["flash_attention_fwd"]}
     for e in (dq, dkv):
         e["launches"] = training[e["name"]]
         e["launches_by_path"] = {"training": training[e["name"]]}
+    for e in (flash, dq, dkv):
+        e["launches_by_path"].update({"resnet_training": resnet[e["name"]],
+                                      "mnist_training": mnist[e["name"]]})
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [flash, dq, dkv]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

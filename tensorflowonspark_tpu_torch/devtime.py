@@ -15,7 +15,10 @@ are all queued, and run back to back.
 
 :func:`time_in_turns` samples several calls alternately within one loop
 (a kernel and its library yardstick), so that both see the same clocks,
-power and neighbours.  Needs a CUDA card.
+power and neighbours.  :func:`device_ms` sums a ``torch.profiler``
+trace's device time by kernel family (:data:`FAMILIES`), for the
+breakdowns of ``profile_bert`` and ``bench_resnet --profile``.  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -24,8 +27,55 @@ import argparse
 import functools
 import json
 import statistics
-import subprocess
 import time
+
+
+FAMILIES = (  # first match wins; names as CUPTI reports them
+    ("flash_attention forward (CUDA, this repo)", ("flash_fwd",)),
+    ("flash_attention backward (CUDA, this repo)", ("flash_dq", "flash_dkv")),
+    ("convolution (cuDNN)", ("cudnn", "fprop", "dgrad", "wgrad", "convolve")),
+    ("matmul (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet")),
+    ("optimizer (multi-tensor AdamW, SGD)", ("multi_tensor", "adam", "sgd")),
+    ("batch_norm", ("batch_norm",)),
+    ("pooling", ("pool",)),
+    ("layer_norm", ("layer_norm",)),
+    ("gelu", ("gelu",)),
+    ("dropout masks", ("bernoulli", "philox")),
+    ("reductions (delta, losses, grad sums)", ("reduce",)),
+    ("casts and copies", ("copy", "memcpy", "cast")),
+    ("embedding", ("embedding", "index")),
+)
+
+
+def family(name: str) -> str:
+    """The :data:`FAMILIES` entry a kernel's name falls in."""
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other elementwise"
+
+
+def device_ms(prof) -> tuple[dict, dict]:
+    """Device milliseconds of a ``torch.profiler`` trace, summed by
+    kernel family and by kernel name."""
+    from torch.autograd import DeviceType
+
+    by_family: dict[str, float] = {}
+    by_kernel: dict[str, float] = {}
+    for evt in prof.key_averages():
+        # kernels only: not the ops that launched them, nor the ranges that
+        # annotations (``Optimizer.step#AdamW.step``) open on the device
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us:
+            fam = family(evt.key)
+            by_family[fam] = by_family.get(fam, 0.0) + dev_us / 1e3
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dev_us / 1e3
+    return by_family, by_kernel
 
 
 @functools.cache
@@ -107,12 +157,11 @@ def main() -> int:
 
     import torch
 
+    from tensorflowonspark_tpu_torch.device_info import card_name_and_limit
     from tensorflowonspark_tpu_torch.ops.flash_attention import (
         flash_attention_dkv, flash_attention_dq, flash_attention_fwd)
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_name_and_limit()
     B, T, H, D = 16, 384, 12, 64
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, dout = (torch.randn(B, T, H, D, device="cuda", generator=gen).to(torch.bfloat16)

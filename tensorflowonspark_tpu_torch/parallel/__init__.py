@@ -4,5 +4,5 @@ long-context ops of the JAX package's ``parallel`` are not ported yet
 (ROADMAP A6)."""
 
 from tensorflowonspark_tpu_torch.parallel.strategy import (  # noqa: F401
-    DataParallelStrategy, MultiWorkerMirroredStrategy, TrainState,
-    all_gather_batch, cross_replica_mean, step_generator)
+    DataParallelStrategy, MultiWorkerMirroredStrategy, TrainState, adam,
+    all_gather_batch, cross_replica_mean, sgd, step_generator)

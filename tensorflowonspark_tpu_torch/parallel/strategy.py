@@ -225,6 +225,21 @@ class DataParallelStrategy:
 MultiWorkerMirroredStrategy = DataParallelStrategy
 
 
+def sgd(lr: float, momentum: float = 0.9):
+    """``optax.sgd(lr, momentum)`` as ``optimizer_fn``: optax keeps the
+    trace ``t = g + momentum * t`` and steps by ``-lr * t``, which is
+    ``torch.optim.SGD`` with ``dampening=0`` (the first step's trace is
+    the gradient itself in both)."""
+    return lambda params: torch.optim.SGD(params, lr=lr, momentum=momentum,
+                                          dampening=0.0, nesterov=False)
+
+
+def adam(lr: float):
+    """``optax.adam(lr)`` as ``optimizer_fn``: the same moments, bias
+    corrections and eps outside the square root."""
+    return lambda params: torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
 def cross_replica_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean of ``x`` over the process group (all-reduce, then divide by
     the world size); ``x`` itself without a group."""

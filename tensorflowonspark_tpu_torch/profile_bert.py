@@ -19,29 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
-
-FAMILIES = (  # first match wins; names as CUPTI reports them
-    ("flash_attention forward (CUDA, this repo)", ("flash_fwd",)),
-    ("flash_attention backward (CUDA, this repo)", ("flash_dq", "flash_dkv")),
-    ("matmul (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet")),
-    ("AdamW (multi-tensor)", ("multi_tensor", "adam")),
-    ("layer_norm", ("layer_norm",)),
-    ("gelu", ("gelu",)),
-    ("dropout masks", ("bernoulli", "philox")),
-    ("reductions (delta, losses, grad sums)", ("reduce",)),
-    ("casts and copies", ("copy", "memcpy", "cast")),
-    ("embedding", ("embedding", "index")),
-)
-
-
-def family(name: str) -> str:
-    low = name.lower()
-    for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
-            return fam
-    return "other elementwise"
 
 
 def forward(seed: int, device):
@@ -92,16 +70,15 @@ def main() -> int:
     args = p.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from tensorflowonspark_tpu_torch.device_info import card_name_and_limit
+    from tensorflowonspark_tpu_torch.devtime import device_ms
     from tensorflowonspark_tpu_torch.util import resolve_device, strict_matmul_precision
 
     device = resolve_device("cuda")
     strict_matmul_precision()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_name_and_limit()
     run = train_step(args.seed, device) if args.train else forward(args.seed, device)
     for _ in range(3):
         run()
@@ -118,20 +95,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    by_family: dict[str, float] = {}
-    by_kernel: dict[str, float] = {}
-    for evt in prof.key_averages():
-        # kernels only: not the ops that launched them, nor the ranges that
-        # annotations (``Optimizer.step#AdamW.step``) open on the device
-        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if dev_us:
-            fam = family(evt.key)
-            by_family[fam] = by_family.get(fam, 0.0) + dev_us / 1e3
-            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dev_us / 1e3
+    by_family, by_kernel = device_ms(prof)
     busy_ms = sum(by_family.values())
     per = args.batches
     what = "training steps" if args.train else "batches"

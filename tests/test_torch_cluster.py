@@ -172,6 +172,9 @@ def test_port_imports_no_jax_nor_the_jax_package():
     assert "tensorflowonspark_tpu_torch.bert_inference" in report["imported"]
     assert "tensorflowonspark_tpu_torch.bert_train" in report["imported"]
     assert "tensorflowonspark_tpu_torch.parallel.strategy" in report["imported"]
+    for name in ("models.resnet", "models.mnist", "data", "device_info", "gpu_info",
+                 "resnet_train", "mnist_train", "bench_resnet"):
+        assert f"tensorflowonspark_tpu_torch.{name}" in report["imported"], name
     assert [m for m in report["new"] if _forbidden(m)] == []
 
 
@@ -194,3 +197,16 @@ def test_port_sources_name_no_jax_import():
                 continue
             bad += [f"{path}: {n}" for n in names if _forbidden(n)]
     assert bad == []
+
+
+def test_device_info_over_torch_cuda():
+    from tensorflowonspark_tpu_torch import device_info, gpu_info
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    assert device_info.num_local_devices() == gpu_info.num_local_devices() == n
+    assert [d["id"] for d in device_info.device_summary()] == list(range(n))
+    assert device_info.visibility_env([0, 2]) == {"CUDA_VISIBLE_DEVICES": "0,2"}
+    assert device_info.visibility_env() == {}
+    assert gpu_info.get_gpus(2) == ",".join(map(str, range(min(n, 2))))
+    # no card: the worker's index modulo the (empty) device count, as the JAX shim
+    assert device_info.get_gpus(1, worker_index=3, format_as_csv=False) == [0]
