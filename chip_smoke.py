@@ -12,11 +12,15 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    (``ops/csrc/flash_attention_fwd.cu`` and ``flash_attention_bwd.cu``, at
    once) into ``build/torch_kernels/``, with each kernel's ptxas report;
    then ``cuobjdump -sass`` must show wgmma (``HGMMA``) and TMA loads
-   (``UTMALDG``) in every bf16 K1, K2 and K3 kernel;
+   (``UTMALDG``) in every bf16 K1, K2 and K3 kernel; and the native
+   TFRecord codec (``native/tfrecord.cc``) compiled by ``g++`` into
+   ``build/torch_native/`` (no pure-Python fallback here);
 3. kernels: the forward (K1) and the dQ (K2) and dK/dV (K3) backward
    kernels each held against their plain PyTorch versions on the card, at
    the main path's shapes and at edge cases (single TMA tiles, boxes that
-   overhang ragged edges, D = 128), then timed beside their bound, their
+   overhang ragged edges, D = 128, and head dims 8, 16 and 96 zero-padded
+   to the kernels' 64 or 128, each call counting one launch), then timed
+   (the padded head dims too, against SDPA) beside their bound, their
    plain version and the one PyTorch call that computes the same function
    (a yardstick only; the port never calls it), kernel and yardstick in
    turns behind a sleep that hides the host's enqueue
@@ -32,11 +36,20 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    launches must be 12 per batch, and its logits must agree with the same
    weights run in this process with the plain attention;
 6. training main path: ``TPUCluster.run`` + ``cluster.train`` fine-tuning
-   full-width BERT-base QA for 8 steps (AdamW, dropout 0.1) in one worker;
+   full-width BERT-base QA for 8 steps (AdamW, dropout 0.1) in one worker
+   that checkpoints into ``model_dir`` and writes the serving export;
    each kernel must launch 12 times a step, and every step's loss and the
-   chief's final weights must agree with a replay in this process through
-   the plain attention (forward and backward) from the same seed, batches
-   and generators, where a replay with dK zeroed must not;
+   checkpoint's final weights must agree with a replay in this process
+   through the plain attention (forward and backward) from the same seed,
+   batches and generators, where a replay with dK zeroed must not; the
+   replay's live state (model, AdamW moments, step), checkpointed sync and
+   async, restores on the CPU bit for bit;
+6b. export serving path: ``cluster.inference`` of the 64 rows through the
+   chief's export (``bert_inference`` with ``export_dir``): 12 K1 launches
+   a batch inside the exported program, and logits that agree with the
+   eager model of the checkpoint's weights (:data:`EXPORT_TOL`), where an
+   export whose attention zeroes V must not; the exported and eager
+   batch's times, in turns;
 7. ResNet-50 on the card against the CPU: one train-mode forward and
    backward of full-width ResNet-50 at 224 px, batch 8 (bf16 convolutions,
    channels_last, cuDNN) against the port's float32 path on the CPU (which
@@ -46,15 +59,26 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    loss, gradients and the updated BatchNorm buffers; a planted fault (the
    strided 3x3 convolutions padded (1, 1), PyTorch's default, instead of
    flax's SAME (0, 1)) must fall outside the gate;
-8. ResNet-50 training main path: ``TPUCluster.run`` of
-   ``resnet_train.map_fun`` in ``InputMode.TENSORFLOW``, one worker, full
-   width, batch 128, 224 px, 8 steps of SGD momentum; every step's loss
-   and the chief's final weights and BatchNorm buffers must agree with a
-   replay in this process from the same seed and batches, and the buffers
-   must have moved;
-9. MNIST driver-fed path: ``cluster.train`` of 4096 synthetic rows through
+8. ResNet-50 training main path from TFRecords, with a resume: the
+   worker's 1024-image uint8 shard written as TFRecords with ``dfutil``
+   (a decoded batch equals the array batch byte for byte); ``TPUCluster.run``
+   of ``resnet_train.map_fun`` in ``InputMode.TENSORFLOW``, one worker, full
+   width, batch 128, 224 px, SGD momentum: 4 steps into ``model_dir``, then
+   a new cluster that restores step 4 and trains steps 5-8; every step's
+   loss and the final checkpoint's weights and BatchNorm buffers must agree
+   with an unbroken replay in this process over the same records, the
+   buffers must have moved, and a resume from a checkpoint stripped of its
+   momentum must fall outside the gate; a live ResNet-50 + SGD state,
+   checkpointed on the card sync and async, restores on the CPU bit for
+   bit, and the worker's checkpoint holds its step, input position and
+   momentum;
+9. MNIST driver-fed path from TFRecords: the driver reads 4096 rows back
+   with ``loadTFRecords`` and ``cluster.train`` feeds them through
    ``mnist_train.map_fun`` in one worker: every row consumed, the loss
-   falls, the shared-memory transport carried the feed;
+   falls, the shared-memory transport carried the feed; the chief's
+   export serves on the card within 1e-5 of the eager model, and so does
+   an export that a process without a card wrote (and the card's export on
+   the CPU);
 10. the bench: ``python -m tensorflowonspark_tpu_torch.bench_resnet``'s
    measurement, its JSON line printed on a line of its own.
 
@@ -180,7 +204,15 @@ def flash_cases(seed: int):
         ("single_tile_d128", 1, 64, 64, 1, 128, bf16, None, False, None, 2e-2),
         ("ragged_129_257", 3, 129, 257, 12, 64, bf16, [257, 0, 130], False, None, 2e-2),
         ("d128_padding", 4, 384, 384, 12, 128, bf16, [384, 200, 1, 333], False, None, 2e-2),
+        # head dims the kernels take zero-padded to 64 or 128
+        ("head_dim_8", 4, 128, 128, 4, 8, bf16, [128, 100, 0, 7], False, None, 2e-2),
+        ("head_dim_16", 2, 200, 200, 12, 16, f32, [200, 150], True, None, 2e-5),
+        ("head_dim_96", 4, 384, 384, 12, 96, bf16, [384, 200, 1, 333], False, None, 2e-2),
     ]
+
+
+#: the padded head dims timed against SDPA, at BERT-base's batch and length
+PADDED_HEAD_DIMS = (16, 96)
 
 
 def make_inputs(B, Tq, Tk, H, D, dtype, lens, seed):
@@ -210,8 +242,11 @@ def check_flash(seed: int) -> dict:
     for i, (name, B, Tq, Tk, H, D, dtype, lens, causal, window, atol) in \
             enumerate(flash_cases(seed)):
         q, k, v, mask = make_inputs(B, Tq, Tk, H, D, dtype, lens, seed + i)
+        before = flash_attention_fwd_launches()
         out, lse = flash_attention_fwd(q, k, v, mask=mask, causal=causal, window=window)
         torch.cuda.synchronize()
+        if flash_attention_fwd_launches() != before + 1:
+            raise SystemExit(f"flash case {name} did not launch the forward kernel once")
         want, want_lse = flash_attention_reference(q, k, v, mask=mask, causal=causal,
                                                    window=window)
         err = (out.float() - want.float()).abs().max().item()
@@ -255,6 +290,50 @@ def check_flash(seed: int) -> dict:
     return summary
 
 
+def flash_attention_fwd_launches() -> int:
+    from tensorflowonspark_tpu_torch.ops import flash_attention
+
+    return flash_attention.launches
+
+
+def time_padded_head_dims(seed: int) -> dict:
+    """The kernels at head dims they take zero-padded (``D`` in
+    :data:`PADDED_HEAD_DIMS`, BERT-base's batch, length, heads and key
+    padding, bf16), in turns with SDPA: forward against SDPA's forward,
+    dQ + dK/dV against SDPA's backward.  ``{D: {name: ms}}``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch.devtime import time_in_turns
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (
+        _delta, flash_attention_dkv, flash_attention_dq, flash_attention_fwd)
+
+    lens = flash_cases(seed)[0][7]
+    out = {}
+    for D in PADDED_HEAD_DIMS:
+        q, k, v, mask = make_inputs(16, SEQ_LEN, SEQ_LEN, 12, D, torch.bfloat16, lens, seed)
+        g = torch.randn_like(q)
+        o, lse = flash_attention_fwd(q, k, v, mask=mask)
+        delta = _delta(o, g)
+        sdpa_mask = mask.clone()                     # SDPA: NaN on a fully masked row
+        sdpa_mask[lens.index(0)] = True
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=sdpa_mask[:, None, None, :])
+        gt = g.transpose(1, 2)
+        turns = time_in_turns({
+            "fwd": lambda: flash_attention_fwd(q, k, v, mask=mask),
+            "sdpa_fwd": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask[:, None, None, :]),
+            "dq": lambda: flash_attention_dq(q, k, v, mask, g, lse, delta),
+            "dkv": lambda: flash_attention_dkv(q, k, v, mask, g, lse, delta),
+            "sdpa_bwd": lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), gt,
+                                                    retain_graph=True)}, KERNEL_REPS)
+        out[D] = {"padded_to": 64 if D <= 64 else 128, **turns,
+                  "bwd": turns["dq"] + turns["dkv"]}
+    return out
+
+
 def bound(bytes_moved: int, flops: int) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the bf16 tensor-core peak."""
@@ -286,8 +365,12 @@ def check_flash_bwd(seed: int) -> list[dict]:
         g = torch.randn(q.shape, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(seed + i)).to(dtype)
         out, lse = flash_attention_fwd(q, k, v, mask=mask, causal=causal, window=window)
+        before = (flash_attention_bwd.launches_dq, flash_attention_bwd.launches_dkv)
         got = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=causal, window=window)
         torch.cuda.synchronize()
+        if (flash_attention_bwd.launches_dq, flash_attention_bwd.launches_dkv) != tuple(
+                n + 1 for n in before):
+            raise SystemExit(f"flash case {name} did not launch each backward kernel once")
         want = flash_attention_bwd_reference(q, k, v, mask, out, lse, g, causal=causal,
                                              window=window)
         rel = BWD_REL_TOL[str(dtype)[6:]]
@@ -571,31 +654,41 @@ def zero_launch_counts() -> None:
     flash_attention_bwd.launches_dq = flash_attention_bwd.launches_dkv = 0
 
 
-def run_training_path(seed: int, card: str) -> dict:
+def run_training_path(seed: int, card: str, wd: str) -> tuple[dict, dict]:
     """Fine-tune full-width BERT-base QA for ``TRAIN_STEPS`` steps through
-    the port's cluster; check each kernel launched 12 times a step and
-    that every step's loss and the chief's final weights agree with a
-    plain-attention replay in this process (:data:`TRAIN_TOL`), and that
-    the same gate rejects a replay through the kernels with dK zeroed.
-    Returns the worker's launches of each kernel."""
+    the port's cluster, checkpointing into ``<wd>/bert_model`` and
+    exporting to ``<wd>/bert_export``; check each kernel launched 12 times
+    a step and that every step's loss and the checkpoint's final weights
+    agree with a plain-attention replay in this process
+    (:data:`TRAIN_TOL`), and that the same gate rejects a replay through
+    the kernels with dK zeroed; then checkpoint the replay's live state
+    (sync and async) and restore it on the CPU bit for bit.  Returns the
+    worker's launches of each kernel and the final weights (CPU)."""
     import numpy as np
     import torch
 
     from tensorflowonspark_tpu_torch import bert_inference as bi
     from tensorflowonspark_tpu_torch import bert_train as bt
+    from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint
     from tensorflowonspark_tpu_torch.parallel import DataParallelStrategy
 
     rows = bt.make_train_rows(TRAIN_STEPS * BATCH_SIZE, SEQ_LEN,
                               bi.BERT_BASE["vocab_size"], seed)
+    model_dir = os.path.join(wd, "bert_model")
     torch.cuda.empty_cache()
     zero_launch_counts()                   # counts start at 0 for the main path
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as wd:
-        t0 = time.perf_counter()
-        stats, weights = bt.run_training(
-            rows, bi.BERT_BASE, seed=seed, batch_size=BATCH_SIZE, steps=TRAIN_STEPS,
-            lr=TRAIN_LR, dropout=TRAIN_DROPOUT, num_workers=1, device="cuda",
-            working_dir=wd, timeout=600)
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats, weights = bt.run_training(
+        rows, bi.BERT_BASE, seed=seed, batch_size=BATCH_SIZE, steps=TRAIN_STEPS,
+        lr=TRAIN_LR, dropout=TRAIN_DROPOUT, num_workers=1, device="cuda",
+        model_dir=model_dir, export_dir=os.path.join(wd, "bert_export"),
+        working_dir=os.path.join(wd, "bert_train"), timeout=600)
+    wall = time.perf_counter() - t0
+    saved = restore_checkpoint(model_dir)
+    if not (saved["step"] == TRAIN_STEPS and set(saved["optim"]["state"]) == set(weights)
+            and all(set(s) == {"step", "exp_avg", "exp_avg_sq"}
+                    for s in saved["optim"]["state"].values())):
+        raise SystemExit("the worker's BERT checkpoint lacks its step or AdamW moments")
     st = stats[0]
     launches = st["launches"]
     want = BERT_LAYERS * TRAIN_STEPS
@@ -642,15 +735,17 @@ def run_training_path(seed: int, card: str) -> dict:
                                  BATCH_SIZE)
             state, metrics = step(state, strategy.shard_batch(batch))
             losses.append(float(metrics["loss"]))
-        return losses, w0, state.module.state_dict()
+        return losses, w0, state
 
-    plain, w0, w_plain = replay("reference")
+    plain, w0, live = replay("reference")
+    w_plain = live.module.state_dict()
     if any(bt.kernel_launches().values()):
         raise SystemExit("the plain-attention replay launched a kernel")
     readings = {"kernels (worker)": (st["losses"], {n: t.cuda() for n, t in weights.items()})}
     fault_name = "kernels with dK x 0 (planted fault)"
-    fault_losses, _, fault_w = replay(attention_fn("kernel", "kernel", dk_scale=0.0))
-    readings[fault_name] = (fault_losses, fault_w)
+    fault_losses, _, fault_state = replay(attention_fn("kernel", "kernel", dk_scale=0.0))
+    readings[fault_name] = (fault_losses, fault_state.module.state_dict())
+    del fault_state
     log(f"training path, plain-attention replay: losses {[round(x, 5) for x in plain]}")
     verdict = {}
     for name, (losses, w) in readings.items():
@@ -670,7 +765,174 @@ def run_training_path(seed: int, card: str) -> dict:
                          "replay")
     if verdict[fault_name]:
         raise SystemExit("the training gate does not see a zeroed dK")
+    check_checkpoint("BERT-base + AdamW", live.state_dict(), os.path.join(wd, "bert_live"))
+    del live
+    return launches, weights
+
+
+def _leaves(tree, path=()):
+    """``(path, leaf)`` pairs of a nested dict/list, dict keys as strings
+    (as a restore without a target gives them)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (str(k),))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def check_checkpoint(what: str, live: dict, prefix: str) -> dict:
+    """Save the live training state ``live`` (tensors on the card) through
+    a ``CheckpointManager``, sync and then async, and restore each on the
+    CPU with no target: every leaf must equal the live one bit for bit
+    (tensors in dtype and value, the step, the input position).  Logs and
+    returns the MB, the seconds until ``save`` returns and until the save
+    is durable, and the restore's seconds."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.checkpoint import CheckpointManager, restore_checkpoint
+
+    want = dict(_leaves(live))
+    mb = sum(t.numel() * t.element_size() for t in want.values() if torch.is_tensor(t)) / 1e6
+    step = int(live["step"])
+    readings = {"MB": mb}
+    for mode in ("sync", "async"):
+        path = f"{prefix}_{mode}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mngr = CheckpointManager(path, async_save=mode == "async")
+        mngr.save(step, live)
+        returned = time.perf_counter() - t0
+        mngr.close()
+        durable = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = dict(_leaves(restore_checkpoint(path)))
+        restore_s = time.perf_counter() - t0
+        bad = [p for p, t in want.items() if p not in got or (
+            (got[p].dtype != t.dtype or not torch.equal(got[p], t.cpu()))
+            if torch.is_tensor(t) else got[p] != t)]
+        if bad or set(got) != set(want):
+            raise SystemExit(f"{what}: the {mode} checkpoint does not restore bit for bit "
+                             f"on the CPU: {bad[:4] or sorted(set(got) ^ set(want))[:4]}")
+        readings[mode] = {"save_returns_s": returned, "durable_s": durable,
+                          "restore_s": restore_s}
+        log(f"checkpoint {what}, {mode}: {mb:.1f} MB ({len(want)} leaves), save returns in "
+            f"{returned:.3f} s, durable in {durable:.3f} s ({mb / durable:.0f} MB/s); "
+            f"restore on the CPU {restore_s:.3f} s ({mb / restore_s:.0f} MB/s); every leaf "
+            f"bit for bit")
+    return readings
+
+
+def run_export_serving(seed: int, card: str, wd: str, weights: dict) -> int:
+    """Serve the 64 inference rows through ``cluster.inference`` from the
+    chief's export (``<wd>/bert_export``): K1 12 times a batch inside the
+    exported program, and logits against the eager model of the same
+    weights within :data:`EXPORT_TOL`, which an export whose attention
+    zeroes V must fail; time the exported and the eager batch in turns
+    and an export of BERT-base.  Returns the worker's K1 launches."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import bert_inference as bi
+    from tensorflowonspark_tpu_torch import bert_train as bt
+    from tensorflowonspark_tpu_torch.checkpoint import ExportedModel
+    from tensorflowonspark_tpu_torch.ops import flash_attention
+
+    export_dir = os.path.join(wd, "bert_export")
+    rows = bi.make_rows(ROWS, SEQ_LEN, bi.BERT_BASE["vocab_size"], seed)
+    n_batches = math.ceil(ROWS / BATCH_SIZE)
+    torch.cuda.empty_cache()
+    zero_launch_counts()                   # counts start at 0 for the main path
+    t0 = time.perf_counter()
+    results, stats = bi.run_inference(rows, export_dir=export_dir, batch_size=BATCH_SIZE,
+                                      num_workers=1, device="cuda",
+                                      working_dir=os.path.join(wd, "bert_serve"), timeout=600)
+    wall = time.perf_counter() - t0
+    launches = stats[0]["launches"]
+    log(f"export serving path: {len(results)} rows served from the export in {wall:.2f} s "
+        f"wall (cluster boot, export load, {n_batches} batches, shutdown); worker K1 "
+        f"launches {launches} (expected {BERT_LAYERS} x {n_batches} = "
+        f"{BERT_LAYERS * n_batches}); median batch {statistics.median(stats[0]['batch_ms'][1:]):.2f} ms")
+    if len(results) != ROWS or launches != BERT_LAYERS * n_batches:
+        raise SystemExit("the exported program did not serve every row through K1 once per "
+                         "layer and batch")
+    got = (np.stack([r[0] for r in results]), np.stack([r[1] for r in results]))
+
+    eager = bi.build_model({"config": bi.BERT_BASE, "state_dict": weights},
+                           torch.device("cuda"), "flash")
+    batches = [[np.stack([r[c] for r in rows[i:i + BATCH_SIZE]]) for c in range(3)]
+               for i in range(0, ROWS, BATCH_SIZE)]
+
+    def score(model):
+        with torch.inference_mode():
+            outs = [bi.forward_batch(model, b, BATCH_SIZE, "cuda") for b in batches]
+        return tuple(np.concatenate([o[j] for o in outs]) for j in range(2))
+
+    want = score(eager)
+    masks = np.stack([r[1] for r in rows]).astype(bool)
+    sound = export_readings(got, want, masks)
+
+    fault_model = bi.build_model(
+        {"config": bi.BERT_BASE, "state_dict": weights}, torch.device("cuda"),
+        lambda q, k, v, mask=None: flash_attention(q, k, torch.zeros_like(v), mask=mask))
+    t0 = time.perf_counter()
+    bt.export(os.path.join(wd, "bert_export_fault"), fault_model, SEQ_LEN)
+    export_s = time.perf_counter() - t0
+    fault = export_readings(score(ExportedModel.load(os.path.join(wd, "bert_export_fault"))),
+                            want, masks)
+    for name, r in (("export (worker)", sound), ("export with V zeroed (planted fault)", fault)):
+        log(f"export serving, {name} vs the eager model (same weights): max|logit diff| / "
+            f"max|logit| {r['logits']:.3g}; identical argmax spans {r['spans']:.3f}")
+    log(f"export gate {EXPORT_TOL}: worker {'within' if within_export(sound) else 'OUTSIDE'}; "
+        f"planted fault {'outside' if not within_export(fault) else 'INSIDE'}; exporting "
+        f"BERT-base (trace on the CPU, 440 MB of weights) took {export_s:.2f} s")
+    if not within_export(sound):
+        raise SystemExit("the exported program's logits disagree with the eager model")
+    if within_export(fault):
+        raise SystemExit("the export gate does not see an attention with V zeroed")
+
+    exported = ExportedModel.load(export_dir)
+    batch = batches[0]
+    turns = {"eager": [], "export": []}
+    for r in range(2 * EXPORT_TIMING_ROUNDS):
+        for name in (("eager", "export") if r % 2 == 0 else ("export", "eager")):
+            model = eager if name == "eager" else exported
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                bi.forward_batch(model, batch, BATCH_SIZE, "cuda")   # ends in .cpu(): synced
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"BERT-base inference batch ({BATCH_SIZE} x {SEQ_LEN}) on {card}, host clock to the "
+        f"logits on the host, in turns, {2 * EXPORT_TIMING_ROUNDS} each: exported "
+        f"{statistics.median(turns['export'][2:]):.3f} ms, eager "
+        f"{statistics.median(turns['eager'][2:]):.3f} ms (medians after 2 warm-up calls)")
     return launches
+
+
+#: the export gate, exported program against the eager model with the same
+#: weights: max |logit diff| over max |logit| (start and end), and the share
+#: of rows whose argmax spans are identical.  Both run the same operations
+#: and kernels, so the sound reading is ~0; V zeroed changes every logit
+EXPORT_TOL = {"logits": 1e-2, "spans": 0.99}
+EXPORT_TIMING_ROUNDS = 10
+
+
+def export_readings(got, want, masks) -> dict:
+    """``got`` (start, end logits) against ``want`` as :data:`EXPORT_TOL`
+    reads them, spans over the real tokens ``masks``."""
+    import numpy as np
+
+    span = lambda lg: np.where(masks, lg, -np.inf).argmax(axis=1)  # noqa: E731
+    top = max(np.abs(want[0]).max(), np.abs(want[1]).max())
+    err = max(np.abs(got[0] - want[0]).max(), np.abs(got[1] - want[1]).max())
+    spans = float(np.mean((span(got[0]) == span(want[0])) & (span(got[1]) == span(want[1]))))
+    return {"logits": err / top, "spans": spans}
+
+
+def within_export(r: dict) -> bool:
+    return r["logits"] <= EXPORT_TOL["logits"] and r["spans"] >= EXPORT_TOL["spans"]
 
 
 def weight_readings(w: dict, w_plain: dict, w0: dict) -> dict:
@@ -836,95 +1098,231 @@ def check_resnet_grads(seed: int, batch: int = RESNET_GATE_BATCH,
         raise SystemExit("the ResNet-50 gate does not see symmetric strided padding")
 
 
-def run_resnet_training(seed: int, card: str) -> dict:
-    """Train full-width ResNet-50 for 8 steps through ``TPUCluster.run``
-    in ``InputMode.TENSORFLOW`` (one worker on the card); hold every
-    step's loss and the chief's final weights and BatchNorm buffers to a
-    replay in this process (:data:`RESNET_TRAIN_TOL`), and check the
-    buffers moved.  Returns the worker's launches of each kernel."""
+def resnet_train_readings(losses, replay, weights: dict, w_replay: dict, w0: dict) -> dict:
+    """A run against the replay as :data:`RESNET_TRAIN_TOL` reads it:
+    each step's loss |diff|, and ``||w - w_replay|| / ||w_replay - w0||``
+    over the parameters and BatchNorm buffers (max and median)."""
     import numpy as np
-    import torch
 
-    from tensorflowonspark_tpu_torch import resnet_train as rt
-
-    args = {**RESNET_TRAIN, "model": "ResNet50", "seed": seed, "device": "cuda"}
-    torch.cuda.empty_cache()
-    zero_launch_counts()                   # counts start at 0 for the main path
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_resnet_") as wd:
-        t0 = time.perf_counter()
-        stats, weights = rt.run_training(args, 1, working_dir=wd, timeout=600)
-        wall = time.perf_counter() - t0
-    st = stats[0]
-    steps, batch = RESNET_TRAIN["steps"], RESNET_TRAIN["batch_size"]
-    log(f"ResNet-50 training path: {len(st['losses'])} steps of {batch} x "
-        f"{RESNET_TRAIN['image_size']} px in {wall:.2f} s wall (cluster boot, shard, steps, "
-        f"shutdown) on {st['device']}; worker launches of the repo's kernels {st['launches']}")
-    if len(st["losses"]) != steps or st["images"] != steps * batch or st["device"] != "cuda":
-        raise SystemExit(f"the ResNet-50 training path did not run {steps} steps on the card")
-    if not all(math.isfinite(x) for x in st["losses"]):
-        raise SystemExit(f"non-finite ResNet-50 training loss: {st['losses']}")
-    med = statistics.median(st["step_ms"][1:])
-    log(f"ResNet-50 training path on {card}: median step {med:.3f} ms over steps 2..{steps} "
-        f"(first, with cuDNN autotuning: {st['step_ms'][0]:.1f} ms; all "
-        f"{[round(x, 2) for x in st['step_ms']]}) = {batch / med * 1e3:.1f} img/s")
-
-    w0 = rt.build_model(args).state_dict()
-    replay, w_replay = rt.train_in_process(args, 1, "cuda")
     rel = {}
     for n, w in w_replay.items():
         moved, diff = ((t - w0[n]).float().norm().item() for t in (w, weights[n]))
         rel[n] = (weights[n] - w).float().norm().item() / moved if moved else float(diff > 0)
     worst = max(rel, key=rel.get)
-    r = {"loss": max(abs(a - b) for a, b in zip(st["losses"], replay)), "max": rel[worst],
-         "median": float(np.median(list(rel.values())))}
+    return {"loss": max(abs(a - b) for a, b in zip(losses, replay)), "max": rel[worst],
+            "worst": worst, "median": float(np.median(list(rel.values()))),
+            "tensors": len(rel)}
+
+
+def run_resnet_training(seed: int, card: str, wd: str) -> dict:
+    """ResNet-50 from TFRecords with a resume, at full width: write the
+    worker's uint8 shard as TFRecords (a decoded batch must equal the array
+    batch byte for byte), train 4 steps through ``TPUCluster.run`` into a
+    ``model_dir``, resume in a new cluster for steps 5-8, and hold the
+    losses and the final checkpoint to an unbroken replay in this process
+    over the same records (:data:`RESNET_TRAIN_TOL`); a resume from the
+    step-4 checkpoint without its momentum must fall outside the gate.
+    Also checkpoints a live ResNet-50 + SGD state on the card and restores
+    it on the CPU bit for bit.  Returns the resumed worker's launches of
+    each kernel."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import resnet_train as rt
+    from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    data_dir = os.path.join(wd, "resnet_records")
+    args = {**RESNET_TRAIN, "model": "ResNet50", "seed": seed, "device": "cuda",
+            "data_dir": data_dir}
+    batch, steps, classes = RESNET_TRAIN["batch_size"], RESNET_TRAIN["steps"], 1000
+    t0 = time.perf_counter()
+    records = rt.write_tfrecords(args, data_dir, 1, classes)
+    write_s = time.perf_counter() - t0
+    mb = sum(os.path.getsize(os.path.join(data_dir, f)) for f in os.listdir(data_dir)) / 1e6
+    t0 = time.perf_counter()
+    decoded = list(rt.examples(args, 0, 1, classes))
+    read_s = time.perf_counter() - t0
+    images, labels = rt.uint8_shard(args, 0, 1, classes)
+    log(f"TFRecords (ResNet-50 shard, {records} records of 224x224x3 uint8 + label, "
+        f"{mb:.1f} MB): written in {write_s:.3f} s ({mb / write_s:.0f} MB/s, "
+        f"{records / write_s:.0f} records/s); read and decoded in {read_s:.3f} s "
+        f"({mb / read_s:.0f} MB/s, {records / read_s:.0f} records/s)")
+    got_x = np.stack([x for x, _ in decoded[:batch]])
+    got_y = np.array([y for _, y in decoded[:batch]])
+    if not (got_x.tobytes() == images[:batch].tobytes() and np.array_equal(got_y, labels[:batch])
+            and len(decoded) == len(images)):
+        raise SystemExit("a decoded TFRecord batch differs from the array batch")
+    del decoded
+
+    model_dir = os.path.join(wd, "resnet_model")
+
+    def run(name, **kw):
+        t0 = time.perf_counter()
+        stats, weights = rt.run_training({**args, **kw}, 1, working_dir=os.path.join(wd, name),
+                                         timeout=600)
+        return stats[0], weights, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    first, _, wall1 = run("resnet_first", steps=steps // 2, model_dir=model_dir)
+    saved = restore_checkpoint(model_dir)                 # the worker's, on the CPU
+    params = [n for n, _ in rt.build_model(args).named_parameters()]
+    if not (saved["step"] == steps // 2 and saved["data"] == {"elements_consumed": steps // 2}
+            and sorted(saved["optim"]["state"]) == sorted(params)
+            and all("momentum_buffer" in s for s in saved["optim"]["state"].values())):
+        raise SystemExit("the worker's ResNet-50 checkpoint lacks its step, input position "
+                         "or momentum")
+    zero_launch_counts()                   # counts start at 0 for the main path
+    second, weights, wall2 = run("resnet_second", model_dir=model_dir)
+    if (first["first_step"], len(first["losses"]), second["first_step"],
+            len(second["losses"])) != (0, steps // 2, steps // 2, steps // 2):
+        raise SystemExit(f"the resumed run did not train steps {steps // 2 + 1}-{steps}")
+    if second["device"] != "cuda" or not all(math.isfinite(x) for x in
+                                             first["losses"] + second["losses"]):
+        raise SystemExit("the ResNet-50 runs did not train on the card")
+    log(f"ResNet-50 from TFRecords: steps 1-{steps // 2} in {wall1:.2f} s wall, resumed steps "
+        f"{steps // 2 + 1}-{steps} in {wall2:.2f} s wall (cluster boot, restore, steps, "
+        f"checkpoint, shutdown) on {second['device']}; worker launches of the repo's kernels "
+        f"{second['launches']}")
+    step_ms = first["step_ms"][1:] + second["step_ms"][1:]
+    med = statistics.median(step_ms)
+    log(f"ResNet-50 training path on {card}: median step {med:.3f} ms over both runs' steps "
+        f"after their first (first steps, with cuDNN autotuning: {first['step_ms'][0]:.1f} / "
+        f"{second['step_ms'][0]:.1f} ms) = {batch / med * 1e3:.1f} img/s")
+
+    w0 = rt.build_model(args).state_dict()
+    replay, w_replay = rt.train_in_process(args, 1, "cuda")
+    losses = first["losses"] + second["losses"]
+    sound = resnet_train_readings(losses, replay, weights, w_replay, w0)
+    fault_dir = os.path.join(wd, "resnet_model_no_momentum")
+    save_checkpoint(fault_dir, {**saved, "optim": {**saved["optim"], "state": {}}},
+                    step=steps // 2)
+    fault_run, fault_w, _ = run("resnet_fault", model_dir=fault_dir)
+    fault = resnet_train_readings(first["losses"] + fault_run["losses"], replay, fault_w,
+                                  w_replay, w0)
     buffers = [n for n in w_replay if "running" in n]
     unmoved = [n for n in buffers if torch.equal(weights[n], w0[n])]
-    log(f"ResNet-50 training path vs the in-process replay: losses "
-        f"{[round(x, 5) for x in st['losses']]} vs {[round(x, 5) for x in replay]} (max "
-        f"|diff| {r['loss']:.4g}); final weights and buffers ||w-w_replay||/||w_replay-w0|| "
-        f"over {len(rel)} tensors: max {r['max']:.4g} ({worst}), median {r['median']:.4g}; "
-        f"BatchNorm buffers moved: {len(buffers) - len(unmoved)} of {len(buffers)}")
-    if not within(r, RESNET_TRAIN_TOL):
-        raise SystemExit(f"the ResNet-50 training path disagrees with its replay "
+    log(f"ResNet-50 replay (unbroken, same records): losses {[round(x, 5) for x in replay]}")
+    for name, r, ls in (("resumed run", sound, losses),
+                        ("resumed without momentum (planted fault)", fault,
+                         first["losses"] + fault_run["losses"])):
+        log(f"ResNet-50 {name} vs the replay: losses {[round(x, 5) for x in ls]} (max |diff| "
+            f"{r['loss']:.4g}); final weights and buffers ||w-w_replay||/||w_replay-w0|| over "
+            f"{r['tensors']} tensors: max {r['max']:.4g} ({r['worst']}), median "
+            f"{r['median']:.4g}")
+    log(f"ResNet-50 resume gate {RESNET_TRAIN_TOL}: resumed run "
+        f"{'within' if within(sound, RESNET_TRAIN_TOL) else 'OUTSIDE'}; planted fault "
+        f"{'outside' if not within(fault, RESNET_TRAIN_TOL) else 'INSIDE'}; BatchNorm "
+        f"buffers moved: {len(buffers) - len(unmoved)} of {len(buffers)}")
+    if not within(sound, RESNET_TRAIN_TOL):
+        raise SystemExit(f"the resumed ResNet-50 run disagrees with its replay "
                          f"{RESNET_TRAIN_TOL}")
+    if within(fault, RESNET_TRAIN_TOL):
+        raise SystemExit("the resume gate does not see a resume without momentum")
     if unmoved:
         raise SystemExit(f"BatchNorm buffers did not move: {unmoved[:4]}")
-    return st["launches"]
+
+    # a live state on the card: 2 steps of the same records, then checkpointed
+    state, step = rt.strategy_state(args, torch.device("cuda"))
+    data = rt.batches({**args, "steps": 2}, 0, 1, classes)
+    for b in data:
+        state, _ = step(state, tuple(t.cuda() for t in b))
+    check_checkpoint("ResNet-50 + SGD momentum", rt.checkpoint_state(state, 2),
+                     os.path.join(wd, "resnet_live"))
+    del state
+    return second["launches"]
 
 
-def run_mnist_training(seed: int, card: str) -> dict:
-    """Feed ``MNIST_ROWS`` synthetic rows through ``cluster.train`` into
-    ``mnist_train.map_fun`` (one worker on the card): every row consumed,
-    the loss falls, the shared-memory transport negotiated.  Returns the
-    worker's launches of each kernel."""
+def run_mnist_training(seed: int, card: str, wd: str) -> dict:
+    """Write ``MNIST_ROWS`` synthetic rows as TFRecords, read them back in
+    the driver with ``loadTFRecords`` and feed them through
+    ``cluster.train`` into ``mnist_train.map_fun`` (one worker on the
+    card): every row consumed, the loss falls, the shared-memory transport
+    negotiated.  The chief's export must serve on the card within
+    :data:`MNIST_EXPORT_TOL` of the eager model, and so must an export
+    written by a process that sees no card; the card's export must serve on
+    the CPU.  Returns the worker's launches of each kernel."""
+    import subprocess
+
     import numpy as np
+    import torch
 
     from tensorflowonspark_tpu_torch import mnist_train as mt
+    from tensorflowonspark_tpu_torch.checkpoint import ExportedModel
 
     images, labels = mt.synthetic_mnist(MNIST_ROWS, seed)
+    data_dir = os.path.join(wd, "mnist_records")
+    t0 = time.perf_counter()
+    mt.write_tfrecords(images, labels, data_dir, num_partitions=4)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = mt.rows_from_tfrecords(data_dir)
+    read_s = time.perf_counter() - t0
+    if not all(np.array_equal(x, images[i]) and y == labels[i] for i, (x, y) in enumerate(rows)):
+        raise SystemExit("the MNIST rows read back from TFRecords differ from the arrays")
+    log(f"TFRecords (MNIST, {MNIST_ROWS} records of 784 floats + label): written in "
+        f"{write_s:.3f} s ({MNIST_ROWS / write_s:.0f} records/s); loadTFRecords into a "
+        f"DataFrame and rows in {read_s:.3f} s ({MNIST_ROWS / read_s:.0f} records/s)")
+    export_dir, model_dir = os.path.join(wd, "mnist_export"), os.path.join(wd, "mnist_model")
     zero_launch_counts()                   # counts start at 0 for the main path
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mnist_") as wd:
-        t0 = time.perf_counter()
-        stats, _ = mt.run_training(list(zip(images, labels)), seed=seed,
-                                   batch_size=MNIST_BATCH, num_workers=1, device="cuda",
-                                   working_dir=wd, timeout=600)
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats, weights = mt.run_training(rows, seed=seed, batch_size=MNIST_BATCH, num_workers=1,
+                                     device="cuda", model_dir=model_dir, export_dir=export_dir,
+                                     working_dir=os.path.join(wd, "mnist_train"), timeout=600)
+    wall = time.perf_counter() - t0
     st = stats[0]
     losses = st["losses"]
     first, last = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
     log(f"MNIST driver-fed path on {card}: {st['rows']} of {MNIST_ROWS} rows in "
         f"{len(losses)} steps of {MNIST_BATCH}, {wall:.2f} s wall ({MNIST_ROWS / wall:.0f} "
-        f"rows/s end to end; median step {statistics.median(st['step_ms']):.3f} ms) on "
-        f"{st['device']}; loss, mean of the first 8 steps {first:.4f}, of the last 8 "
-        f"{last:.4f}; shm connections {st['shm_conns']}; worker launches of the repo's "
-        f"kernels {st['launches']}")
+        f"rows/s end to end, checkpoint and export included; median step "
+        f"{statistics.median(st['step_ms']):.3f} ms) on {st['device']}; loss, mean of the first "
+        f"8 steps {first:.4f}, of the last 8 {last:.4f}; shm connections {st['shm_conns']}; "
+        f"worker launches of the repo's kernels {st['launches']}")
     if st["rows"] != MNIST_ROWS or st["device"] != "cuda":
         raise SystemExit("the MNIST path did not consume every fed row on the card")
     if not (all(math.isfinite(x) for x in losses) and last < 0.5 * first):
         raise SystemExit(f"the MNIST loss did not fall: {first} -> {last}")
     if st["shm_conns"] < 1:
         raise SystemExit("the MNIST feed did not go through the shared-memory transport")
+
+    # an export written by a process that sees no card
+    cpu_export = os.path.join(wd, "mnist_export_cpu")
+    code = ("import sys, torch\n"
+            "from tensorflowonspark_tpu_torch import mnist_train as mt\n"
+            "from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint\n"
+            "assert not torch.cuda.is_available()\n"
+            "model = mt.build_model({'state_dict': restore_checkpoint(sys.argv[1])['model']})\n"
+            "mt.export(sys.argv[2], model)\n")
+    proc = subprocess.run([sys.executable, "-c", code, model_dir, cpu_export],
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True,
+                          text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise SystemExit(f"the CPU process could not write the MNIST export:\n{proc.stderr}")
+    x = images[:MNIST_BATCH]
+    readings = {}
+    for device in ("cuda", "cpu"):
+        model = mt.build_model({"state_dict": weights}).to(device)
+        with torch.no_grad():
+            want = torch.softmax(model(torch.from_numpy(x).to(device)), -1).cpu()
+        for name, d in (("chief's export (a card process)", export_dir),
+                        ("export written without a card", cpu_export)):
+            exported = ExportedModel.load(d, device=device)
+            probs = exported(image=x[..., None])["prob"]
+            if probs.device.type != device:
+                raise SystemExit(f"the MNIST export served on {probs.device}, not {device}")
+            readings[(name, device)] = (probs.cpu() - want).abs().max().item()
+    log("MNIST exports against the eager model's probabilities (same weights, "
+        f"{MNIST_BATCH} rows): " + "; ".join(f"{n} served on {dev}: max |diff| {err:.3g}"
+                                             for (n, dev), err in readings.items())
+        + f" (tolerance {MNIST_EXPORT_TOL})")
+    if max(readings.values()) > MNIST_EXPORT_TOL:
+        raise SystemExit("an MNIST export disagrees with the eager model")
     return st["launches"]
+
+
+#: the MNIST exports against the eager model: max |probability diff|.  The
+#: same float32 operations (no TF32) run on both sides
+MNIST_EXPORT_TOL = 1e-5
 
 
 def main() -> int:
@@ -975,6 +1373,13 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "Compiling" in line:
                     log("  ptxas: " + line.strip())
     sass = check_sass(libs)
+    from tensorflowonspark_tpu_torch import tfrecord
+
+    t0 = time.perf_counter()
+    codec = tfrecord.build_native()               # raises if g++ fails: no Python fallback
+    if tfrecord._native() is None:
+        raise SystemExit("the native TFRecord codec did not load")
+    log(f"build: {os.path.relpath(codec)} (g++) in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions, and their times
     flash = check_flash(args.seed)
@@ -995,24 +1400,35 @@ def main() -> int:
     for e, kernel in ((flash, "flash_fwd_tma_kernel<64"), (dq, "flash_dq_tma_kernel<64"),
                       (dkv, "flash_dkv_tma_kernel<64")):
         e["sass"] = next(c for k, c in sass.items() if k.startswith(kernel))
+    padded = time_padded_head_dims(args.seed)
+    for D, t in padded.items():
+        log(f"head dim {D} (padded to {t['padded_to']}) at B=16 T={SEQ_LEN} H=12 bf16 on "
+            f"{card}, in turns: forward {t['fwd']:.6f} ms vs SDPA {t['sdpa_fwd']:.6f} ms; "
+            f"dq + dkv {t['bwd']:.6f} ms vs SDPA backward {t['sdpa_bwd']:.6f} ms")
+    flash["padded_head_dims"] = padded
 
-    # 4. model gradients through the kernels against the plain versions
-    check_model_grads(args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+        # 4. model gradients through the kernels against the plain versions
+        check_model_grads(args.seed)
 
-    # 5. the inference main path (forward kernel only)
-    inference = run_main_path(args.seed, card, ROWS, BATCH_SIZE)
+        # 5. the inference main path (forward kernel only)
+        inference = run_main_path(args.seed, card, ROWS, BATCH_SIZE)
 
-    # 6. the training main path (all three kernels)
-    training = run_training_path(args.seed, card)
+        # 6. the training main path (all three kernels), checkpoint and export
+        training, weights = run_training_path(args.seed, card, wd)
 
-    # 7. ResNet-50 on the card against the port's CPU path
-    check_resnet_grads(args.seed)
+        # 6b. serving from the training path's export (K1 inside the program)
+        export_serving = run_export_serving(args.seed, card, wd, weights)
+        del weights
 
-    # 8. the ResNet-50 training main path (TENSORFLOW mode, no kernel of the repo)
-    resnet = run_resnet_training(args.seed, card)
+        # 7. ResNet-50 on the card against the port's CPU path
+        check_resnet_grads(args.seed)
 
-    # 9. the MNIST driver-fed path (SPARK mode, no kernel of the repo)
-    mnist = run_mnist_training(args.seed, card)
+        # 8. ResNet-50 from TFRecords with a resume (TENSORFLOW mode, no kernel of the repo)
+        resnet = run_resnet_training(args.seed, card, wd)
+
+        # 9. MNIST from TFRecords, with its exports (SPARK mode, no kernel of the repo)
+        mnist = run_mnist_training(args.seed, card, wd)
 
     # 10. the bench
     from tensorflowonspark_tpu_torch import bench_resnet
@@ -1021,7 +1437,8 @@ def main() -> int:
 
     flash["launches"] = training["flash_attention_fwd"]
     flash["launches_by_path"] = {"inference": inference,
-                                 "training": training["flash_attention_fwd"]}
+                                 "training": training["flash_attention_fwd"],
+                                 "export_serving": export_serving}
     for e in (dq, dkv):
         e["launches"] = training[e["name"]]
         e["launches_by_path"] = {"training": training[e["name"]]}

@@ -8,8 +8,17 @@ package.
 
     from tensorflowonspark_tpu_torch import TPUCluster, InputMode
     cluster = TPUCluster.run(map_fun, args, num_workers, input_mode=InputMode.SPARK)
+    cluster.train(data, num_epochs)
     preds = cluster.inference(rows)
     cluster.shutdown()
+
+Inside ``map_fun(args, ctx)`` the user pulls data with
+``ctx.get_data_feed()`` (SPARK mode) or reads its own shard with
+:class:`Dataset` (``Dataset.from_examples`` over TFRecords, TENSORFLOW
+mode), checkpoints into ``model_dir`` with :class:`CheckpointManager`,
+and the chief writes a serving export with :func:`export_model` that
+:class:`ExportedModel` loads.  The root exports the reference root's names
+for every module ported so far.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 a missing GPU raises instead of falling back.
@@ -19,4 +28,13 @@ __version__ = "0.1.0"
 
 from tensorflowonspark_tpu_torch.cluster import InputMode, TPUCluster  # noqa: E402,F401
 from tensorflowonspark_tpu_torch.datafeed import DataFeed  # noqa: E402,F401
+from tensorflowonspark_tpu_torch.health import (ClusterFailure, ClusterMonitor,  # noqa: F401
+                                                HeartbeatReporter)
 from tensorflowonspark_tpu_torch.node import NodeContext  # noqa: E402,F401
+from tensorflowonspark_tpu_torch.checkpoint import (CheckpointManager,  # noqa: F401
+                                                    ExportedModel, export_model,
+                                                    restore_checkpoint, save_checkpoint)
+from tensorflowonspark_tpu_torch.data import Dataset, device_prefetch  # noqa: F401
+from tensorflowonspark_tpu_torch.dataframe import DataFrame, Row  # noqa: F401
+from tensorflowonspark_tpu_torch.preemption import PreemptionGuard  # noqa: F401
+from tensorflowonspark_tpu_torch import gpu_info, metrics  # noqa: F401,E402

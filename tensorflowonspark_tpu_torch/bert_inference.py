@@ -12,6 +12,13 @@ A row is ``(input_ids, attention_mask, token_type_ids)``, three int32
 arrays of the sequence length.  A result is ``(start_logits,
 end_logits)``, two float32 arrays of the same length.
 
+Given ``export_dir`` (a QA export, ``bert_train.export``), each worker
+loads it as an :class:`~tensorflowonspark_tpu_torch.checkpoint.ExportedModel`
+and scores every row through the exported program instead of building the
+module: the reference's SavedModel batch inference
+(``examples/utils/batch_inference.py``).  The program calls the same flash
+kernel, which the worker's launch count shows.
+
     rows = make_rows(64, 384, vocab_size=30522, seed=0)
     results, stats = run_inference(rows, BERT_BASE, seed=0, batch_size=16)
 """
@@ -86,11 +93,14 @@ def build_model(args: dict, device, attention="flash"):
 
 
 def forward_batch(model, batch, batch_size: int, device):
-    """Run one (possibly short) batch of rows through ``model``: pad it to
-    ``batch_size`` with all-zero rows as ``examples/bert/bert_squad.py``
-    pads its last batch, and return the real rows' start and end logits as
-    float32 numpy arrays."""
+    """Run one (possibly short) batch of rows through ``model`` (a module
+    or an :class:`~tensorflowonspark_tpu_torch.checkpoint.ExportedModel`):
+    pad it to ``batch_size`` with all-zero rows as
+    ``examples/bert/bert_squad.py`` pads its last batch, and return the
+    real rows' start and end logits as float32 numpy arrays."""
     import torch
+
+    from tensorflowonspark_tpu_torch.checkpoint import ExportedModel
 
     cols = [np.asarray(c, np.int32) for c in batch]
     n = len(cols[0])
@@ -99,7 +109,10 @@ def forward_batch(model, batch, batch_size: int, device):
                 for c in cols]
     ids, mask, types = (torch.from_numpy(c).to(device, non_blocking=True)
                         for c in cols)
-    start, end = model(ids.long(), mask, types.long())
+    if isinstance(model, ExportedModel):
+        start, end = model(ids, mask, types).values()
+    else:
+        start, end = model(ids.long(), mask, types.long())
     return (start[:n].float().cpu().numpy(), end[:n].float().cpu().numpy())
 
 
@@ -107,10 +120,13 @@ def map_fun(args: dict, ctx) -> None:
     """Worker half: serve every fed row until the feed ends, then write
     this worker's counts and timings to ``<working_dir>/bert_stats.<id>.json``:
     ``rows``, ``batches``, ``launches`` (flash-kernel launches in this
-    process), ``batch_ms`` and, on the card, ``attention_ms`` (CUDA-event
-    time of the attention calls in each batch)."""
+    process), ``batch_ms`` and, on the card from the module,
+    ``attention_ms`` (CUDA-event time of the attention calls in each
+    batch).  With ``args["export_dir"]`` the rows go through the loaded
+    export instead of a module built here."""
     import torch
 
+    from tensorflowonspark_tpu_torch.checkpoint import ExportedModel
     from tensorflowonspark_tpu_torch.ops import flash_attention
     from tensorflowonspark_tpu_torch.util import (resolve_device,
                                                   strict_matmul_precision)
@@ -120,9 +136,12 @@ def map_fun(args: dict, ctx) -> None:
     if device.type == "cpu":
         torch.set_num_threads(1)  # CPU workers share the host's cores
     events: list = []
-    attention = (_timed_attention(flash_attention, events)
-                 if device.type == "cuda" else "flash")
-    model = build_model(args, device, attention)
+    if args.get("export_dir"):
+        model = ExportedModel.load(args["export_dir"], device=device)
+    else:
+        attention = (_timed_attention(flash_attention, events)
+                     if device.type == "cuda" else "flash")
+        model = build_model(args, device, attention)
 
     batch_size = int(args["batch_size"])
     feed = ctx.get_data_feed(train_mode=False)
@@ -166,18 +185,21 @@ def _timed_attention(attention_fn, events: list):
     return timed
 
 
-def run_inference(rows: list, config: dict, *, seed: int = 0,
+def run_inference(rows: list, config: dict | None = None, *, seed: int = 0,
                   batch_size: int = 16, num_workers: int = 1,
                   device: str = "cuda", state_dict: dict | None = None,
+                  export_dir: str | None = None,
                   worker_env: dict | None = None, working_dir: str | None = None,
                   timeout: float = 600.0):
     """Driver half: boot ``num_workers`` workers running :func:`map_fun`,
     push ``rows`` through ``cluster.inference``, shut the cluster down
     (re-raising any worker error) and return ``(results, stats)``:
     one ``(start_logits, end_logits)`` per row in row order, and each
-    worker's stats dict in executor order."""
-    args = {"config": dict(config), "seed": seed, "batch_size": batch_size,
-            "device": device, "state_dict": state_dict,
+    worker's stats dict in executor order.  The workers build the model
+    of ``config`` (weights ``state_dict`` or from ``seed``), or load
+    ``export_dir`` when given."""
+    args = {"config": dict(config or {}), "seed": seed, "batch_size": batch_size,
+            "device": device, "state_dict": state_dict, "export_dir": export_dir,
             "feed_timeout": timeout}
     cluster = TPUCluster.run(map_fun, args, num_workers,
                              input_mode=InputMode.SPARK,

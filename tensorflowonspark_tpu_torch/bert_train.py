@@ -15,25 +15,32 @@ DDP's all-reduce waits for every replica, so a worker that runs dry first
 leaves the others hanging (the JAX multi-process path has the same
 property).  ``steps`` caps each worker's step count.
 
+At the end every worker checkpoints (model, AdamW state, step) through a
+:class:`~tensorflowonspark_tpu_torch.checkpoint.CheckpointManager` under
+``model_dir``, and the chief writes the serving export of the QA head,
+``serve(params, input_ids, attention_mask, token_type_ids) -> (start,
+end)`` logits (:func:`export`), with the flash kernels inside the exported
+program — the counterpart of ``examples/bert/bert_squad.py``'s export,
+which takes ``input_ids`` alone.
+
     from tensorflowonspark_tpu_torch.bert_inference import BERT_BASE
 
     rows = make_train_rows(128, 384, vocab_size=30522, seed=0)
-    stats, weights = run_training(rows, BERT_BASE, seed=0, batch_size=16, steps=8)
+    stats, weights = run_training(rows, BERT_BASE, seed=0, batch_size=16, steps=8,
+                                  export_dir="/tmp/bert_export")
 """
 
 from __future__ import annotations
 
 import json
 import os
+import tempfile
 import time
 
 import numpy as np
 
 from tensorflowonspark_tpu_torch.bert_inference import build_model, make_rows
 from tensorflowonspark_tpu_torch.cluster import InputMode, TPUCluster
-
-WEIGHTS_FILE = "bert_train_weights.pt"
-
 
 def make_train_rows(n: int, seq_len: int, vocab_size: int, seed: int,
                     min_len: int | None = None) -> list[tuple]:
@@ -102,6 +109,36 @@ def build_train_model(args: dict, device, attention="flash"):
     return build_model(args, device, attention)
 
 
+def serve_fn(model):
+    """``serve(params, input_ids, attention_mask, token_type_ids) ->
+    (start_logits, end_logits)`` over ``model`` (eval mode, so no dropout)
+    with the weights ``params``; the inputs are int32 ``[N, T]`` as
+    :func:`~tensorflowonspark_tpu_torch.bert_inference.make_rows` makes
+    them."""
+    import torch
+
+    def serve(params, input_ids, attention_mask, token_type_ids):
+        return torch.func.functional_call(
+            model, params, (input_ids.long(), attention_mask, token_type_ids.long()))
+
+    return serve
+
+
+SERVE_INPUTS = ("input_ids", "attention_mask", "token_type_ids")
+SERVE_OUTPUTS = ("start_logits", "end_logits")
+
+
+def export(export_dir: str, model, seq_len: int, is_chief: bool = True):
+    """Write ``model``'s QA serving export (:func:`serve_fn`) for
+    sequences of ``seq_len``, any batch size; only the chief writes."""
+    from tensorflowonspark_tpu_torch.checkpoint import export_model
+
+    example = [np.zeros((2, seq_len), np.int32) for _ in SERVE_INPUTS]
+    return export_model(export_dir, serve_fn(model), model.state_dict(), example,
+                        input_names=SERVE_INPUTS, output_names=SERVE_OUTPUTS,
+                        is_chief=is_chief)
+
+
 def kernel_launches() -> dict[str, int]:
     """This process's launches of each flash-attention kernel so far."""
     from tensorflowonspark_tpu_torch.ops.flash_attention import (
@@ -115,14 +152,15 @@ def kernel_launches() -> dict[str, int]:
 def map_fun(args: dict, ctx) -> None:
     """Worker half: join the cluster's process group, train on every fed
     batch until the feed ends or ``args["steps"]`` steps (then end the
-    feed), and write ``<working_dir>/bert_train_stats.<id>.json``:
+    feed), checkpoint and export as the module docstring says, and write
+    ``<working_dir>/bert_train_stats.<id>.json``:
     ``losses`` and ``step_ms`` (host clock after the loss is read, which
     synchronises the device) a step, ``rows``, ``launches`` of each kernel
-    and the ``device``.  The chief also writes its final weights
-    (``WEIGHTS_FILE``, a ``torch.save`` of the state dict on the CPU)."""
+    in the steps and the ``device``."""
     import torch
     import torch.distributed as dist
 
+    from tensorflowonspark_tpu_torch.checkpoint import CheckpointManager
     from tensorflowonspark_tpu_torch.parallel import DataParallelStrategy
     from tensorflowonspark_tpu_torch.util import (resolve_device,
                                                   strict_matmul_precision)
@@ -140,6 +178,7 @@ def map_fun(args: dict, ctx) -> None:
         feed = ctx.get_data_feed(train_mode=True)
         stats = {"losses": [], "step_ms": [], "rows": 0}
         launches0 = kernel_launches()
+        seq_len = None
         while not feed.should_stop() and (steps == 0 or len(stats["losses"]) < steps):
             batch = feed.next_batch_arrays(batch_size,
                                            timeout=float(args.get("feed_timeout", 600)))
@@ -150,17 +189,20 @@ def map_fun(args: dict, ctx) -> None:
             stats["losses"].append(float(metrics["loss"]))
             stats["step_ms"].append((time.perf_counter() - t0) * 1e3)
             stats["rows"] += len(batch[0])
+            seq_len = batch[0].shape[1]
             ctx.report_step(len(stats["losses"]))
         if steps and len(stats["losses"]) >= steps:
             feed.terminate()
         stats["launches"] = {k: n - launches0[k] for k, n in kernel_launches().items()}
         stats["device"] = str(device)
+        if args.get("model_dir"):
+            with CheckpointManager(args["model_dir"]) as mngr:
+                mngr.save(state.step, state.state_dict())
+        if args.get("export_dir") and seq_len is not None:
+            export(args["export_dir"], state.module, seq_len, is_chief=ctx.is_chief)
         with open(os.path.join(ctx.working_dir,
                                f"bert_train_stats.{ctx.executor_id}.json"), "w") as f:
             json.dump(stats, f)
-        if ctx.is_chief:
-            weights = {k: v.detach().cpu() for k, v in state.module.state_dict().items()}
-            torch.save(weights, os.path.join(ctx.working_dir, WEIGHTS_FILE))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -169,19 +211,26 @@ def map_fun(args: dict, ctx) -> None:
 def run_training(rows: list, config: dict, *, seed: int = 0, batch_size: int = 16,
                  steps: int = 0, num_epochs: int = 1, lr: float = 3e-5,
                  dropout: float = 0.1, num_workers: int = 1, device: str = "cuda",
-                 state_dict: dict | None = None, worker_env: dict | None = None,
-                 working_dir: str | None = None, timeout: float = 600.0):
+                 state_dict: dict | None = None, model_dir: str | None = None,
+                 export_dir: str | None = None,
+                 worker_env: dict | None = None, working_dir: str | None = None,
+                 timeout: float = 600.0):
     """Driver half: boot ``num_workers`` workers running :func:`map_fun`,
     feed ``rows`` ``num_epochs`` times through ``cluster.train``, shut the
     cluster down (re-raising any worker error) and return ``(stats,
-    weights)``: each worker's stats dict in executor order and the chief's
-    final state dict.  Weights come from ``state_dict`` when given, else
-    from ``seed``, which also seeds the dropout generators."""
-    import torch
+    weights)``: each worker's stats dict in executor order and the final
+    weights (on the CPU) from the checkpoint in ``model_dir`` (default:
+    ``<working_dir>/model``).  Weights start from ``state_dict``
+    when given, else from ``seed``, which also seeds the dropout
+    generators."""
+    from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint
 
+    working_dir = working_dir or tempfile.mkdtemp(prefix="bert_train_")
+    model_dir = model_dir or os.path.join(working_dir, "model")
     args = {"config": dict(config), "seed": seed, "batch_size": batch_size,
             "steps": steps, "lr": lr, "dropout": dropout, "device": device,
-            "state_dict": state_dict, "feed_timeout": timeout}
+            "state_dict": state_dict, "feed_timeout": timeout, "model_dir": model_dir,
+            "export_dir": export_dir}
     cluster = TPUCluster.run(map_fun, args, num_workers, input_mode=InputMode.SPARK,
                              reservation_timeout=timeout, worker_env=worker_env,
                              working_dir=working_dir)
@@ -193,5 +242,4 @@ def run_training(rows: list, config: dict, *, seed: int = 0, batch_size: int = 1
     for i in range(num_workers):
         with open(os.path.join(cluster.working_dir, f"bert_train_stats.{i}.json")) as f:
             stats.append(json.load(f))
-    weights = torch.load(os.path.join(cluster.working_dir, WEIGHTS_FILE))
-    return stats, weights
+    return stats, restore_checkpoint(model_dir)["model"]

@@ -2,11 +2,16 @@
 
 Port of ``tensorflowonspark_tpu/data.py``.  :class:`Dataset` is the
 tf.data equivalent each worker builds over its own shard: lazily
-evaluated, re-run from the source on every iteration, with ``shard``,
-``map``, ``filter``, ``shuffle``, ``repeat``, ``take``, ``skip``,
-``batch``, ``prefetch``, ``cache`` and :meth:`Dataset.cache_on_device`.
-These are the JAX module's pure-Python transforms, copied; only the
-device side changes:
+evaluated, re-run from the source on every iteration.  Its sources are
+``from_tfrecords`` and ``from_examples`` (TFRecord files through the
+port's ``tfrecord`` and ``example_proto``, sharded by file),
+``from_tensor_slices``, ``from_generator``, ``from_grain`` and
+``from_grain_sharded`` (grain is imported by the caller, never here);
+its transforms ``shard``, ``map``, ``flat_map``, ``interleave``,
+``filter``, ``shuffle``, ``repeat``, ``take``, ``skip``, ``batch``,
+``padded_batch``, ``prefetch``, ``cache`` and
+:meth:`Dataset.cache_on_device`.  These are the JAX module's pure-Python
+transforms, copied; only the device side changes:
 
 - :meth:`Dataset.cache_on_device` keeps every element as tensors on the
   device after the first full pass and replays them with no host traffic;
@@ -17,15 +22,14 @@ device side changes:
   memory while the consumer's kernels still read it.
 
 Elements are numpy arrays, torch CPU tensors or scalars, nested in
-tuples, lists and dicts.  Not ported yet (ROADMAP A4): the TFRecord and
-``tf.train.Example`` readers (``from_tfrecords``, ``from_examples``), the
-grain sources, ``interleave``/``flat_map`` and ``padded_batch``.
+tuples, lists and dicts.
 
 Typical worker usage::
 
     def map_fun(args, ctx):
-        ds = (Dataset.from_tensor_slices((images, labels))
-                .shard(ctx.num_workers, ctx.executor_id)
+        ds = (Dataset.from_examples(args["data_dir"] + "/part-*",
+                                    shard=(ctx.num_workers, ctx.executor_id))
+                .map(parse_example_fn)
                 .shuffle(10_000, seed=ctx.executor_id)
                 .batch(args["batch_size"], drop_remainder=True)
                 .prefetch(4))
@@ -40,7 +44,7 @@ import queue
 import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 
@@ -56,6 +60,70 @@ class Dataset:
         self._make = make_iter
 
     # ---------------------------------------------------------------- sources
+    @staticmethod
+    def from_tfrecords(paths: str | Sequence[str], verify: bool = True,
+                       shard: tuple[int, int] | None = None) -> "Dataset":
+        """Raw records from TFRecord files (glob pattern or explicit list).
+
+        ``shard=(n, i)`` shards at *file* granularity when there are at
+        least ``n`` files (each worker opens only its own files — the cheap
+        kind of sharding); with fewer files it falls back to an element
+        stride over the full stream, which reads everything but keeps the
+        partition exact, like ``tf.data.Dataset.shard``.
+
+        Paths may be local or any fsspec scheme.
+        """
+        from tensorflowonspark_tpu_torch import filesystem as fsutil
+        from tensorflowonspark_tpu_torch.tfrecord import read_records
+
+        files = fsutil.expand_glob(paths) if isinstance(paths, str) \
+            else list(paths)
+        if isinstance(paths, str) and not files:
+            raise FileNotFoundError(f"no TFRecord files match {paths!r}")
+
+        stride_shard = None
+        if shard is not None:
+            n, i = shard
+            assert 0 <= i < n, f"bad shard ({n}, {i})"
+            if len(files) >= n:
+                files = files[i::n]
+            else:
+                stride_shard = (n, i)
+
+        def make():
+            it = (rec for f in files for rec in read_records(f, verify=verify))
+            if stride_shard is not None:
+                n, i = stride_shard
+                it = (rec for j, rec in enumerate(it) if j % n == i)
+            return it
+
+        return Dataset(make)
+
+    @staticmethod
+    def from_examples(paths: str | Sequence[str],
+                      binary_features: Sequence[str] = (),
+                      shard: tuple[int, int] | None = None) -> "Dataset":
+        """Parsed ``tf.train.Example`` dicts (feature name → numpy value)
+        from TFRecord files — ``from_tfrecords`` + the wire-format decoder
+        (``example_proto.decode_example``), squeezing single-element
+        features to scalars the way ``dfutil.fromTFExample`` does."""
+        from tensorflowonspark_tpu_torch.example_proto import decode_example
+
+        base = Dataset.from_tfrecords(paths, shard=shard)
+        binary = set(binary_features)
+
+        def parse(rec: bytes):
+            out: dict[str, Any] = {}
+            for name, (kind, values) in decode_example(rec).items():
+                if kind == "bytes" and name not in binary:
+                    values = [v.decode("utf-8", "replace") for v in values]
+                arr = (values[0] if len(values) == 1 else
+                       np.asarray(values))
+                out[name] = arr
+            return out
+
+        return base.map(parse)
+
     @staticmethod
     def from_tensor_slices(data) -> "Dataset":
         """Elements along axis 0 of an array, tuple of arrays, or dict of
@@ -80,6 +148,38 @@ class Dataset:
     def from_generator(fn: Callable[[], Iterable]) -> "Dataset":
         """A re-invocable generator factory (called once per iteration)."""
         return Dataset(lambda: iter(fn()))
+
+    @staticmethod
+    def from_grain(source) -> "Dataset":
+        """Wrap a grain object — ``DataLoader``, ``IterDataset``, or
+        ``MapDataset`` — as a framework Dataset.  All three re-iterate from
+        the start on each ``iter()``, matching this class's re-invocable
+        contract, so the wrapped dataset composes with every transform
+        here.  The caller imports grain; this module never does."""
+        return Dataset(lambda: iter(source))
+
+    @staticmethod
+    def from_grain_sharded(map_dataset, num_shards: int, index: int, *,
+                           shuffle: bool = False,
+                           seed: int | None = None) -> "Dataset":
+        """Per-host shard of a grain ``MapDataset`` — the
+        InputMode.TENSORFLOW pattern (each worker reads its own slice;
+        reference: ``tf.data.Dataset.shard(num_workers, worker_num)`` on
+        executors) built from grain's native ops: optional global
+        ``shuffle(seed)`` BEFORE the ``[index::num_shards]`` slice (so
+        every epoch's permutation is consistent across hosts), then an
+        ``IterDataset``.  Inside ``map_fun``, pass
+        ``ctx.num_workers``/``ctx.task_index``.
+        """
+        if not 0 <= index < num_shards:
+            # fail at wiring time even under python -O: a silent empty or
+            # duplicated shard trains one host on the wrong data
+            raise ValueError(f"shard index {index} out of range for "
+                             f"num_shards={num_shards}")
+        ds = map_dataset
+        if shuffle:
+            ds = ds.shuffle(seed=0 if seed is None else seed)
+        return Dataset.from_grain(ds[index::num_shards].to_iter_dataset())
 
     # ------------------------------------------------------------- transforms
     def shard(self, num_shards: int, index: int) -> "Dataset":
@@ -116,6 +216,11 @@ class Dataset:
             return gen()
 
         return Dataset(make)
+
+    def flat_map(self, fn: Callable[[Any], "Dataset | Iterable"]) -> "Dataset":
+        """Map each element to a sub-dataset and concatenate them in order
+        (``tf.data.Dataset.flat_map`` = sequential ``interleave``)."""
+        return self.interleave(fn, cycle_length=1, block_length=1)
 
     def filter(self, pred: Callable[[Any], bool]) -> "Dataset":
         src = self._make
@@ -175,6 +280,49 @@ class Dataset:
         src = self._make
         return Dataset(lambda: (x for j, x in enumerate(src()) if j >= n))
 
+    def interleave(self, fn: Callable[[Any], "Dataset | Iterable"],
+                   cycle_length: int = 4, block_length: int = 1) -> "Dataset":
+        """Map each element to a sub-dataset and interleave their elements
+        round-robin (``tf.data.Dataset.interleave`` semantics): up to
+        ``cycle_length`` sub-iterators open at once, ``block_length``
+        consecutive elements pulled from each before rotating.  The
+        sharded-file reading pattern — ``Dataset.from_tensor_slices(paths)
+        .interleave(Dataset.from_tfrecords)`` — mixes records across files
+        instead of reading them end to end."""
+        assert cycle_length > 0 and block_length > 0
+        src = self._make
+
+        def make():
+            def gen():
+                inputs = src()
+                active: collections.deque = collections.deque()
+
+                def open_next():
+                    for x in inputs:
+                        sub = fn(x)
+                        active.append(iter(sub))
+                        return True
+                    return False
+
+                while len(active) < cycle_length and open_next():
+                    pass
+                while active:
+                    it = active.popleft()
+                    alive = True
+                    for _ in range(block_length):
+                        try:
+                            yield next(it)
+                        except StopIteration:
+                            alive = False
+                            break
+                    if alive:
+                        active.append(it)
+                    else:
+                        open_next()
+            return gen()
+
+        return Dataset(make)
+
     def cache(self) -> "Dataset":
         """Host-memory cache: materialize on the first full pass, replay
         thereafter (``tf.data.Dataset.cache()``; the device-side sibling is
@@ -203,9 +351,39 @@ class Dataset:
 
         return Dataset(make)
 
+    def padded_batch(self, batch_size: int, padding_value=0,
+                     drop_remainder: bool = False) -> "Dataset":
+        """Batch variable-length elements, padding each array dimension to
+        the longest in the batch (``tf.data.Dataset.padded_batch`` with
+        inferred shapes).  Works on arrays, dicts, and tuples — the NLP
+        pattern (ragged token sequences → one rectangular batch) the
+        reference delegates to tf.data.  Mixed dtypes within a batch
+        promote via ``np.result_type`` (never silently truncate)."""
+
+        def pad_leaf(items):
+            arrs = [np.asarray(x) for x in items]
+            rank = arrs[0].ndim
+            if any(a.ndim != rank for a in arrs):
+                raise ValueError("padded_batch: rank mismatch within batch")
+            dtype = np.result_type(*arrs)
+            if rank == 0:
+                return np.stack(arrs).astype(dtype, copy=False)
+            target = tuple(max(a.shape[d] for a in arrs) for d in range(rank))
+            out = np.full((len(arrs),) + target, padding_value, dtype=dtype)
+            for i, a in enumerate(arrs):
+                out[(i,) + tuple(slice(0, s) for s in a.shape)] = a
+            return out
+
+        return self._batched(batch_size, drop_remainder,
+                             lambda items: _stack(items, leaf=pad_leaf))
+
     def batch(self, batch_size: int, drop_remainder: bool = False) -> "Dataset":
         """Stack ``batch_size`` consecutive elements: arrays → a leading
         batch axis; dicts/tuples → per-key/per-position stacking."""
+        return self._batched(batch_size, drop_remainder, _stack)
+
+    def _batched(self, batch_size: int, drop_remainder: bool,
+                 stack_fn: Callable[[list], Any]) -> "Dataset":
         assert batch_size > 0
         src = self._make
 
@@ -215,10 +393,10 @@ class Dataset:
                 for x in src():
                     buf.append(x)
                     if len(buf) == batch_size:
-                        yield _stack(buf)
+                        yield stack_fn(buf)
                         buf = []
                 if buf and not drop_remainder:
-                    yield _stack(buf)
+                    yield stack_fn(buf)
             return gen()
 
         return Dataset(make)
@@ -374,15 +552,20 @@ class CheckpointableIterator:
         return {"elements_consumed": self._count}
 
 
-def _stack(items: list):
+def _default_leaf_stack(items: list):
+    return np.stack([np.asarray(x) for x in items])
+
+
+def _stack(items: list, leaf: Callable[[list], Any] = _default_leaf_stack):
     """Structure-recursive stacking: dicts per key, tuples per position,
-    ``np.stack`` at array leaves."""
+    ``leaf`` (plain stack or pad-and-stack) at array leaves."""
     first = items[0]
     if isinstance(first, dict):
-        return {k: _stack([it[k] for it in items]) for k in first}
+        return {k: _stack([it[k] for it in items], leaf) for k in first}
     if isinstance(first, (tuple, list)):
-        return tuple(_stack([it[j] for it in items]) for j in range(len(first)))
-    return np.stack([np.asarray(x) for x in items])
+        return tuple(_stack([it[j] for it in items], leaf)
+                     for j in range(len(first)))
+    return leaf(items)
 
 
 def _copy_tree(x):

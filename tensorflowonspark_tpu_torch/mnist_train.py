@@ -3,7 +3,9 @@
 The counterpart of ``examples/mnist/mnist_spark.py::main_fun``
 (``BASELINE.json`` configs[0]): the driver pushes ``(image, label)`` rows
 through ``cluster.train`` (the queue/shm data plane into each worker's
-``DataFeed``); each worker pulls them with ``feed.next_batch_arrays``,
+``DataFeed``) — made in memory, or read from TFRecord part files with
+``dfutil.loadTFRecords`` (:func:`write_tfrecords`, :func:`rows_from_tfrecords`);
+each worker pulls them with ``feed.next_batch_arrays``,
 pads a partial batch with zero rows of weight 0 (so every step has the
 same shape and the weighted loss stays exact), and trains
 :class:`~tensorflowonspark_tpu_torch.models.MNISTNet` with Adam 1e-3
@@ -14,24 +16,26 @@ ends the feed (``feed.terminate()``).  Every worker must be fed the same
 number of batches: DDP's all-reduce waits for every replica.
 
     images, labels = synthetic_mnist(4096, seed=0)
-    stats, weights = run_training(list(zip(images, labels)), batch_size=64)
+    write_tfrecords(images, labels, "/tmp/mnist_tfr")
+    stats, weights = run_training(rows_from_tfrecords("/tmp/mnist_tfr"), batch_size=64,
+                                  model_dir="/tmp/mnist_model", export_dir="/tmp/mnist_export")
 
-Checkpoints and the serving export wait for ROADMAP A4; the chief writes a
-``torch.save`` of its final weights (:data:`WEIGHTS_FILE`).
+At the end every worker checkpoints (model, Adam state, step) through a
+:class:`~tensorflowonspark_tpu_torch.checkpoint.CheckpointManager` under
+``model_dir``, and the chief exports ``serve(params, image) -> softmax``
+(:func:`export`, ``image`` ``[N, 28, 28, 1]`` float32, as the example's).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import tempfile
 import time
 
 import numpy as np
 
 from tensorflowonspark_tpu_torch.cluster import InputMode, TPUCluster
-
-WEIGHTS_FILE = "mnist_train_weights.pt"
-
 
 def synthetic_mnist(n: int, seed: int = 0):
     """``n`` MNIST-shaped rows from ``seed``: ``[n, 28, 28]`` float32
@@ -45,6 +49,52 @@ def synthetic_mnist(n: int, seed: int = 0):
     for r in (0, 1):
         images[np.arange(n), 2 * labels + r, :] += np.float32(0.5)
     return images, labels
+
+
+def write_tfrecords(images, labels, data_dir: str, num_partitions: int = 1) -> int:
+    """``images`` and ``labels`` as ``tf.train.Example`` TFRecords under
+    ``data_dir`` (``dfutil.saveAsTFRecords``): ``image`` a float list of
+    784, ``label`` an int64.  Returns the record count."""
+    from tensorflowonspark_tpu_torch import dfutil
+    from tensorflowonspark_tpu_torch.dataframe import DataFrame
+
+    df = DataFrame.from_columns({"image": [np.asarray(x, np.float32).reshape(-1)
+                                           for x in images],
+                                 "label": np.asarray(labels, np.int64)}, num_partitions)
+    return dfutil.saveAsTFRecords(df, data_dir)
+
+
+def rows_from_tfrecords(data_dir: str) -> list[tuple]:
+    """The driver's rows from ``data_dir``'s TFRecords: ``loadTFRecords``
+    into a ``DataFrame``, each ``Row`` an ``(image [28, 28] float32, label)``
+    pair, in file order."""
+    from tensorflowonspark_tpu_torch import dfutil
+
+    return [(np.asarray(r.image, np.float32).reshape(28, 28), np.int64(r.label))
+            for r in dfutil.loadTFRecords(data_dir).collect()]
+
+
+def serve_fn(model):
+    """``serve(params, image) -> softmax`` over ``model`` with the weights
+    ``params``: ``image`` ``[N, 28, 28, 1]`` float32, as
+    ``mnist_spark.py``'s export takes it."""
+    import torch
+
+    def serve(params, image):
+        logits = torch.func.functional_call(model, params, (image.permute(0, 3, 1, 2),))
+        return torch.softmax(logits, dim=-1)
+
+    return serve
+
+
+def export(export_dir: str, model, is_chief: bool = True):
+    """Write ``model``'s serving export (:func:`serve_fn`, input ``image``,
+    output ``prob``) as ``mnist_spark.py`` does; only the chief writes."""
+    from tensorflowonspark_tpu_torch.checkpoint import export_model
+
+    return export_model(export_dir, serve_fn(model), model.state_dict(),
+                        [np.zeros((1, 28, 28, 1), np.float32)], input_names=["image"],
+                        output_names=["prob"], is_chief=is_chief)
 
 
 def pad_batch(batch, batch_size: int) -> tuple:
@@ -90,12 +140,14 @@ def map_fun(args: dict, ctx) -> None:
     and write ``<working_dir>/mnist_train_stats.<id>.json``: ``losses``
     and ``step_ms`` a step, ``rows`` consumed, ``shm_conns`` (feeder
     connections that negotiated the shared-memory transport), the flash
-    kernels' ``launches`` (none on this path) and the ``device``.  The
-    chief also writes its final weights (:data:`WEIGHTS_FILE`)."""
+    kernels' ``launches`` (none on this path) and the ``device``.  Every
+    worker then checkpoints under ``args["model_dir"]``, and the chief
+    writes the serving export to ``args["export_dir"]`` when given."""
     import torch
     import torch.distributed as dist
 
     from tensorflowonspark_tpu_torch.bert_train import kernel_launches
+    from tensorflowonspark_tpu_torch.checkpoint import CheckpointManager
     from tensorflowonspark_tpu_torch.parallel import DataParallelStrategy, adam
     from tensorflowonspark_tpu_torch.util import resolve_device, strict_matmul_precision
 
@@ -128,12 +180,14 @@ def map_fun(args: dict, ctx) -> None:
         stats["shm_conns"] = ctx.mgr.shm_conns
         stats["launches"] = {k: n - launches0[k] for k, n in kernel_launches().items()}
         stats["device"] = str(device)
+        if args.get("model_dir"):
+            with CheckpointManager(args["model_dir"]) as mngr:
+                mngr.save(state.step, state.state_dict())
+        if args.get("export_dir"):
+            export(args["export_dir"], state.module, is_chief=ctx.is_chief)
         with open(os.path.join(ctx.working_dir,
                                f"mnist_train_stats.{ctx.executor_id}.json"), "w") as f:
             json.dump(stats, f)
-        if ctx.is_chief:
-            weights = {k: v.detach().cpu() for k, v in state.module.state_dict().items()}
-            torch.save(weights, os.path.join(ctx.working_dir, WEIGHTS_FILE))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -142,17 +196,22 @@ def map_fun(args: dict, ctx) -> None:
 def run_training(rows: list, *, seed: int = 0, batch_size: int = 64, steps: int = 0,
                  num_epochs: int = 1, lr: float = 1e-3, num_workers: int = 1,
                  device: str = "cuda", state_dict: dict | None = None,
+                 model_dir: str | None = None, export_dir: str | None = None,
                  worker_env: dict | None = None, working_dir: str | None = None,
                  timeout: float = 600.0):
     """Driver half: boot ``num_workers`` workers running :func:`map_fun`,
     feed ``rows`` ``num_epochs`` times through ``cluster.train``, shut the
     cluster down (re-raising any worker error) and return ``(stats,
-    weights)``: each worker's stats dict in executor order and the chief's
-    final state dict."""
-    import torch
+    weights)``: each worker's stats dict in executor order and the final
+    weights (on the CPU) from the checkpoint in ``model_dir`` (default:
+    ``<working_dir>/model``)."""
+    from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint
 
+    working_dir = working_dir or tempfile.mkdtemp(prefix="mnist_train_")
+    model_dir = model_dir or os.path.join(working_dir, "model")
     args = {"seed": seed, "batch_size": batch_size, "steps": steps, "lr": lr,
-            "device": device, "state_dict": state_dict, "feed_timeout": timeout}
+            "device": device, "state_dict": state_dict, "feed_timeout": timeout,
+            "model_dir": model_dir, "export_dir": export_dir}
     cluster = TPUCluster.run(map_fun, args, num_workers, input_mode=InputMode.SPARK,
                              reservation_timeout=timeout, worker_env=worker_env,
                              working_dir=working_dir)
@@ -164,5 +223,4 @@ def run_training(rows: list, *, seed: int = 0, batch_size: int = 64, steps: int 
     for i in range(num_workers):
         with open(os.path.join(cluster.working_dir, f"mnist_train_stats.{i}.json")) as f:
             stats.append(json.load(f))
-    weights = torch.load(os.path.join(cluster.working_dir, WEIGHTS_FILE))
-    return stats, weights
+    return stats, restore_checkpoint(model_dir)["model"]

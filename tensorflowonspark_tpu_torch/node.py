@@ -19,8 +19,9 @@ every worker process.  It
 
 ``map_fun`` runs in the worker process itself, one process per card: the
 driver feeds over TCP/shm directly, so no second process per executor is
-needed.  The chaos, preemption and TensorBoard hooks of the JAX package's
-harness are not ported yet (ROADMAP queue A).
+needed.  A latched SIGTERM (``preemption.py``) flips the heartbeat's phase
+to ``preempted``, as in the JAX package's harness.  Its chaos and
+TensorBoard hooks are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import logging
 import os
 import traceback
 
-from tensorflowonspark_tpu_torch import util
+from tensorflowonspark_tpu_torch import preemption, util
 from tensorflowonspark_tpu_torch.datafeed import DataFeed
 from tensorflowonspark_tpu_torch.health import HeartbeatReporter
 from tensorflowonspark_tpu_torch.queues import DEFAULT_QUEUES, QueueServer
@@ -183,6 +184,7 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
         mgr = None
         client = None
         reporter = None
+        on_preempt = None
         try:
             job_name, task_index = _role_for(cluster_meta["cluster_template"], executor_id)
             host = get_ip_address()
@@ -232,6 +234,12 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
                               working_dir=cluster_meta.get("working_dir"),
                               mgr=mgr)
             ctx._heartbeat = reporter
+            # a latched SIGTERM surfaces as phase 'preempted' so the driver
+            # classifies this exit as a preemption, not a crash.
+            # note_preempted, not set_phase: the callback runs inside the
+            # signal handler and must not touch the kv lock (health.py)
+            on_preempt = reporter.note_preempted
+            preemption.on_preempted(on_preempt)
             env = ctx.distributed_env()
             os.environ["TFOS_COORDINATOR"] = env["coordinator_address"]
             os.environ["TFOS_NUM_PROCESSES"] = str(env["num_processes"])
@@ -265,6 +273,8 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
                 reporter.set_phase("failed")
             raise
         finally:
+            if on_preempt is not None:
+                preemption.remove_on_preempted(on_preempt)
             if reporter is not None:
                 reporter.stop()
             if client is not None:

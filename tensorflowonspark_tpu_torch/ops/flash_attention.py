@@ -19,11 +19,25 @@ in and out, an optional ``[B, Tk]`` bool key-padding mask (an additive
 ``1/sqrt(D)``, ragged ``Tq``/``Tk`` and ``Tq != Tk``.  A row with no
 visible key returns zeros and gets zero gradients.  It is differentiable:
 the autograd node saves ``(q, k, v, out, lse)`` and its backward runs the
-dQ and dK/dV kernels.  On CUDA tensors the forward and backward launch the
-kernels or raise; on CPU tensors they run :func:`flash_attention_reference`
-and :func:`flash_attention_bwd_reference`, the plain PyTorch versions of
-the same arithmetic.  :func:`flash_attention_plain` runs the plain versions
-on any device (the yardstick the card's kernels are held against).
+dQ and dK/dV kernels.
+
+Each launch is a ``torch.library`` custom op: ``tfos::flash_fwd``,
+``tfos::flash_dq`` and ``tfos::flash_dkv``, defined and implemented
+through a ``torch.library.Library`` (whose dispatch costs a few
+microseconds a call, where ``torch.library.custom_op``'s Python layer
+costs several times that: ``PERF.md``).  Their CUDA implementations
+launch the kernels or raise; their CPU implementations run
+:func:`flash_attention_reference` and the plain backward, the plain
+PyTorch versions of the same arithmetic; their fake implementations give
+the output shapes, so ``torch.export`` records the ops themselves in a
+program (``checkpoint.export_model``) and the program launches the same
+kernels when it runs on the card.  The kernels take head dims 64 and 128;
+on the card any other ``D`` up to 128 is zero-padded to 64 or 128 (the
+scale stays ``1/sqrt(D)``) and the outputs sliced back, which is exact:
+zero columns add nothing to ``q.k^T``, and the padded columns of every
+output are zero.  ``D > 128`` raises.  :func:`flash_attention_plain` runs
+the plain versions on any device (the yardstick the card's kernels are
+held against).
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import subprocess
 import threading
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30  # large-negative mask value (avoids -inf − -inf = nan)
 _EPS = 1e-30
@@ -54,6 +69,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
+#: the largest head dim the card takes (the kernels' widest tile)
+MAX_HEAD_DIM = 128
 
 _libs = None
 _lib_lock = threading.Lock()
@@ -288,7 +305,8 @@ def _check_kernel_inputs(q, k, v, mask):
         raise ValueError(f"kernel takes float32 or bfloat16 q/k/v of one dtype, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim 64 or 128, got {D}")
+        raise ValueError(f"kernel takes head_dim 64 or 128 (the wrappers pad "
+                         f"others up to {MAX_HEAD_DIM}), got {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -306,19 +324,45 @@ def _check_kernel_inputs(q, k, v, mask):
     return mask
 
 
+def _scale(q, scale) -> float:
+    """The score scale: ``scale`` or ``1/sqrt(D)`` of q's true head dim."""
+    return float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[3])
+
+
+def _padded_head_dim(D: int) -> int:
+    """The kernel head dim that takes ``D``: 64 up to 64, else 128."""
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention on the card takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {D}")
+    return 64 if D <= 64 else 128
+
+
+def _pad_head(D: int, *ts):
+    """``ts`` zero-padded along the head dim to the kernel's width."""
+    Dp = _padded_head_dim(D)
+    return ts if Dp == D else tuple(F.pad(t, (0, Dp - D)) for t in ts)
+
+
+def _cut_head(D: int, *ts):
+    """``ts`` cut back to head dim ``D``, contiguous."""
+    return tuple(t if t.shape[3] == D else t[..., :D].contiguous() for t in ts)
+
+
 def flash_attention_fwd(q, k, v, mask=None, causal: bool = False,
                         scale: float | None = None, window: int | None = None):
-    """Forward ``(out, lse)``: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Shapes as :func:`flash_attention_reference`.
-    """
+    """Forward ``(out, lse)`` through ``tfos::flash_fwd``: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors.  Shapes as
+    :func:`flash_attention_reference`."""
     window = _check_window(causal, window)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, mask, causal, scale, window)
+    return torch.ops.tfos.flash_fwd(q, k, v, mask, bool(causal), _scale(q, scale),
+                                    window or 0)
+
+
+def _fwd_launch(q, k, v, mask, causal: bool, scale: float, window: int):
+    """Launch the forward kernel (head dim 64 or 128) into new tensors."""
     mask = _check_kernel_inputs(q, k, v, mask)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-
     out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     lib = _library("flash_attention_fwd")
@@ -332,10 +376,45 @@ def flash_attention_fwd(q, k, v, mask=None, causal: bool = False,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            scale, int(causal), window or 0, stream)
+            scale, int(causal), window, stream)
     _raise_on(lib, err, "flash-attention forward")
-    flash_attention.launches += 1
     return out, lse
+
+
+_SCHEMA_ARGS = "bool causal, float scale, int window"
+_BWD_SCHEMA = (f"(Tensor q, Tensor k, Tensor v, Tensor? mask, Tensor dout, Tensor lse, "
+               f"Tensor delta, {_SCHEMA_ARGS})")
+#: the ops' namespace; the ops live as long as this object
+_LIB = torch.library.Library("tfos", "DEF")
+_LIB.define(f"flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, {_SCHEMA_ARGS}) "
+            "-> (Tensor, Tensor)")
+_LIB.define(f"flash_dq{_BWD_SCHEMA} -> Tensor")
+_LIB.define(f"flash_dkv{_BWD_SCHEMA} -> (Tensor, Tensor)")
+
+
+def _fwd_padded(q, k, v, mask, causal, scale, window):
+    """``tfos::flash_fwd`` on the card: the forward kernel, ``D`` padded
+    to the kernel's width."""
+    D = q.shape[3]
+    out, lse = _fwd_launch(*_pad_head(D, q, k, v), mask, causal, scale, window)
+    flash_attention.launches += 1
+    return _cut_head(D, out)[0], lse
+
+
+def _fwd_cpu(q, k, v, mask, causal, scale, window):
+    """``tfos::flash_fwd`` on the CPU: the plain version."""
+    return flash_attention_reference(q, k, v, mask, causal, scale, window or None)
+
+
+_LIB.impl("flash_fwd", _fwd_padded, "CUDA")
+_LIB.impl("flash_fwd", _fwd_cpu, "CPU")
+
+
+@torch.library.register_fake("tfos::flash_fwd")
+def _flash_fwd_fake(q, k, v, mask, causal, scale, window):
+    B, Tq, H, _ = q.shape
+    return torch.empty_like(q, memory_format=torch.contiguous_format), \
+        q.new_empty((B, H, Tq), dtype=torch.float32)
 
 
 def flash_attention_bwd(q, k, v, mask, out, lse, dout, causal: bool = False,
@@ -356,13 +435,13 @@ def flash_attention_bwd(q, k, v, mask, out, lse, dout, causal: bool = False,
 
 def _bwd_launch(entry: str, outputs, q, k, v, mask, dout, lse, delta, causal,
                 scale, window):
-    """Check the inputs of one backward kernel and launch it into
-    ``outputs`` (allocated by the caller, ``[B, T, H, D]`` contiguous).
+    """Check the inputs of one backward kernel (head dim 64 or 128) and
+    launch it into ``outputs`` (allocated by the caller, ``[B, T, H, D]``
+    contiguous).
 
     ``dout`` is read through its strides; one whose head_dim is not
     contiguous, or (bf16) whose rows do not start on 16 bytes, is first
     copied contiguous."""
-    window = _check_window(causal, window)
     mask = _check_kernel_inputs(q, k, v, mask)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
@@ -376,7 +455,6 @@ def _bwd_launch(entry: str, outputs, q, k, v, mask, dout, lse, delta, causal,
     if not _rows_staged_ok(dout):
         dout = dout.contiguous()
     lse, delta = lse.contiguous(), delta.contiguous()
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     lib = _library("flash_attention_bwd")
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
@@ -385,40 +463,86 @@ def _bwd_launch(entry: str, outputs, q, k, v, mask, dout, lse, delta, causal,
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outputs),
             B, H, Tq, Tk, D, _KERNEL_DTYPES[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
-            scale, int(causal), window or 0,
+            scale, int(causal), window,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, entry)
 
 
 def flash_attention_dq(q, k, v, mask, dout, lse, delta, causal: bool = False,
                        scale: float | None = None, window: int | None = None):
-    """``dq`` by the dQ kernel (the TPU's ``_dq_kernel``) for CUDA tensors,
-    by :func:`flash_attention_dq_reference` for CPU tensors; ``delta`` is
-    ``rowsum(out * dout)`` as ``[B, H, Tq]`` float32."""
-    if q.device.type == "cpu":
-        return flash_attention_dq_reference(q, k, v, mask, dout, lse, delta, causal,
-                                            scale, window)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("tfos_flash_attention_bwd_dq", (dq,), q, k, v, mask, dout, lse, delta,
-                causal, scale, window)
-    flash_attention_bwd.launches_dq += 1
-    return dq
+    """``dq`` through ``tfos::flash_dq``: the dQ kernel (the TPU's
+    ``_dq_kernel``) for CUDA tensors, :func:`flash_attention_dq_reference`
+    for CPU tensors; ``delta`` is ``rowsum(out * dout)`` as ``[B, H, Tq]``
+    float32."""
+    window = _check_window(causal, window)
+    return torch.ops.tfos.flash_dq(q, k, v, mask, dout, lse, delta, bool(causal),
+                                   _scale(q, scale), window or 0)
 
 
 def flash_attention_dkv(q, k, v, mask, dout, lse, delta, causal: bool = False,
                         scale: float | None = None, window: int | None = None):
-    """``(dk, dv)`` by the dK/dV kernel (the TPU's ``_dkv_kernel``) for CUDA
-    tensors, by :func:`flash_attention_dkv_reference` for CPU tensors;
-    arguments as :func:`flash_attention_dq`."""
-    if q.device.type == "cpu":
-        return flash_attention_dkv_reference(q, k, v, mask, dout, lse, delta, causal,
-                                             scale, window)
+    """``(dk, dv)`` through ``tfos::flash_dkv``: the dK/dV kernel (the TPU's
+    ``_dkv_kernel``) for CUDA tensors, :func:`flash_attention_dkv_reference`
+    for CPU tensors; arguments as :func:`flash_attention_dq`."""
+    window = _check_window(causal, window)
+    return torch.ops.tfos.flash_dkv(q, k, v, mask, dout, lse, delta, bool(causal),
+                                    _scale(q, scale), window or 0)
+
+
+def _dq_padded(q, k, v, mask, dout, lse, delta, causal, scale, window):
+    """``tfos::flash_dq`` on the card: the dQ kernel, ``D`` padded to the
+    kernel's width."""
+    D = q.shape[3]
+    q, k, v, dout = _pad_head(D, q, k, v, dout)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("tfos_flash_attention_bwd_dq", (dq,), q, k, v, mask, dout, lse, delta,
+                causal, scale, window)
+    flash_attention_bwd.launches_dq += 1
+    return _cut_head(D, dq)[0]
+
+
+def _dq_cpu(q, k, v, mask, dout, lse, delta, causal, scale, window):
+    """``tfos::flash_dq`` on the CPU: the plain version."""
+    return flash_attention_dq_reference(q, k, v, mask, dout, lse, delta, causal, scale,
+                                        window or None)
+
+
+_LIB.impl("flash_dq", _dq_padded, "CUDA")
+_LIB.impl("flash_dq", _dq_cpu, "CPU")
+
+
+@torch.library.register_fake("tfos::flash_dq")
+def _flash_dq_fake(q, k, v, mask, dout, lse, delta, causal, scale, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _dkv_padded(q, k, v, mask, dout, lse, delta, causal, scale, window):
+    """``tfos::flash_dkv`` on the card: the dK/dV kernel, ``D`` padded to
+    the kernel's width."""
+    D = q.shape[3]
+    q, k, v, dout = _pad_head(D, q, k, v, dout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("tfos_flash_attention_bwd_dkv", (dk, dv), q, k, v, mask, dout, lse,
                 delta, causal, scale, window)
     flash_attention_bwd.launches_dkv += 1
-    return dk, dv
+    return _cut_head(D, dk, dv)
+
+
+def _dkv_cpu(q, k, v, mask, dout, lse, delta, causal, scale, window):
+    """``tfos::flash_dkv`` on the CPU: the plain version."""
+    return flash_attention_dkv_reference(q, k, v, mask, dout, lse, delta, causal, scale,
+                                         window or None)
+
+
+_LIB.impl("flash_dkv", _dkv_padded, "CUDA")
+_LIB.impl("flash_dkv", _dkv_cpu, "CPU")
+
+
+@torch.library.register_fake("tfos::flash_dkv")
+def _flash_dkv_fake(q, k, v, mask, dout, lse, delta, causal, scale, window):
+    return (torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
 
 
 flash_attention_bwd.launches_dq = 0
@@ -458,7 +582,8 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
 
     Args:
       q, k, v: ``[B, T, H, D]`` (q's T may differ from k/v's).  On the
-        card: float32 or bfloat16, ``D`` 64 or 128, head_dim contiguous
+        card: float32 or bfloat16, ``D`` at most 128 (64 and 128 run as
+        they are, others zero-padded to 64 or 128), head_dim contiguous
         (other strides are read as they are; bf16 rows must start on 16
         bytes, as every view of a contiguous tensor's full head does).
       mask: optional ``[B, Tk]`` bool key-padding mask (True = attend).  A
@@ -469,8 +594,9 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
       scale: score scale, default ``1/sqrt(D)``.
 
     ``flash_attention.launches`` counts forward-kernel launches in this
-    process; ``flash_attention_bwd.launches_dq``/``.launches_dkv`` the
-    backward's.
+    process (real launches only: a fake call while ``torch.export``
+    traces counts none); ``flash_attention_bwd.launches_dq``/
+    ``.launches_dkv`` the backward's.
     """
     return _FlashAttention.apply(q, k, v, mask, causal, scale, window, False)
 

@@ -54,6 +54,32 @@ class TrainState:
         """The model itself, unwrapped from DDP."""
         return getattr(self.model, "module", self.model)
 
+    def state_dict(self) -> dict:
+        """``{"model", "optim", "step", "extras"}`` for a
+        ``CheckpointManager``: the unwrapped model's state dict (parameters
+        and buffers) and the optimizer's keyed by parameter name
+        (``torch.distributed.checkpoint.state_dict.get_state_dict``), so a
+        checkpoint restores into a fresh replica on any device.  The
+        tensors are the live ones, not copies."""
+        from torch.distributed.checkpoint.state_dict import get_state_dict
+
+        model_sd, optim_sd = get_state_dict(self.module, self.optimizer)
+        return {"model": model_sd, "optim": optim_sd, "step": self.step,
+                "extras": self.extras}
+
+    def load_state_dict(self, saved: dict) -> None:
+        """Load :meth:`state_dict`'s layout (e.g. a restored checkpoint,
+        on any device) into the model, optimizer, step and extras."""
+        from torch.distributed.checkpoint.state_dict import set_state_dict
+
+        # a checkpoint drops empty containers: an optimizer without state
+        # (plain SGD) restores without its "state" key, a state without
+        # extras without "extras"
+        set_state_dict(self.module, self.optimizer, model_state_dict=saved["model"],
+                       optim_state_dict={"state": {}, **saved["optim"]})
+        self.step = int(saved["step"])
+        self.extras = dict(saved.get("extras") or {})
+
 
 def step_generator(seed: int, step: int, device, rank: int = 0,
                    micro: int = 0) -> torch.Generator:

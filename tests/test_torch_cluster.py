@@ -12,6 +12,7 @@ differently); against flax ``atol=1e-4``, as in ``test_torch_bert.py``.
 """
 
 import ast
+import importlib
 import json
 import os
 import subprocess
@@ -173,9 +174,69 @@ def test_port_imports_no_jax_nor_the_jax_package():
     assert "tensorflowonspark_tpu_torch.bert_train" in report["imported"]
     assert "tensorflowonspark_tpu_torch.parallel.strategy" in report["imported"]
     for name in ("models.resnet", "models.mnist", "data", "device_info", "gpu_info",
-                 "resnet_train", "mnist_train", "bench_resnet"):
+                 "resnet_train", "mnist_train", "bench_resnet", "filesystem", "tfrecord",
+                 "example_proto", "dataframe", "dfutil", "preemption", "checkpoint"):
         assert f"tensorflowonspark_tpu_torch.{name}" in report["imported"], name
     assert [m for m in report["new"] if _forbidden(m)] == []
+
+
+def _reference_root_imports() -> list[tuple[str, str]]:
+    """``(module, name)`` for every name the JAX package's root imports:
+    ``from tensorflowonspark_tpu.<module> import <name>`` gives
+    ``(module, name)``, ``from tensorflowonspark_tpu import <module>``
+    gives ``(module, None)``."""
+    root = os.path.join(os.path.dirname(PACKAGE_DIR), "tensorflowonspark_tpu", "__init__.py")
+    with open(root) as fh:
+        tree = ast.parse(fh.read(), root)
+    out = []
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.module == "tensorflowonspark_tpu":
+            out += [(a.name, None) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+                "tensorflowonspark_tpu."):
+            module = node.module.split(".", 1)[1]
+            out += [(module, a.name) for a in node.names if not a.name.startswith("_")]
+    return out
+
+
+def test_root_exports_what_the_reference_root_exports_for_ported_modules():
+    """For every module of the JAX package's root imports that the port
+    has, the port's root exports the same names (the same objects as the
+    port module's), and ``from tensorflowonspark_tpu_torch import
+    Dataset`` and the rest work — in a fresh interpreter that loads no JAX
+    module on the way."""
+    expected = []
+    for module, name in _reference_root_imports():
+        if not os.path.exists(os.path.join(PACKAGE_DIR, *module.split(".")) + ".py"):
+            continue                              # not ported yet
+        if name is None:
+            expected.append((module, None))
+        elif hasattr(importlib.import_module(f"tensorflowonspark_tpu_torch.{module}"), name):
+            expected.append((module, name))
+    names = {name for _, name in expected}
+    assert {"Dataset", "device_prefetch", "DataFrame", "Row", "CheckpointManager",
+            "ExportedModel", "export_model", "save_checkpoint", "restore_checkpoint",
+            "PreemptionGuard", "TPUCluster", "InputMode", "DataFeed", "NodeContext"} <= names
+    code = (
+        "import importlib, json, sys\n"
+        "import tensorflowonspark_tpu_torch as p\n"
+        f"expected = {expected!r}\n"
+        "def exported(m, n):\n"
+        "    mod = importlib.import_module('tensorflowonspark_tpu_torch.' + m)\n"
+        "    return getattr(p, m, None) is mod if n is None else "
+        "getattr(p, n, None) is getattr(mod, n)\n"
+        "bad = [(m, n) for m, n in expected if not exported(m, n)]\n"
+        "from tensorflowonspark_tpu_torch import (Dataset, device_prefetch, DataFrame, Row, "
+        "CheckpointManager, ExportedModel, export_model, save_checkpoint, restore_checkpoint, "
+        "PreemptionGuard)\n"
+        "print(json.dumps({'bad': bad, 'jax': sorted(m for m in sys.modules "
+        "if m.split('.')[0] in %r)}))\n" % (_FORBIDDEN,))
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=os.path.dirname(PACKAGE_DIR), env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report == {"bad": [], "jax": []}
 
 
 def test_port_sources_name_no_jax_import():

@@ -3,7 +3,10 @@
 Each pipeline of the JAX package's ``tests/test_data.py`` that the port's
 transforms cover runs through both ``Dataset`` classes; the elements must
 be equal in structure, dtype and value (the transforms are the same pure
-Python, so the seeded shuffle draws the same order).  The device side is
+Python, so the seeded shuffle draws the same order).  The TFRecord readers
+(``from_tfrecords``, ``from_examples`` with their file-granularity
+``shard=``) read part files that the JAX package's ``dfutil`` wrote, and
+the grain sources wrap a grain ``MapDataset``.  The device side is
 the port's own: ``cache_on_device`` replays the same tensors without
 touching the source again, ``device_prefetch`` yields the source's
 batches as tensors in order, and both default to the card (raising
@@ -16,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from tensorflowonspark_tpu import dfutil as jax_dfutil
 from tensorflowonspark_tpu.data import Dataset as JaxDataset
+from tensorflowonspark_tpu.dataframe import DataFrame as JaxDataFrame
 from tensorflowonspark_tpu_torch.data import CheckpointableIterator, Dataset, device_prefetch
 
 XS, YS = np.arange(10, dtype=np.float32), np.arange(10, dtype=np.int32)
@@ -45,7 +50,29 @@ PIPELINES = {
         (np.arange(80, dtype=np.float32).reshape(40, 2), np.arange(40) % 3)).shard(2, 0)
     .map(lambda e: (e[0], np.int32(e[1]))).shuffle(8, seed=0).batch(4, drop_remainder=True)
     .prefetch(2),
+    "interleave": lambda D: D.from_tensor_slices([0, 10, 20]).interleave(
+        lambda x: D.from_tensor_slices(list(range(int(x), int(x) + 4))),
+        cycle_length=2, block_length=3),
+    "flat_map": lambda D: D.from_tensor_slices([1, 2, 3]).flat_map(lambda x: [int(x)] * int(x)),
+    "padded_batch": lambda D: D.from_generator(
+        lambda: (np.arange(n) for n in [3, 1, 4, 2, 5])).padded_batch(2, padding_value=-1),
+    "padded_batch_dict": lambda D: D.from_generator(
+        lambda: ({"ids": np.arange(n, dtype=np.int32), "len": n} for n in [2, 5, 3]))
+    .padded_batch(2, drop_remainder=True),
+    # mixed dtypes within a batch promote, never truncate
+    "padded_batch_promotes": lambda D: D.from_generator(
+        lambda: iter([(np.arange(2, dtype=np.int32), 1.0),
+                      (np.arange(3, dtype=np.float32) + 0.5, 2.0)])).padded_batch(2),
+    "grain": lambda D: D.from_grain(_grain().MapDataset.source(list(range(6)))).batch(4),
+    "grain_sharded": lambda D: D.from_grain_sharded(
+        _grain().MapDataset.source(list(range(12))), 3, 1, shuffle=True, seed=5),
 }
+
+
+def _grain():
+    import grain.python as grain
+
+    return grain
 
 
 def _assert_same(got, want):
@@ -70,6 +97,33 @@ def test_pipeline_matches_the_jax_package(name):
     _assert_same(list(ds), want)
     _assert_same(list(ds), want)          # re-iteration restarts from the source
     assert len(ds.as_numpy()) == len(want)
+
+
+def _write_parts(path, n_rows=10, parts=3):
+    """``parts`` TFRecord part files of ``tf.train.Example`` rows, written by
+    the JAX package's ``dfutil``."""
+    rng = np.random.default_rng(0)
+    rows = [{"image": rng.integers(0, 256, 12, dtype=np.uint8).tobytes(),
+             "label": int(i), "vec": rng.standard_normal(3).astype(np.float32),
+             "name": f"row{i}"} for i in range(n_rows)]
+    jax_dfutil.saveAsTFRecords(JaxDataFrame(rows, num_partitions=parts), str(path))
+    return str(path / "part-*")
+
+
+@pytest.mark.parametrize("shard", [None, (3, 1), (2, 0), (4, 3)],
+                         ids=["all", "by_file", "by_file_uneven", "by_element"])
+def test_tfrecord_readers_match_the_jax_package(tmp_path, shard):
+    """``shard=(n, i)`` takes every n-th file when there are at least n
+    files, else every n-th record."""
+    pattern = _write_parts(tmp_path)
+    for build in (lambda D: D.from_tfrecords(pattern, shard=shard),
+                  lambda D: D.from_examples(pattern, binary_features=("image",),
+                                            shard=shard).shuffle(4, seed=3).batch(2)):
+        want = list(build(JaxDataset))
+        assert want
+        _assert_same(list(build(Dataset)), want)
+    with pytest.raises(FileNotFoundError):
+        Dataset.from_tfrecords(str(tmp_path / "missing-*"))
 
 
 def test_prefetch_propagates_errors():

@@ -22,6 +22,8 @@ where a one-ulp difference in the bf16 forward output (through ``delta``)
 can move a rounding.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,6 +99,10 @@ CASES = {
     "tq_ne_tk": (2, 24, 40, 2, 64, [40, 33], False, None),
     "d128": (1, 32, 32, 2, 128, None, False, None),
     "d128_causal": (1, 48, 48, 2, 128, [48], True, None),
+    # head dims the card's kernels take zero-padded to 64 or 128
+    "d8": (2, 40, 40, 2, 8, [40, 0], False, None),
+    "d16_causal": (2, 33, 33, 2, 16, [33, 20], True, None),
+    "d96": (1, 48, 48, 2, 96, [30], False, None),
 }
 
 
@@ -251,3 +257,75 @@ def test_tma_layout_rule(kind, ok):
     t = _bf16_layout(kind)
     assert t.stride(3) == 1
     assert _rows_staged_ok(t) is ok
+
+
+def _module():
+    """The module ``ops/flash_attention.py`` (``ops.flash_attention`` is
+    the function it exports)."""
+    return importlib.import_module("tensorflowonspark_tpu_torch.ops.flash_attention")
+
+
+def _padded_launches(monkeypatch, widths):
+    """Stand in for the ctypes launches with the plain versions, recording
+    the head dim each launch was given."""
+    fa = _module()
+
+    def fwd(q, k, v, mask, causal, scale, window):
+        widths.append(q.shape[3])
+        return flash_attention_reference(q, k, v, mask, causal, scale, window or None)
+
+    def bwd(entry, outputs, q, k, v, mask, dout, lse, delta, causal, scale, window):
+        widths.append(q.shape[3])
+        ref = (fa.flash_attention_dq_reference if entry.endswith("_dq")
+               else fa.flash_attention_dkv_reference)
+        got = ref(q, k, v, mask, dout, lse, delta, causal, scale, window or None)
+        for o, r in zip(outputs, (got,) if torch.is_tensor(got) else got):
+            o.copy_(r)
+
+    monkeypatch.setattr(fa, "_fwd_launch", fwd)
+    monkeypatch.setattr(fa, "_bwd_launch", bwd)
+    return fa
+
+
+@pytest.mark.parametrize("D,width", [(8, 64), (16, 64), (64, 64), (96, 128), (128, 128)])
+def test_card_route_pads_the_head_dim_exactly(monkeypatch, D, width):
+    """The custom ops' card implementations zero-pad q, k, v (and dO) to
+    the kernels' head dim, keep the scale of the true ``D`` and cut the
+    outputs back: the same values as the plain versions at ``D`` (run here
+    with the plain versions standing in for the kernels at the padded
+    width), and one launch counted per kernel."""
+    widths = []
+    fa = _padded_launches(monkeypatch, widths)
+    rng = np.random.default_rng(D)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((2, 37, 3, D), dtype=np.float32))
+                  for _ in range(4))
+    mask = torch.from_numpy(np.arange(37)[None, :] < np.array([[37], [0]]))
+    scale = 1.0 / np.sqrt(D)
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches_dq,
+              fa.flash_attention_bwd.launches_dkv)
+    out, lse = fa._fwd_padded(q, k, v, mask, True, scale, 0)
+    want, want_lse = flash_attention_reference(q, k, v, mask, causal=True)
+    assert out.shape == q.shape and out.is_contiguous()
+    torch.testing.assert_close(out, want, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-6)
+    delta = fa._delta(out, g)
+    dq = fa._dq_padded(q, k, v, mask, g, lse, delta, True, scale, 0)
+    dk, dv = fa._dkv_padded(q, k, v, mask, g, lse, delta, True, scale, 0)
+    for a, b in zip((dq, dk, dv), flash_attention_bwd_reference(q, k, v, mask, want, want_lse,
+                                                                 g, causal=True)):
+        assert a.shape == q.shape and a.is_contiguous()
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert widths == [width] * 3
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches_dq,
+            fa.flash_attention_bwd.launches_dkv) == tuple(n + 1 for n in before)
+
+
+def test_card_route_refuses_head_dims_over_128():
+    fa = _module()
+
+    x = torch.zeros(1, 8, 1, 160)
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        fa._fwd_padded(x, x, x, None, False, 1.0, 0)
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        fa._dq_padded(x, x, x, None, x, torch.zeros(1, 1, 8), torch.zeros(1, 1, 8),
+                      False, 1.0, 0)

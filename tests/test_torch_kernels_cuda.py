@@ -52,6 +52,10 @@ CASES = {
     # tiles for the last query tile, so the 3-stage ring wraps twice
     "window_ring": (1, 640, 640, 2, 64, None, True, 200),
     "causal_tq_ne_tk_ring": (2, 448, 512, 2, 128, [512, 300], True, None),
+    # head dims the kernels do not take as they are: zero-padded to 64 or 128
+    "head_dim_8": (2, 96, 96, 2, 8, [96, 40], False, None),
+    "head_dim_16": (2, 130, 130, 3, 16, [130, 0], True, None),
+    "head_dim_96": (2, 200, 200, 2, 96, [200, 150], False, None),
 }
 
 
@@ -100,8 +104,8 @@ def test_flash_reads_strided_inputs(dtype):
 
 def test_flash_rejects_what_the_kernel_cannot_take():
     _card()
-    x = torch.zeros(1, 8, 1, 32, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
+    x = torch.zeros(1, 8, 1, 160, device="cuda")   # D > 128: no kernel takes it
+    with pytest.raises(ValueError, match="head_dim <= 128"):
         flash_attention(x, x, x)
     y = torch.zeros(1, 8, 1, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -217,6 +221,6 @@ def test_flash_backward_rejects_what_the_kernels_cannot_take():
         flash_attention_dq(q, q, q, None, q, lse[:, :, :4], delta)
     with pytest.raises(ValueError, match="delta"):
         flash_attention_dkv(q, q, q, None, q, lse, delta.double())
-    x = torch.zeros(1, 8, 1, 32, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
+    x = torch.zeros(1, 8, 1, 160, device="cuda")
+    with pytest.raises(ValueError, match="head_dim <= 128"):
         flash_attention_dq(x, x, x, None, x, lse, delta)

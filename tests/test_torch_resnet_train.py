@@ -9,10 +9,19 @@ the bench's FLOP count.
   side (``train_in_process``), and the JAX strategy with
   ``optax.sgd(0.1, momentum=0.9)`` on the same global batches (flax in
   float64).
+- ``resnet_train`` from TFRecords with a resume: two gloo workers read
+  their uint8 shards from part files that ``write_tfrecords`` wrote (the
+  decoded examples equal the arrays byte for byte); a run of 4 steps
+  (checkpointing at step 3 and at its end) and a run that restores the
+  latest checkpoint and trains steps 5-8 end with the
+  weights of an unbroken 8-step run (within 1e-6; the same operations in
+  the same processes' order).
 - ``mnist_train`` in ``InputMode.SPARK``: two gloo workers fed through
-  ``cluster.train``; every fed row is consumed, the shared-memory
-  transport carries the feed, the loss falls, and the chief's weights
-  equal one process trained on both workers' batches side by side.
+  ``cluster.train`` from rows that ``loadTFRecords`` read back from
+  TFRecords; every fed row is consumed, the shared-memory transport
+  carries the feed, the loss falls, the chief's weights (restored from the
+  workers' checkpoint) equal one process trained on both workers' batches
+  side by side, and its serving export gives that model's probabilities.
 
 Tolerances: per tensor, ``||w - w_ref|| / ||w_ref - w0||`` (the error
 against the reference's movement): ResNet 1e-3 against one process (seen:
@@ -35,6 +44,7 @@ from tensorflowonspark_tpu.models import resnet as jr
 from tensorflowonspark_tpu.parallel.strategy import \
     DataParallelStrategy as JaxDataParallelStrategy
 from tensorflowonspark_tpu_torch import bench_resnet, mnist_train, resnet_train
+from tensorflowonspark_tpu_torch.checkpoint import CheckpointManager, ExportedModel
 from tensorflowonspark_tpu_torch.models import resnet as pr
 from tensorflowonspark_tpu_torch.parallel import DataParallelStrategy, adam
 
@@ -117,12 +127,45 @@ def test_resnet_train_two_workers_match_one_process_and_jax(tmp_path):
     assert max(rel.values()) <= 3e-3, max(rel.items(), key=lambda kv: kv[1])
 
 
+def test_resnet_train_resumes_from_tfrecords_as_the_unbroken_run(tmp_path):
+    args = {"model": "CifarResNet", "model_kwargs": {"stage_sizes": (1, 1), "num_filters": 4},
+            "dtype": "float32", "bn": "float32", "image_size": 16, "batch_size": 4,
+            "steps": 8, "num_samples": 32, "seed": 3, "device": "cpu",
+            "data_dir": str(tmp_path / "records")}
+    assert resnet_train.write_tfrecords(args, args["data_dir"], 2, 10) == 32
+    for i in range(2):
+        images, labels = resnet_train.uint8_shard(args, i, 2, 10)
+        decoded = list(resnet_train.examples(args, i, 2, 10))
+        assert np.array_equal(np.stack([x for x, _ in decoded]), images)
+        assert np.array_equal(np.array([y for _, y in decoded]), labels)
+
+    def run(name, **kw):
+        return resnet_train.run_training({**args, **kw}, 2, worker_env=WORKER_ENV,
+                                         working_dir=str(tmp_path / name), timeout=120)
+
+    unbroken_stats, unbroken = run("unbroken")
+    model_dir = str(tmp_path / "model")
+    first, _ = run("first", steps=4, model_dir=model_dir, save_every=3)
+    assert CheckpointManager(model_dir).all_steps() == [3, 4]
+    second, resumed = run("second", model_dir=model_dir)
+    assert [s["first_step"] for s in first + second] == [0, 0, 4, 4]
+    assert [len(s["losses"]) for s in first + second] == [4, 4, 4, 4]
+    for i in range(2):
+        np.testing.assert_allclose(first[i]["losses"] + second[i]["losses"],
+                                   unbroken_stats[i]["losses"], rtol=1e-6)
+    assert sorted(resumed) == sorted(unbroken)
+    worst = max((resumed[k] - unbroken[k]).abs().max().item() for k in unbroken)
+    assert worst <= 1e-6, worst
+
+
 def test_mnist_train_two_workers_through_cluster_train(tmp_path):
     images, labels = mnist_train.synthetic_mnist(1024, seed=0)
-    rows = list(zip(images, labels))
+    assert mnist_train.write_tfrecords(images, labels, str(tmp_path / "records"), 3) == 1024
+    rows = mnist_train.rows_from_tfrecords(str(tmp_path / "records"))
+    assert all(np.array_equal(x, images[i]) and y == labels[i] for i, (x, y) in enumerate(rows))
     stats, weights = mnist_train.run_training(
         rows, seed=0, batch_size=32, num_workers=2, device="cpu", worker_env=WORKER_ENV,
-        working_dir=str(tmp_path), timeout=120)
+        export_dir=str(tmp_path / "export"), working_dir=str(tmp_path), timeout=120)
     assert [s["rows"] for s in stats] == [512, 512]        # every fed row consumed
     assert [len(s["losses"]) for s in stats] == [16, 16]
     assert all(s["shm_conns"] >= 1 for s in stats)          # the shm plane carried the feed
@@ -145,6 +188,14 @@ def test_mnist_train_two_workers_through_cluster_train(tmp_path):
     np.testing.assert_allclose(losses, single, rtol=1e-5)
     rel = _moved_rel(weights, state.module.state_dict(), w0)
     assert max(rel.values()) <= 2e-3, max(rel.items(), key=lambda kv: kv[1])
+
+    # the chief's export serves the trained model's probabilities
+    model = mnist_train.build_model({"state_dict": weights})
+    x = images[:5, :, :, None]
+    probs = ExportedModel.load(str(tmp_path / "export"), device="cpu")(image=x)["prob"]
+    with torch.no_grad():
+        want = torch.softmax(model(torch.from_numpy(images[:5])), -1)
+    torch.testing.assert_close(probs, want, atol=1e-6, rtol=0)
 
 
 def test_bench_counts_two_flops_a_multiply_add():
