@@ -80,11 +80,39 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    an export that a process without a card wrote (and the card's export on
    the CPU);
 10. the bench: ``python -m tensorflowonspark_tpu_torch.bench_resnet``'s
-   measurement, its JSON line printed on a line of its own.
+   measurement, its JSON line printed on a line of its own (run last, after
+   11 and 12);
+11. BASELINE config 3 through the ML pipeline, as its users run it:
+   ``TFEstimator(bert_squad.train_fn).fit(df)`` over phase 6's rows (the
+   port's ``examples/bert/bert_squad.py``, full-width BERT-base, bf16, the
+   flash kernels, one worker) with 12 launches of each kernel a step, every
+   step's loss and the checkpoint's weights within :data:`TRAIN_TOL` of
+   phase 6's plain-attention replay; then ``TFModel.transform`` of the 64
+   inference rows in 4 partitions on the driver, one thread a partition,
+   on the card: 12 K1 launches a batch counted on the driver, logits
+   bit-identical to the export's signature called in one thread and within
+   :data:`EXPORT_TOL` of the eager model of the checkpoint's weights, where
+   a model whose input mapping swaps the mask and the token types must
+   not be; rows/s with the partitions run at once and in one partition;
+12. the Estimator under ``run_with_recovery`` with one lost worker: BERT QA
+   at full width (hidden 768, 12 heads, T = 384, batch 16) cut to
+   :data:`RECOVERY_LAYERS` layers, ``InputMode.TENSORFLOW``, rows read from
+   TFRecords written with ``dfutil`` (``Dataset.from_examples``),
+   ``train_and_evaluate(TrainSpec(max_steps=8), EvalSpec(steps=2,
+   throttle_steps=4))`` with a save every 4 steps; the worker exits after
+   step 6 and the relaunch restores step 4 and its input position
+   (``input_state/4.json``): one classified crash, the relaunch starts at
+   step 4, the event files hold train/loss at steps 1-8 and eval/loss at 4
+   and 8, every step's loss and the final weights within
+   :data:`TRAIN_TOL` of an unbroken in-process replay through the plain
+   attention, where an Estimator that restarts the input at batch 0
+   (``checkpoint_input_state=False``) must not be; detection latency,
+   restart-to-first-step, the checkpoints' seconds and the goodput.
 
-The ResNet and MNIST paths run none of the repo's hand-written kernels
-(their convolutions are cuDNN's); the summary's ``launches_by_path`` shows
-each kernel's launches on every path.  The line before the last is the
+Each phase's seconds are printed.  The ResNet and MNIST paths run none of
+the repo's hand-written kernels (their convolutions are cuDNN's); the
+summary's ``launches_by_path`` shows each kernel's launches on every path,
+and ``launches`` is phase 11's fit (this slice's main path).  The line before the last is the
 card's name and power limit; the line before that is the ``{"kernels":
 [...]}`` summary; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result line, without a CUDA card or outside a
@@ -559,12 +587,13 @@ def check_model_grads(seed: int) -> None:
         raise SystemExit("the model-gradient gate does not see a zeroed dK")
 
 
-def zero_in_theory(name: str) -> bool:
+def zero_in_theory(name: str, layers: int = BERT_LAYERS) -> bool:
     """Parameters whose gradient is zero in exact arithmetic and rounding
     noise in bf16: the QA-head bias and the last LayerNorm bias (the
     start/end softmax gradients sum to zero over positions) and the key
-    biases (softmax ignores a per-row shift)."""
-    return (name in ("qa_head.bias", f"bert.layers.{BERT_LAYERS - 1}.ln_mlp.bias")
+    biases (softmax ignores a per-row shift).  ``layers``: the model's
+    depth."""
+    return (name in ("qa_head.bias", f"bert.layers.{layers - 1}.ln_mlp.bias")
             or name.endswith("attn.key.bias"))
 
 
@@ -654,7 +683,7 @@ def zero_launch_counts() -> None:
     flash_attention_bwd.launches_dq = flash_attention_bwd.launches_dkv = 0
 
 
-def run_training_path(seed: int, card: str, wd: str) -> tuple[dict, dict]:
+def run_training_path(seed: int, card: str, wd: str) -> tuple[dict, dict, dict]:
     """Fine-tune full-width BERT-base QA for ``TRAIN_STEPS`` steps through
     the port's cluster, checkpointing into ``<wd>/bert_model`` and
     exporting to ``<wd>/bert_export``; check each kernel launched 12 times
@@ -663,7 +692,9 @@ def run_training_path(seed: int, card: str, wd: str) -> tuple[dict, dict]:
     (:data:`TRAIN_TOL`), and that the same gate rejects a replay through
     the kernels with dK zeroed; then checkpoint the replay's live state
     (sync and async) and restore it on the CPU bit for bit.  Returns the
-    worker's launches of each kernel and the final weights (CPU)."""
+    worker's launches of each kernel, the final weights (CPU) and the
+    plain-attention replay (``losses``, final weights ``w_plain`` and
+    initial ones ``w0``, on the card), which phase 11 reuses."""
     import numpy as np
     import torch
 
@@ -767,7 +798,7 @@ def run_training_path(seed: int, card: str, wd: str) -> tuple[dict, dict]:
         raise SystemExit("the training gate does not see a zeroed dK")
     check_checkpoint("BERT-base + AdamW", live.state_dict(), os.path.join(wd, "bert_live"))
     del live
-    return launches, weights
+    return launches, weights, {"losses": plain, "w_plain": w_plain, "w0": w0}
 
 
 def _leaves(tree, path=()):
@@ -942,13 +973,14 @@ def weight_readings(w: dict, w_plain: dict, w0: dict) -> dict:
     Adam's bound, in units of ``lr x steps``."""
     import numpy as np
 
+    layers = 1 + max(int(n.split(".")[2]) for n in w_plain if n.startswith("bert.layers."))
     rel = {n: ((w[n] - p).norm() / (p - w0[n]).norm()).item()
-           for n, p in w_plain.items() if not zero_in_theory(n)}
+           for n, p in w_plain.items() if not zero_in_theory(n, layers)}
     worst = max(rel, key=rel.get)
     return {"max": rel[worst], "worst": worst, "median": float(np.median(list(rel.values()))),
             "params": len(rel),
             "noise": max((w[n] - p).abs().max().item() for n, p in w_plain.items()
-                         if zero_in_theory(n)) / (TRAIN_LR * TRAIN_STEPS)}
+                         if zero_in_theory(n, layers)) / (TRAIN_LR * TRAIN_STEPS)}
 
 
 # ------------------------------------------------------------------ ResNet
@@ -1325,6 +1357,455 @@ def run_mnist_training(seed: int, card: str, wd: str) -> dict:
 MNIST_EXPORT_TOL = 1e-5
 
 
+# --------------------------------------------------- pipeline and recovery
+
+#: phase 11's transform scores ``ROWS`` rows in this many partitions, one
+#: driver thread each (``TFModel`` runs at most 8 at once)
+TRANSFORM_PARTITIONS = 4
+TRANSFORM_TIMING_ROUNDS = 3
+
+
+def _bert_squad_args(seed: int, export_dir: str, config: dict, device: str):
+    """The port's ``bert_squad`` example flags for the QA model ``config``
+    at ``SEQ_LEN`` with the flash kernels, as phase 6 trains it."""
+    from tensorflowonspark_tpu_torch.examples.bert import bert_squad
+
+    flags = ["--bf16"] if config["dtype"] == "bfloat16" else []
+    flags += ["--cpu"] if device == "cpu" else []
+    return bert_squad.parser().parse_args(flags + [
+        "--vocab_size", str(config["vocab_size"]), "--hidden_size", str(config["hidden_size"]),
+        "--num_layers", str(config["num_layers"]), "--num_heads", str(config["num_heads"]),
+        "--max_position_embeddings", str(config["max_position_embeddings"]),
+        "--seq_len", str(SEQ_LEN), "--lr", str(TRAIN_LR), "--dropout", str(TRAIN_DROPOUT),
+        "--seed", str(seed), "--export_dir", export_dir, "--flash"])
+
+
+def run_pipeline_path(seed: int, card: str, wd: str, replay: dict, cfg=None,
+                      device: str = "cuda") -> dict:
+    """BASELINE config 3 as its users run it: ``TFEstimator(bert_squad.
+    train_fn).fit(df)`` over phase 6's rows (same seed, batches and step
+    generators) in one worker on the card, then ``TFModel.transform`` of
+    the 64 inference rows on the driver from the chief's export, one thread
+    a partition.  Gates: 12 launches of each kernel a step; every step's
+    loss and the checkpoint's final weights within :data:`TRAIN_TOL` of
+    phase 6's plain-attention ``replay``; 12 K1 launches a transform batch,
+    counted on the driver; the transform's logits bit-identical to the
+    export's signature called in one thread, and within :data:`EXPORT_TOL`
+    of the eager model of the checkpoint's weights, where a model whose
+    input mapping swaps the attention mask and the token types must fall
+    outside.  Returns the launches of each kernel in the fit (the
+    worker's) and in the transform (the driver's).  ``cfg`` (default
+    BERT-base) and ``device`` exist for a rehearsal on the CPU at a tiny
+    width, where the plain versions run and nothing is launched."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import bert_inference as bi
+    from tensorflowonspark_tpu_torch import bert_train as bt
+    from tensorflowonspark_tpu_torch import pipeline as pl
+    from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint
+    from tensorflowonspark_tpu_torch.dataframe import DataFrame, Row
+    from tensorflowonspark_tpu_torch.examples.bert import bert_squad
+    from tensorflowonspark_tpu_torch.ops import flash_attention
+
+    cfg = cfg or bi.BERT_BASE
+    layers = cfg["num_layers"] if device == "cuda" else 0   # launches a step or batch
+    cols = ("input_ids", "attention_mask", "token_type_ids", "start_position", "end_position")
+    rows = bt.make_train_rows(TRAIN_STEPS * BATCH_SIZE, SEQ_LEN, cfg["vocab_size"], seed)
+    df = DataFrame([Row(_fields=cols, _values=list(r)) for r in rows],
+                   num_partitions=TRANSFORM_PARTITIONS)
+    model_dir, export_dir = os.path.join(wd, "pipe_model"), os.path.join(wd, "pipe_export")
+    estimator = (pl.TFEstimator(bert_squad.train_fn,
+                                _bert_squad_args(seed, export_dir, cfg, device), device=device)
+                 .setClusterSize(1).setBatchSize(BATCH_SIZE).setSteps(TRAIN_STEPS).setEpochs(1)
+                 .setModelDir(model_dir).setExportDir(export_dir)
+                 .setInputMapping(bert_squad.INPUT_MAPPING)
+                 .setOutputMapping(bert_squad.OUTPUT_MAPPING))
+    zero_launch_counts()                   # counts start at 0 for the main path
+    t0 = time.perf_counter()
+    model = estimator.fit(df)
+    fit_s = time.perf_counter() - t0
+    with open(os.path.join(model_dir, "train_stats", "0.json")) as f:
+        st = json.load(f)
+    weights = restore_checkpoint(model_dir)["model"]
+    want = layers * TRAIN_STEPS
+    med = statistics.median(st["step_ms"][1:])
+    log(f"pipeline path: TFEstimator.fit of {len(st['losses'])} steps of {BATCH_SIZE} x "
+        f"{SEQ_LEN} in {fit_s:.2f} s wall (cluster boot, weights, steps, checkpoint, export, "
+        f"shutdown) on {st['device']}; median step {med:.2f} ms over steps 2..{TRAIN_STEPS} "
+        f"on {card}; worker launches {st['launches']} (expected {layers} x "
+        f"{TRAIN_STEPS} = {want} each)")
+    if len(st["losses"]) != TRAIN_STEPS or any(n != want for n in st["launches"].values()):
+        raise SystemExit("TFEstimator.fit did not go through every kernel once per layer "
+                         "and step")
+    r = weight_readings({n: t.to(device) for n, t in weights.items()}, replay["w_plain"],
+                        replay["w0"])
+    r["loss"] = max(abs(a - b) for a, b in zip(st["losses"], replay["losses"]))
+    ok = within(r, TRAIN_TOL)
+    log(f"pipeline path vs phase 6's plain-attention replay: losses "
+        f"{[round(x, 5) for x in st['losses']]} (max |diff| {r['loss']:.4g}); final weights "
+        f"max {r['max']:.4g} ({r['worst']}), median {r['median']:.4g}; zero-in-theory "
+        f"{r['noise']:.3g} x lr x steps; gate {TRAIN_TOL}: {'within' if ok else 'OUTSIDE'}")
+    if not ok:
+        raise SystemExit("TFEstimator.fit's losses or weights disagree with the replay")
+
+    # TFModel.transform on the driver, on the card, from threads
+    infer = bi.make_rows(ROWS, SEQ_LEN, cfg["vocab_size"], seed)
+    in_cols = list(bert_squad.INPUT_MAPPING)
+
+    def frame(parts):
+        return DataFrame([Row(_fields=in_cols, _values=list(r)) for r in infer],
+                         num_partitions=parts)
+
+    def spans(out) -> tuple:
+        got = out.collect()
+        return (np.stack([np.asarray(x.pred_start) for x in got]),
+                np.stack([np.asarray(x.pred_end) for x in got]))
+
+    df_64 = frame(TRANSFORM_PARTITIONS)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    got = spans(model.transform(df_64))
+    first_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    n_batches = ROWS // BATCH_SIZE
+    log(f"pipeline transform: {ROWS} rows in {TRANSFORM_PARTITIONS} partitions on the "
+        f"driver ({TRANSFORM_PARTITIONS} threads) in {first_s:.2f} s (export load included); "
+        f"driver K1 launches {launches} (expected {layers} x {n_batches} = "
+        f"{layers * n_batches})")
+    if launches != layers * n_batches:
+        raise SystemExit("TFModel.transform did not go through K1 once per layer and batch")
+    if got[0].shape != (ROWS, SEQ_LEN) or not (np.isfinite(got[0]).all()
+                                               and np.isfinite(got[1]).all()):
+        raise SystemExit(f"bad transform logits: shape {got[0].shape}")
+    sig = pl._load_model_cached(export_dir, "serve", device).signature()
+    direct = [sig(**{c: np.stack([r[i] for r in infer[b:b + BATCH_SIZE]])
+                     for i, c in enumerate(in_cols)}) for b in range(0, ROWS, BATCH_SIZE)]
+    direct = tuple(np.concatenate([pl._to_numpy(d[k]) for d in direct])
+                   for k in bert_squad.SERVE_OUTPUTS)
+    identical = all(np.array_equal(a, b) for a, b in zip(got, direct))
+    eager = bi.build_model({"config": cfg, "state_dict": weights}, torch.device(device), "flash")
+    with torch.inference_mode():
+        outs = [bi.forward_batch(eager, [np.stack([r[c] for r in infer[b:b + BATCH_SIZE]])
+                                         for c in range(3)], BATCH_SIZE, device)
+                for b in range(0, ROWS, BATCH_SIZE)]
+    want_eager = tuple(np.concatenate([o[j] for o in outs]) for j in range(2))
+    masks = np.stack([r[1] for r in infer]).astype(bool)
+    sound = export_readings(got, want_eager, masks)
+    swapped = model.copy({"input_mapping": {"input_ids": "input_ids",
+                                            "attention_mask": "token_type_ids",
+                                            "token_type_ids": "attention_mask"}})
+    fault = export_readings(spans(swapped.transform(df_64)), want_eager, masks)
+    for name, rr in (("transform (4 threads)", sound),
+                     ("transform with the mask and token types swapped (planted fault)", fault)):
+        log(f"pipeline {name} vs the eager model of the checkpoint's weights: max|logit "
+            f"diff| / max|logit| {rr['logits']:.3g}; identical argmax spans {rr['spans']:.3f}")
+    log(f"pipeline transform vs the signature called in one thread: "
+        f"{'bit-identical' if identical else 'DIFFERENT'}; export gate {EXPORT_TOL}: "
+        f"transform {'within' if within_export(sound) else 'OUTSIDE'}, planted fault "
+        f"{'outside' if not within_export(fault) else 'INSIDE'}")
+    if not identical:
+        raise SystemExit("TFModel.transform's logits differ from a one-thread call of the "
+                         "same export")
+    if not within_export(sound):
+        raise SystemExit("TFModel.transform's logits disagree with the eager model")
+    if within_export(fault):
+        raise SystemExit("the transform gate does not see swapped input columns")
+
+    turns = {TRANSFORM_PARTITIONS: [], 1: []}
+    frames = {TRANSFORM_PARTITIONS: df_64, 1: frame(1)}
+    for r in range(2 * TRANSFORM_TIMING_ROUNDS):
+        for parts in ((TRANSFORM_PARTITIONS, 1) if r % 2 == 0 else (1, TRANSFORM_PARTITIONS)):
+            t0 = time.perf_counter()
+            spans(model.transform(frames[parts]))
+            turns[parts].append(ROWS / (time.perf_counter() - t0))
+    log(f"pipeline transform rows/s on {card}, warm, in turns ({2 * TRANSFORM_TIMING_ROUNDS} "
+        f"each, {ROWS} rows of {SEQ_LEN}, batch {BATCH_SIZE}): {TRANSFORM_PARTITIONS} "
+        f"partitions run concurrently {statistics.median(turns[TRANSFORM_PARTITIONS]):.1f} "
+        f"(all {[round(x, 1) for x in turns[TRANSFORM_PARTITIONS]]}); one partition "
+        f"{statistics.median(turns[1]):.1f} (all {[round(x, 1) for x in turns[1]]})")
+    del eager
+    return {"fit": st["launches"], "transform": launches}
+
+
+#: phase 12's depth: full BERT-base width (hidden 768, 12 heads, T = 384,
+#: batch 16), 4 of its 12 layers, so that two cluster boots, 8 steps, two
+#: eval rounds and two in-process replays fit the run's time limit
+RECOVERY_LAYERS = 4
+RECOVERY = {"max_steps": 8, "save_every": 4, "throttle": 4, "eval_steps": 2, "kill_after": 6}
+
+
+def recovery_input_fn(pattern: str):
+    """``input_fn`` of phase 12: the SQuAD rows of the TFRecord files
+    ``pattern`` (``Dataset.from_examples``) in batches of ``BATCH_SIZE``,
+    as the step takes them (``bert_train.pad_batch``)."""
+    from tensorflowonspark_tpu_torch import bert_train as bt
+    from tensorflowonspark_tpu_torch.data import Dataset
+
+    cols = ("input_ids", "attention_mask", "token_type_ids", "start_position", "end_position")
+
+    def input_fn():
+        return (Dataset.from_examples(pattern)
+                .map(lambda ex: tuple(ex[c] for c in cols))
+                .batch(BATCH_SIZE, drop_remainder=True)
+                .map(lambda b: bt.pad_batch(b, BATCH_SIZE)))
+
+    return input_fn
+
+
+def recovery_estimator(args: dict, model_dir: str, loss_fn, device,
+                       checkpoint_input_state: bool = True):
+    """Phase 12's ``Estimator``: BERT QA of ``args["config"]`` (weights and
+    dropout generators from ``args["seed"]``), AdamW, a save every
+    ``RECOVERY["save_every"]`` steps, train scalars every step."""
+    from tensorflowonspark_tpu_torch import bert_train as bt
+    from tensorflowonspark_tpu_torch.estimator import Estimator
+    from tensorflowonspark_tpu_torch.parallel import DataParallelStrategy
+
+    model = bt.build_train_model({"config": args["config"], "seed": args["seed"],
+                                  "dropout": TRAIN_DROPOUT}, device, args["attention"])
+    return Estimator(model, loss_fn, bt.adamw(TRAIN_LR), model_dir,
+                     strategy=DataParallelStrategy(device, seed=args["seed"]),
+                     eval_metrics_fn=bt.squad_metrics,
+                     save_every_steps=RECOVERY["save_every"], log_every_steps=1,
+                     checkpoint_input_state=checkpoint_input_state)
+
+
+def recovery_specs(data_dir: str):
+    """Phase 12's ``(TrainSpec, EvalSpec)`` over the TFRecords under
+    ``data_dir`` (``train/`` and ``eval/``)."""
+    from tensorflowonspark_tpu_torch.estimator import EvalSpec, TrainSpec
+
+    return (TrainSpec(recovery_input_fn(os.path.join(data_dir, "train", "part-*")),
+                      RECOVERY["max_steps"]),
+            EvalSpec(recovery_input_fn(os.path.join(data_dir, "eval", "part-*")),
+                     steps=RECOVERY["eval_steps"], throttle_steps=RECOVERY["throttle"]))
+
+
+def recovery_train_fn(args: dict, ctx) -> None:
+    """Phase 12's worker: ``train_and_evaluate`` of :func:`recovery_estimator`
+    from the TFRecords under ``args["data_dir"]``.  The first attempt
+    (no sentinel file yet) writes the sentinel with its clock and exits
+    with ``os._exit(1)`` as step ``kill_after + 1`` begins, i.e. after step
+    ``kill_after``; the save at ``save_every`` is durable by then (the
+    train round that made it waited for it).  Appends its start step to
+    ``resume.<id>``, each checkpoint's save-returns and durable seconds to
+    ``ckpt_times.jsonl``, and writes ``recovery_stats.<id>.json`` (goodput,
+    the flash kernels' launches) when it finishes."""
+    from tensorflowonspark_tpu_torch import bert_train as bt
+    from tensorflowonspark_tpu_torch.estimator import train_and_evaluate
+    from tensorflowonspark_tpu_torch.util import resolve_device, strict_matmul_precision
+
+    device = resolve_device(args["device"])
+    strict_matmul_precision()
+    wd = ctx.working_dir
+    sentinel = os.path.join(wd, "killed")
+    holder = {}
+
+    def loss_fn(model, batch, rng=None):
+        if holder["est"].global_step == RECOVERY["kill_after"] and not os.path.exists(sentinel):
+            with open(sentinel, "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)
+        return bt.squad_loss(model, batch, rng)
+
+    launches0 = bt.kernel_launches()
+    est = recovery_estimator(args, args["model_dir"], loss_fn, device)
+    holder["est"] = est
+    with open(os.path.join(wd, f"resume.{ctx.executor_id}"), "a") as f:
+        f.write(f"{est.global_step}\n")
+    times = os.path.join(wd, "ckpt_times.jsonl")
+    save, wait, pending = est._ckpt.save, est._ckpt.wait, []
+
+    def timed_save(step, state, force=False):
+        t0 = time.perf_counter()
+        saved = save(step, state, force)
+        if saved:
+            pending.append((step, t0, time.perf_counter() - t0))
+        return saved
+
+    def timed_wait():
+        wait()
+        with open(times, "a") as f:
+            for step, t0, returned in pending:
+                f.write(json.dumps({"step": step, "save_returns_s": returned,
+                                    "durable_s": time.perf_counter() - t0}) + "\n")
+        pending.clear()
+
+    est._ckpt.save, est._ckpt.wait = timed_save, timed_wait
+    with est:
+        final = train_and_evaluate(est, *recovery_specs(args["data_dir"]))
+    with open(os.path.join(wd, f"recovery_stats.{ctx.executor_id}.json"), "w") as f:
+        json.dump({"final": final, "goodput": est.goodput(), "device": str(device),
+                   "launches": {k: n - launches0[k]
+                                for k, n in bt.kernel_launches().items()}}, f)
+
+
+def read_event_scalars(summary_dir: str) -> tuple[dict, dict]:
+    """``{(tag, step): value}`` over the event files of ``summary_dir``,
+    later files (a relaunch's) overriding earlier ones, and ``{(tag,
+    step): (file index, wall time)}`` of each kept value."""
+    from tensorflowonspark_tpu_torch.observability import read_scalars
+
+    values, origin = {}, {}
+    for i, name in enumerate(sorted(os.listdir(summary_dir))):
+        if name.startswith("events.out.tfevents."):
+            for wall, step, tag, value in read_scalars(os.path.join(summary_dir, name)):
+                values[(tag, step)] = value
+                origin[(tag, step)] = (i, wall)
+    return values, origin
+
+
+def run_estimator_recovery(seed: int, card: str, wd: str, cfg=None,
+                           device: str = "cuda") -> dict:
+    """The Estimator under ``run_with_recovery`` with one lost worker, at
+    full BERT-base width and :data:`RECOVERY_LAYERS` layers: write the
+    train and eval rows as TFRecords (``dfutil``), run
+    :func:`recovery_train_fn` in one worker (``InputMode.TENSORFLOW``); its
+    first attempt dies after step 6, the relaunch restores step 4 and its
+    input position and trains steps 5-8.  Gates: the latest step is 8 and
+    the relaunch started at 4; one classified ``crash`` event; train/loss
+    at steps 1-8 (5 from the relaunch) and eval/loss at 4 and 8 in the
+    event files; every step's loss and the final weights within
+    :data:`TRAIN_TOL` of an unbroken in-process replay through the plain
+    attention over the same records, where an in-process Estimator that
+    restarts the input at batch 0 after step 4 (``checkpoint_input_state=
+    False``) must fall outside; no shared-memory segment left behind.
+    Returns the relaunched worker's launches of each kernel.  ``cfg``
+    (default BERT-base cut to :data:`RECOVERY_LAYERS` layers) and
+    ``device`` exist for a rehearsal on the CPU at a tiny width."""
+    import torch
+
+    from tensorflowonspark_tpu_torch import bert_inference as bi
+    from tensorflowonspark_tpu_torch import bert_train as bt
+    from tensorflowonspark_tpu_torch import dfutil
+    from tensorflowonspark_tpu_torch.checkpoint import CheckpointManager, restore_checkpoint
+    from tensorflowonspark_tpu_torch.cluster import InputMode, run_with_recovery
+    from tensorflowonspark_tpu_torch.dataframe import DataFrame
+    from tensorflowonspark_tpu_torch.estimator import train_and_evaluate
+    from tensorflowonspark_tpu_torch.observability import EventLog
+    from tensorflowonspark_tpu_torch.parallel import DataParallelStrategy
+    from tensorflowonspark_tpu_torch.shm import SEG_PREFIX
+
+    cfg = cfg or {**bi.BERT_BASE, "num_layers": RECOVERY_LAYERS}
+    layers = cfg["num_layers"] if device == "cuda" else 0   # launches a step or batch
+    steps = RECOVERY["max_steps"]
+    data_dir = os.path.join(wd, "recovery_records")
+    cols = ("input_ids", "attention_mask", "token_type_ids", "start_position", "end_position")
+    for name, n, s in (("train", steps * BATCH_SIZE, seed),
+                       ("eval", RECOVERY["eval_steps"] * BATCH_SIZE, seed + 1)):
+        rows = bt.make_train_rows(n, SEQ_LEN, cfg["vocab_size"], s)
+        dfutil.saveAsTFRecords(DataFrame([dict(zip(cols, r)) for r in rows]),
+                               os.path.join(data_dir, name))
+    shm_before = {n for n in os.listdir("/dev/shm") if n.startswith(SEG_PREFIX)}
+    job_dir, model_dir = os.path.join(wd, "recovery_job"), os.path.join(wd, "recovery_model")
+    args = {"config": cfg, "seed": seed, "attention": "flash", "device": device,
+            "data_dir": data_dir, "model_dir": model_dir}
+    zero_launch_counts()                   # counts start at 0 for the main path
+    attempts = []
+    t0 = time.perf_counter()
+    run_with_recovery(recovery_train_fn, args, 1, max_restarts=1, backoff_base=0.1,
+                      input_mode=InputMode.TENSORFLOW, working_dir=job_dir,
+                      reservation_timeout=600, shutdown_timeout=900,
+                      on_restart=lambda attempt, exc, kind: attempts.append(kind))
+    wall = time.perf_counter() - t0
+    with open(os.path.join(job_dir, "recovery_stats.0.json")) as f:
+        st = json.load(f)
+    with open(os.path.join(job_dir, "resume.0")) as f:
+        starts = [int(x) for x in f.read().split()]
+    with open(os.path.join(job_dir, "killed")) as f:
+        killed_at = float(f.read())
+    with open(os.path.join(job_dir, "ckpt_times.jsonl")) as f:
+        ckpts = [json.loads(line) for line in f]
+    crashes = [e for e in EventLog.read(os.path.join(job_dir, "health_events.jsonl"))
+               if e["kind"] == "crash"]
+    with CheckpointManager(model_dir) as mngr:
+        latest = mngr.latest_step()
+    values, origin = read_event_scalars(os.path.join(model_dir, "tensorboard"))
+    train_steps = sorted(s for tag, s in values if tag == "train/loss")
+    eval_steps = sorted(s for tag, s in values if tag == "eval/loss")
+    relaunch_file = origin[("train/loss", steps)][0]
+    first_step_wall = min(w for (tag, s), (i, w) in origin.items()
+                          if tag == "train/loss" and i == relaunch_file)
+    detect = crashes[0]["t"] - killed_at if crashes else float("nan")
+    shm_left = {n for n in os.listdir("/dev/shm") if n.startswith(SEG_PREFIX)} - shm_before
+    log(f"recovery path: run_with_recovery of the Estimator (BERT QA, hidden "
+        f"{cfg['hidden_size']}, {cfg['num_layers']} layers, T {SEQ_LEN}, batch {BATCH_SIZE}) in "
+        f"{wall:.2f} s wall on {st['device']}; restarts {attempts}; attempts started at "
+        f"steps {starts}; latest step {latest}; crash events {len(crashes)}; relaunched "
+        f"worker launches {st['launches']}; shm segments left {sorted(shm_left)}")
+    log(f"recovery path on {card}: detection latency {detect:.3f} s (the worker's exit to the "
+        f"classified crash event); restart to first step {first_step_wall - crashes[0]['t']:.3f} "
+        f"s (the event to the relaunch's first completed step, its train/loss event); "
+        f"checkpoints {ckpts}")
+    log(f"recovery path goodput (the relaunched worker's Estimator): {st['goodput']}")
+    train_launches = layers * (steps - RECOVERY["save_every"])
+    want = {"flash_attention_fwd": train_launches + layers * RECOVERY["eval_steps"],
+            "flash_attention_dq": train_launches, "flash_attention_dkv": train_launches}
+    if not (latest == steps and starts == [0, RECOVERY["save_every"]] and attempts == ["crash"]
+            and len(crashes) == 1):
+        raise SystemExit("the Estimator did not relaunch once from its step-4 checkpoint "
+                         "after one classified crash")
+    if train_steps != list(range(1, steps + 1)) or eval_steps != [RECOVERY["throttle"], steps] \
+            or origin[("train/loss", RECOVERY["save_every"] + 1)][0] != relaunch_file:
+        raise SystemExit(f"the event files lack a curve point: train {train_steps}, eval "
+                         f"{eval_steps}")
+    if st["launches"] != want:
+        raise SystemExit(f"the relaunched worker's kernel launches {st['launches']} are not "
+                         f"{want}")
+    if shm_left:
+        raise SystemExit(f"the relaunch left shared-memory segments: {sorted(shm_left)}")
+
+    # an unbroken in-process replay through the plain attention, one pass
+    # over the same records with the same generators
+    device = torch.device(device)
+    strategy = DataParallelStrategy(device, seed=seed)
+    state = strategy.init_state(bt.build_train_model(
+        {"config": cfg, "seed": seed, "dropout": TRAIN_DROPOUT}, device, "reference"),
+        bt.adamw(TRAIN_LR))
+    w0 = {n: t.detach().clone() for n, t in state.module.state_dict().items()}
+    step = strategy.build_train_step(bt.squad_loss)
+    plain = []
+    for b in recovery_specs(data_dir)[0].input_fn():
+        state, m = step(state, strategy.shard_batch(b))
+        plain.append(float(m["loss"]))
+    w_plain = state.module.state_dict()
+    losses = [values[("train/loss", s)] for s in range(1, steps + 1)]
+    weights = {n: t.to(device) for n, t in restore_checkpoint(model_dir)["model"].items()}
+
+    # the planted fault: the same relaunch in process, without the input position
+    fault_dir = os.path.join(wd, "recovery_fault")
+    train_spec, eval_spec = recovery_specs(data_dir)
+    with recovery_estimator(args, fault_dir, bt.squad_loss, device) as est:
+        est.train(train_spec.input_fn, RECOVERY["save_every"])
+    with recovery_estimator(args, fault_dir, bt.squad_loss, device,
+                            checkpoint_input_state=False) as est:
+        train_and_evaluate(est, train_spec, eval_spec)
+    fvalues, _ = read_event_scalars(os.path.join(fault_dir, "tensorboard"))
+    fault_losses = [fvalues[("train/loss", s)] for s in range(1, steps + 1)]
+    fault_w = {n: t.to(device) for n, t in restore_checkpoint(fault_dir)["model"].items()}
+    verdict = {}
+    for name, ls, w in (("relaunched worker", losses, weights),
+                        ("input restarted at batch 0 (planted fault)", fault_losses, fault_w)):
+        r = weight_readings(w, w_plain, w0)
+        r["loss"] = max(abs(a - b) for a, b in zip(ls, plain))
+        verdict[name] = within(r, TRAIN_TOL)
+        log(f"recovery path, {name} vs the unbroken replay: losses {[round(x, 5) for x in ls]} "
+            f"(max |diff| {r['loss']:.4g}); final weights max {r['max']:.4g} ({r['worst']}), "
+            f"median {r['median']:.4g}; zero-in-theory {r['noise']:.3g} x lr x steps")
+    log(f"recovery path, replay losses {[round(x, 5) for x in plain]}; gate {TRAIN_TOL}: "
+        f"relaunch {'within' if verdict['relaunched worker'] else 'OUTSIDE'}, planted fault "
+        f"{'outside' if not verdict['input restarted at batch 0 (planted fault)'] else 'INSIDE'}")
+    if not verdict["relaunched worker"]:
+        raise SystemExit("the relaunched Estimator's losses or weights disagree with the "
+                         "unbroken replay")
+    if verdict["input restarted at batch 0 (planted fault)"]:
+        raise SystemExit("the recovery gate does not see an input restarted at batch 0")
+    del state, w_plain, w0, weights, fault_w
+    return st["launches"]
+
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0, help="weights and data seed")
@@ -1407,44 +1888,67 @@ def main() -> int:
             f"dq + dkv {t['bwd']:.6f} ms vs SDPA backward {t['sdpa_bwd']:.6f} ms")
     flash["padded_head_dims"] = padded
 
+    phase_s = {"1-3 device, build, kernels": time.perf_counter() - t_start}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         # 4. model gradients through the kernels against the plain versions
-        check_model_grads(args.seed)
+        timed("4 model gradients", check_model_grads, args.seed)
 
         # 5. the inference main path (forward kernel only)
-        inference = run_main_path(args.seed, card, ROWS, BATCH_SIZE)
+        inference = timed("5 inference", run_main_path, args.seed, card, ROWS, BATCH_SIZE)
 
         # 6. the training main path (all three kernels), checkpoint and export
-        training, weights = run_training_path(args.seed, card, wd)
+        training, weights, replay = timed("6 training", run_training_path, args.seed, card, wd)
 
         # 6b. serving from the training path's export (K1 inside the program)
-        export_serving = run_export_serving(args.seed, card, wd, weights)
+        export_serving = timed("6b export serving", run_export_serving, args.seed, card, wd,
+                               weights)
         del weights
 
         # 7. ResNet-50 on the card against the port's CPU path
-        check_resnet_grads(args.seed)
+        timed("7 ResNet-50 gradients", check_resnet_grads, args.seed)
 
         # 8. ResNet-50 from TFRecords with a resume (TENSORFLOW mode, no kernel of the repo)
-        resnet = run_resnet_training(args.seed, card, wd)
+        resnet = timed("8 ResNet-50 training", run_resnet_training, args.seed, card, wd)
 
         # 9. MNIST from TFRecords, with its exports (SPARK mode, no kernel of the repo)
-        mnist = run_mnist_training(args.seed, card, wd)
+        mnist = timed("9 MNIST", run_mnist_training, args.seed, card, wd)
+
+        # 11. BASELINE config 3 through the pipeline: TFEstimator.fit -> TFModel.transform
+        pipeline = timed("11 pipeline", run_pipeline_path, args.seed, card, wd, replay)
+        del replay
+
+        # 12. the Estimator under run_with_recovery, one lost worker
+        recovery = timed("12 recovery", run_estimator_recovery, args.seed, card, wd)
 
     # 10. the bench
     from tensorflowonspark_tpu_torch import bench_resnet
 
+    t0 = time.perf_counter()
     print(json.dumps(bench_resnet.bench(seed=args.seed)), flush=True)
+    phase_s["10 bench"] = time.perf_counter() - t0
 
-    flash["launches"] = training["flash_attention_fwd"]
+    flash["launches"] = pipeline["fit"]["flash_attention_fwd"]
     flash["launches_by_path"] = {"inference": inference,
                                  "training": training["flash_attention_fwd"],
-                                 "export_serving": export_serving}
+                                 "export_serving": export_serving,
+                                 "pipeline_transform": pipeline["transform"]}
     for e in (dq, dkv):
-        e["launches"] = training[e["name"]]
+        e["launches"] = pipeline["fit"][e["name"]]
         e["launches_by_path"] = {"training": training[e["name"]]}
     for e in (flash, dq, dkv):
         e["launches_by_path"].update({"resnet_training": resnet[e["name"]],
-                                      "mnist_training": mnist[e["name"]]})
+                                      "mnist_training": mnist[e["name"]],
+                                      "pipeline_training": pipeline["fit"][e["name"]],
+                                      "estimator_recovery": recovery[e["name"]]})
+    log("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [flash, dq, dkv]}))
     print(card)

@@ -76,17 +76,24 @@ def pad_batch(batch, batch_size: int) -> tuple:
             padded(starts, np.int64), padded(ends, np.int64), w)
 
 
-def squad_loss(model, batch, rng=None):
+def squad_loss(model, batch, rng=None, train: bool = True):
     """The example's loss: ``(CE(start) + CE(end)) * w`` summed, over
     ``max(sum(w), 1)``, over 2.  ``rng`` is the strategy's per-step
-    generator, from which dropout draws its masks."""
+    generator, from which dropout draws its masks; ``train=False`` runs
+    without dropout."""
     import torch.nn.functional as F
 
     ids, mask, types, starts, ends, w = batch
-    start_logits, end_logits = model(ids, mask, types, train=True, rng=rng)
+    start_logits, end_logits = model(ids, mask, types, train=train, rng=rng)
     ce = (F.cross_entropy(start_logits, starts, reduction="none")
           + F.cross_entropy(end_logits, ends, reduction="none"))
     return (ce * w).sum() / w.sum().clamp_min(1.0) / 2.0
+
+
+def squad_metrics(model, batch) -> dict:
+    """Eval metrics for an ``Estimator``: :func:`squad_loss` without
+    dropout, so evaluation draws no random masks."""
+    return {"loss": squad_loss(model, batch, train=False)}
 
 
 def adamw(lr: float):
@@ -128,14 +135,16 @@ SERVE_INPUTS = ("input_ids", "attention_mask", "token_type_ids")
 SERVE_OUTPUTS = ("start_logits", "end_logits")
 
 
-def export(export_dir: str, model, seq_len: int, is_chief: bool = True):
+def export(export_dir: str, model, seq_len: int, is_chief: bool = True,
+           output_names=SERVE_OUTPUTS):
     """Write ``model``'s QA serving export (:func:`serve_fn`) for
-    sequences of ``seq_len``, any batch size; only the chief writes."""
+    sequences of ``seq_len``, any batch size, its two outputs named
+    ``output_names``; only the chief writes."""
     from tensorflowonspark_tpu_torch.checkpoint import export_model
 
     example = [np.zeros((2, seq_len), np.int32) for _ in SERVE_INPUTS]
     return export_model(export_dir, serve_fn(model), model.state_dict(), example,
-                        input_names=SERVE_INPUTS, output_names=SERVE_OUTPUTS,
+                        input_names=SERVE_INPUTS, output_names=output_names,
                         is_chief=is_chief)
 
 

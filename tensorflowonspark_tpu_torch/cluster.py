@@ -15,7 +15,11 @@ The driver never initialises CUDA: workers are spawned (not forked) and
 each applies its ``worker_env`` (``CUDA_VISIBLE_DEVICES`` for instance)
 before its ``map_fun`` first touches ``torch.cuda``.
 
-Not ported yet (ROADMAP queue A): ``run_with_recovery``, live membership
+:func:`run_with_recovery` is the driver loop that relaunches the whole
+job after a worker failure; the user's ``map_fun`` resumes from its
+latest checkpoint.
+
+Not ported yet (ROADMAP queue A): live membership
 (``add_workers``/``retire_worker``), the agent backend, TensorBoard, the
 submit-time payload preflight and the ``/metrics`` HTTP endpoint.
 """
@@ -163,7 +167,7 @@ class TPUCluster:
     def run(cls, map_fun, tf_args, num_workers: int, num_ps: int = 0,
             input_mode: int = InputMode.SPARK,
             master_node: str | None = None, eval_node: bool = False,
-            reservation_timeout: float = 600.0,
+            driver_ps_nodes: bool = False, reservation_timeout: float = 600.0,
             queues=DEFAULT_QUEUES, backend=None, worker_env: dict | None = None,
             working_dir: str | None = None, queue_depth: int = 64,
             default_fs: str = "", queue_shm: bool | None = None,
@@ -185,6 +189,16 @@ class TPUCluster:
         cluster is aborted instead of wedging until the shutdown timeout.
         """
         assert num_workers > 0, "need at least one worker"
+        if driver_ps_nodes:
+            # Reference semantics (TFCluster.py::run): host the gRPC ps
+            # servers in the driver instead of executors.  No node runs a
+            # parameter server here ('ps' is a role label; DDP replicates
+            # the parameters), so there is nothing to move onto the driver.
+            raise ValueError(
+                "driver_ps_nodes=True has no equivalent here: 'ps' nodes are a "
+                "role label and parameters are replicated by the data-parallel "
+                "strategy, so ps processes cannot be hosted on the driver.  "
+                "Drop the flag.")
         cluster_template = _build_cluster_template(
             num_workers, num_ps, master_node, eval_node)
         logger.info("cluster template: %s", cluster_template)
@@ -457,10 +471,15 @@ class TPUCluster:
         self.server.stop()
         _raise_worker_errors(self.working_dir, self.cluster_meta["num_workers"])
         if monitor_failure is not None:
-            raise monitor_failure
+            # no crash file (SIGKILL / hang) but the monitor classified the
+            # failure: surface it, with the implicated workers' log tails
+            # when the backend can serve them
+            raise _with_log_tails(monitor_failure, self.backend)
         failed = self.backend.failed() if finished else []
         if failed:
-            raise RuntimeError(f"worker(s) {failed} exited with nonzero status")
+            detail = _log_tail_detail(self.backend, failed) or "<no logs>"
+            raise RuntimeError(
+                f"worker(s) {failed} exited with nonzero status:\n{detail}")
         if not finished:
             raise TimeoutError(f"cluster shutdown timed out after {timeout}s")
 
@@ -480,7 +499,192 @@ class TPUCluster:
             self.server.stop()
 
 
+def run_with_recovery(map_fun, tf_args, num_workers: int, *,
+                      max_restarts: int = 2, data=None, num_epochs: int = 1,
+                      input_mode: int = InputMode.TENSORFLOW,
+                      shutdown_timeout: float = 259200.0,
+                      backoff_base: float = 1.0, backoff_cap: float = 30.0,
+                      restart_budget: tuple[int, float] | None = None,
+                      retry_policy=None, on_restart=None, driver_fn=None,
+                      **run_kwargs) -> None:
+    """Run a cluster job to completion, relaunching after worker failures.
+
+    The reference has NO elasticity (SURVEY.md §5): a retried TF node cannot
+    rejoin a wedged cluster, so its documented recovery model is whole-job
+    restart + resume from checkpoints — which Spark's driver performed by
+    rerunning the job.  This is that driver loop: on worker failure the
+    whole cluster is torn down and relaunched, and the user's ``map_fun``
+    resumes from its latest checkpoint exactly as it would after a
+    preemption (the ``CheckpointManager.latest_step()``-then-``restore``
+    pattern, see ``resnet_train.py``).
+
+    Failure *detection* comes from the per-cluster
+    :class:`~tensorflowonspark_tpu_torch.health.ClusterMonitor` (on by default via
+    ``TPUCluster.run``): crashes and stale-heartbeat hangs abort the attempt
+    within seconds and arrive here as classified
+    :class:`~tensorflowonspark_tpu_torch.health.ClusterFailure` s.  The restart
+    decision then follows ``health.classify_restart`` — deterministic user
+    errors (e.g. a ``ValueError`` out of the map_fun's first step) are NOT
+    retried, infra failures (crash/hang/preemption/socket/timeout) always
+    are — overridable via ``retry_policy(exc, kind) -> bool``.  Relaunches
+    wait ``health.backoff_delay`` (exponential from ``backoff_base`` capped
+    at ``backoff_cap``, with jitter), and ``restart_budget=(R, T)`` bounds
+    the restart *rate* to R per sliding T seconds on top of the per-job
+    ``max_restarts``.  Exhausting the budget emits a classified
+    ``budget_exhausted`` event to the job's health ``EventLog`` and a
+    ``tfos_restarts_total{kind="budget_exhausted"}`` count before
+    re-raising, so "gave up" is observable as distinct from "still
+    retrying".  ``on_restart(attempt, exc, kind)`` runs before each
+    relaunch (metrics, cache-warming, paging).
+
+    ``data``/``num_epochs`` replay the InputMode.SPARK feed on every
+    attempt (idempotence is the map_fun's contract, as it was with Spark
+    task retries); TENSORFLOW mode needs neither.
+
+    ``driver_fn(cluster)`` replaces the built-in feed as each attempt's
+    driver phase: it runs after every node registered and before
+    ``shutdown``, and its exceptions are classified for the restart
+    decision like any other failure.  It may return a set of executor
+    ids whose failures it already handled in-flight (e.g. a dead
+    worker whose shards were reassigned to survivors): those workers'
+    nonzero exits are then tolerated at shutdown instead of burning a
+    restart on an already-healed death.
+
+    Raises the final failure once retries are exhausted or a failure
+    classifies as no-retry.
+    """
+    budget = None
+    if restart_budget is not None:
+        budget = tpu_health.RestartBudget(*restart_budget)
+    # one working dir for ALL attempts: chaos once-per-job sentinels, the
+    # health event log, and post-mortem crash files must survive relaunches
+    # (TPUCluster.run would otherwise mkdtemp a fresh dir per attempt; it
+    # already clears stale error files when reusing a dir)
+    if run_kwargs.get("working_dir") is None:
+        run_kwargs["working_dir"] = tempfile.mkdtemp(prefix="tfos_torch_job_")
+    restarts_total = tpu_metrics.get_registry().counter(
+        "tfos_restarts_total",
+        "Cluster relaunches performed by run_with_recovery, by failure "
+        "kind.", labelnames=("kind",))
+    attempt = 0
+    while True:
+        cluster = None
+        try:
+            # inside the try: a relaunch's BOOTSTRAP can fail too (agents
+            # still re-provisioning after a preemption) and must be retried
+            cluster = TPUCluster.run(map_fun, tf_args, num_workers,
+                                     input_mode=input_mode, **run_kwargs)
+            handled = None
+            if driver_fn is not None:
+                handled = driver_fn(cluster)
+            elif input_mode == InputMode.SPARK and data is not None:
+                cluster.train(data, num_epochs)
+            try:
+                cluster.shutdown(timeout=shutdown_timeout)
+            except Exception as shutdown_exc:
+                # the driver_fn handled-workers contract (see docstring):
+                # a death it already healed must not fail the attempt at
+                # shutdown — but only when EVERY failed worker was handled
+                failed: set[int] = set()
+                with contextlib.suppress(Exception):
+                    failed = set(cluster.backend.failed())
+                if not (handled and failed and failed <= set(handled)):
+                    raise
+                logger.warning(
+                    "tolerating worker exit(s) %s already handled by "
+                    "driver_fn: %s", sorted(failed), shutdown_exc)
+            return
+        except Exception as e:
+            if cluster is not None:
+                cluster._abort()
+            kind = tpu_health.classify_failure(e)
+            retry = (retry_policy(e, kind) if retry_policy is not None
+                     else tpu_health.classify_restart(kind))
+            if not retry:
+                logger.error(
+                    "cluster failed with a no-retry %s error (%s); a restart "
+                    "would fail identically — raising", kind, type(e).__name__)
+                raise
+            attempt += 1
+            if attempt > max_restarts:
+                logger.error("giving up after %d restart(s)", max_restarts)
+                raise
+            if budget is not None and not budget.allow():
+                # "gave up" must be tellable from "still retrying": a
+                # classified event in the job's health log + a terminal
+                # restart-counter kind, BEFORE the re-raise
+                logger.error(
+                    "restart budget exhausted (%d restarts within %.0fs); "
+                    "raising", restart_budget[0], restart_budget[1])
+                restarts_total.inc(kind=tpu_health.BUDGET_EXHAUSTED)
+                _emit_health_event(
+                    run_kwargs.get("working_dir"),
+                    tpu_health.BUDGET_EXHAUSTED,
+                    failure_kind=kind, attempt=attempt,
+                    max_restarts=restart_budget[0],
+                    window_secs=restart_budget[1])
+                raise
+            restarts_total.inc(kind=kind)
+            delay = tpu_health.backoff_delay(attempt, backoff_base, backoff_cap)
+            logger.warning(
+                "cluster attempt %d/%d failed [%s] (%s: %s); relaunching in "
+                "%.1fs — map_fun resumes from its latest checkpoint",
+                attempt, max_restarts, kind, type(e).__name__,
+                str(e).splitlines()[0] if str(e) else "", delay)
+            if on_restart is not None:
+                on_restart(attempt, e, kind)
+            time.sleep(delay)
+
+
 # -- helpers ---------------------------------------------------------------
+
+def _emit_health_event(working_dir, kind: str, **fields) -> None:
+    """Append one classified event to the job's ``health_events.jsonl``
+    from the DRIVER loop (the per-cluster monitor that usually owns the
+    log is already torn down when run_with_recovery gives up)."""
+    if not working_dir:
+        return
+    with contextlib.suppress(Exception):
+        from tensorflowonspark_tpu_torch import observability
+
+        log = observability.EventLog(
+            os.path.join(working_dir, "health_events.jsonl"))
+        try:
+            log.emit(kind, **fields)
+        finally:
+            log.close()
+
+
+def _log_tail_detail(backend, failed: list) -> str:
+    """The implicated workers' captured log tails, formatted for an error
+    message (''/empty when the backend cannot serve logs)."""
+    fetch = getattr(backend, "fetch_logs", None)
+    if not failed or fetch is None:
+        return ""
+    try:
+        logs = fetch(failed)
+    except Exception:
+        logger.debug("could not fetch worker log tails from backend",
+                     exc_info=True)
+        return ""
+    if not logs:
+        return ""
+    return "\n".join(
+        f"--- executor {i} log tail ---\n"
+        f"{logs.get(i, '<no log available on driver>')}" for i in failed)
+
+
+def _with_log_tails(failure: "tpu_health.ClusterFailure", backend):
+    """Append the implicated workers' captured log tails to a classified
+    failure, keeping its kind/workers/detected_at intact."""
+    detail = _log_tail_detail(backend, list(failure.failed_workers))
+    if not detail:
+        return failure
+    enriched = tpu_health.ClusterFailure(
+        failure.kind, f"{failure}\n{detail}", failure.failed_workers)
+    enriched.detected_at = failure.detected_at
+    return enriched
+
 
 def _build_cluster_template(num_workers: int, num_ps: int,
                             master_node: str | None, eval_node: bool) -> dict:

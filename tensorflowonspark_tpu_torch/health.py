@@ -29,9 +29,12 @@ false-positive the watchdog.  The hang watchdog only arms once a node has
 reported at least one step — a long first kernel build or model load
 before step 1 must not be mistaken for a wedge.
 
-The JAX package's restart-policy helpers (``classify_failure``,
-``backoff_delay``, ``RestartBudget``) serve ``run_with_recovery`` and are
-not ported yet.
+Restart policy helpers (:func:`classify_failure`, :func:`classify_restart`,
+:func:`backoff_delay`, :class:`RestartBudget`) back the
+``cluster.run_with_recovery`` loop: deterministic user errors (a
+``ValueError`` out of the map_fun's first step) are not retried, infra
+failures always are, with exponential backoff + jitter inside a
+max-R-restarts-per-T-seconds budget window.
 """
 
 from __future__ import annotations
@@ -39,9 +42,12 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import random
+import re
 import signal
 import threading
 import time
+from collections import deque
 
 from tensorflowonspark_tpu_torch import metrics as tpu_metrics
 from tensorflowonspark_tpu_torch import observability
@@ -51,10 +57,34 @@ logger = logging.getLogger(__name__)
 
 HEARTBEAT_KEY = "heartbeat"
 
-# Failure kinds a ClusterFailure can carry.
+# Failure kinds a ClusterFailure / classify_failure can carry.
 CRASH = "crash"            # worker process exited nonzero / was killed
 HANG = "hang"              # heartbeat stale or step progress stalled
 PREEMPTION = "preemption"  # SIGTERM-shaped exit (spot/preemptible reclaim)
+USER = "user"              # deterministic error raised by the map_fun
+INFRA = "infra"            # everything environmental (sockets, timeouts...)
+#: terminal outcome kind: ``run_with_recovery``'s sliding-window restart
+#: budget overflowed — the driver GAVE UP (emitted to the health
+#: EventLog and as ``tfos_restarts_total{kind="budget_exhausted"}``
+#: before the final re-raise, so operators can tell "gave up" from
+#: "still retrying")
+BUDGET_EXHAUSTED = "budget_exhausted"
+
+# Exception types that mean "the user's code is wrong and will be wrong
+# again on the next attempt" — retrying burns the restart budget for
+# nothing.  Matched by *name* against worker tracebacks, which arrive as
+# text (cluster._raise_worker_errors re-raises crash files).
+_NO_RETRY_ERRORS = frozenset({
+    "ValueError", "TypeError", "KeyError", "IndexError", "AttributeError",
+    "AssertionError", "ZeroDivisionError", "NotImplementedError",
+    "ImportError", "ModuleNotFoundError", "NameError",
+    # submit-time payload rejection (analysis.preflight): deterministic —
+    # the same payload fails identically on every attempt
+    "PreflightError",
+})
+
+_TB_ERROR_RE = re.compile(r"^([A-Za-z_][\w.]*(?:Error|Exception|Interrupt))\b",
+                          re.MULTILINE)
 
 
 class ClusterFailure(RuntimeError):
@@ -585,3 +615,60 @@ class ClusterMonitor:
         if self.events is not None:
             with contextlib.suppress(Exception):
                 self.events.emit(kind, **fields)
+
+
+# ------------------------------------------------------ restart policy
+
+def classify_failure(exc: BaseException) -> str:
+    """Map a failed attempt's exception to a failure kind.
+
+    ``ClusterFailure`` carries its own kind; worker tracebacks (the
+    ``RuntimeError`` text re-raised from crash files) are scanned for the
+    exception types they contain — deterministic user errors classify
+    ``user``, anything environmental classifies ``infra``.
+    """
+    if isinstance(exc, ClusterFailure):
+        return exc.kind
+    if isinstance(exc, (ConnectionError, EOFError, TimeoutError)):
+        return INFRA
+    found = _TB_ERROR_RE.findall(str(exc))
+    if found and all(name.rsplit(".", 1)[-1] in _NO_RETRY_ERRORS
+                     for name in found):
+        return USER
+    if type(exc).__name__ in _NO_RETRY_ERRORS and not found:
+        return USER
+    return INFRA
+
+
+def classify_restart(kind: str) -> bool:
+    """Should ``run_with_recovery`` relaunch after a ``kind`` failure?
+    Deterministic user errors fail the same way every attempt — everything
+    else (crash/hang/preemption/infra) is worth a restart."""
+    return kind != USER
+
+
+def backoff_delay(attempt: int, base: float = 1.0, cap: float = 30.0) -> float:
+    """Exponential backoff with jitter for restart ``attempt`` (1-based):
+    ``min(cap, base * 2**(attempt-1))`` scaled by uniform(0.5, 1.0), so
+    simultaneous restarting drivers don't stampede a recovering service."""
+    d = min(float(cap), float(base) * (2.0 ** max(0, attempt - 1)))
+    return d * random.uniform(0.5, 1.0)
+
+
+class RestartBudget:
+    """Sliding-window restart budget: at most ``max_restarts`` restarts in
+    any ``window_secs`` span.  A crash loop that respects per-attempt
+    limits can still burn quota forever; the window bounds the *rate*."""
+
+    def __init__(self, max_restarts: int, window_secs: float):
+        self.max_restarts = int(max_restarts)
+        self.window_secs = float(window_secs)
+        self._times: deque[float] = deque()
+
+    def allow(self, now: float | None = None) -> bool:
+        """Record a restart at ``now``; False once the window overflows."""
+        now = time.monotonic() if now is None else now
+        self._times.append(now)
+        while self._times and now - self._times[0] > self.window_secs:
+            self._times.popleft()
+        return len(self._times) <= self.max_restarts

@@ -74,6 +74,9 @@ MAX_HEAD_DIM = 128
 
 _libs = None
 _lib_lock = threading.Lock()
+#: guards the launch counts: several threads may serve one exported
+#: program at once, and ``x += 1`` on an attribute is not atomic
+_count_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -397,7 +400,8 @@ def _fwd_padded(q, k, v, mask, causal, scale, window):
     to the kernel's width."""
     D = q.shape[3]
     out, lse = _fwd_launch(*_pad_head(D, q, k, v), mask, causal, scale, window)
-    flash_attention.launches += 1
+    with _count_lock:
+        flash_attention.launches += 1
     return _cut_head(D, out)[0], lse
 
 
@@ -497,7 +501,8 @@ def _dq_padded(q, k, v, mask, dout, lse, delta, causal, scale, window):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("tfos_flash_attention_bwd_dq", (dq,), q, k, v, mask, dout, lse, delta,
                 causal, scale, window)
-    flash_attention_bwd.launches_dq += 1
+    with _count_lock:
+        flash_attention_bwd.launches_dq += 1
     return _cut_head(D, dq)[0]
 
 
@@ -525,7 +530,8 @@ def _dkv_padded(q, k, v, mask, dout, lse, delta, causal, scale, window):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("tfos_flash_attention_bwd_dkv", (dk, dv), q, k, v, mask, dout, lse,
                 delta, causal, scale, window)
-    flash_attention_bwd.launches_dkv += 1
+    with _count_lock:
+        flash_attention_bwd.launches_dkv += 1
     return _cut_head(D, dk, dv)
 
 

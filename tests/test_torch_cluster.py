@@ -175,7 +175,9 @@ def test_port_imports_no_jax_nor_the_jax_package():
     assert "tensorflowonspark_tpu_torch.parallel.strategy" in report["imported"]
     for name in ("models.resnet", "models.mnist", "data", "device_info", "gpu_info",
                  "resnet_train", "mnist_train", "bench_resnet", "filesystem", "tfrecord",
-                 "example_proto", "dataframe", "dfutil", "preemption", "checkpoint"):
+                 "example_proto", "dataframe", "dfutil", "preemption", "checkpoint",
+                 "pipeline", "estimator", "examples.mnist.mnist_pipeline",
+                 "examples.mnist.mnist_estimator", "examples.bert.bert_squad"):
         assert f"tensorflowonspark_tpu_torch.{name}" in report["imported"], name
     assert [m for m in report["new"] if _forbidden(m)] == []
 
@@ -216,7 +218,10 @@ def test_root_exports_what_the_reference_root_exports_for_ported_modules():
     names = {name for _, name in expected}
     assert {"Dataset", "device_prefetch", "DataFrame", "Row", "CheckpointManager",
             "ExportedModel", "export_model", "save_checkpoint", "restore_checkpoint",
-            "PreemptionGuard", "TPUCluster", "InputMode", "DataFeed", "NodeContext"} <= names
+            "PreemptionGuard", "TPUCluster", "InputMode", "DataFeed", "NodeContext",
+            "run_with_recovery", "Estimator", "EvalSpec", "TrainSpec", "train_and_evaluate",
+            "Namespace", "Pipeline", "ParamGridBuilder", "TFEstimator", "TFModel",
+            "TrainValidationSplit", "CrossValidator"} <= names
     code = (
         "import importlib, json, sys\n"
         "import tensorflowonspark_tpu_torch as p\n"

@@ -1,7 +1,8 @@
 """The checkpoint and export slice on the card: padded head dims through
 the flash kernels, export → load → serve of a small BERT with the flash
-forward inside the exported program, and a checkpoint written on the card
-restored on the CPU.
+forward inside the exported program, ``TFModel.transform`` of that export
+on the card from several driver threads, and a checkpoint written on the
+card restored on the CPU.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without one.
 The file imports neither JAX nor the JAX package:
@@ -13,8 +14,9 @@ Tolerances: the padded head dims are held to the plain versions as
 ``atol=2e-2``; gradients ``2e-2`` of each gradient's largest magnitude).
 The exported program runs the eager model's operations and kernels, so its
 logits are held to the eager model's at ``1e-5`` of the largest logit
-(float32 layers, bf16 attention: only launch-order effects).  Checkpoints
-restore bit for bit.
+(float32 layers, bf16 attention: only launch-order effects).  The
+transform's threads run the same program as a one-thread call, so their
+logits are held to it bit for bit.  Checkpoints restore bit for bit.
 """
 
 import os
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from tensorflowonspark_tpu_torch import bert_inference, bert_train
+from tensorflowonspark_tpu_torch import pipeline as pl
 from tensorflowonspark_tpu_torch.checkpoint import (CheckpointManager, ExportedModel,
                                                     restore_checkpoint)
 from tensorflowonspark_tpu_torch.models.bert import build_qa_model, init_params
@@ -100,6 +103,34 @@ def test_small_bert_export_serves_on_the_card_and_the_cpu(tmp_path, heads):
         cpu_want = bert_inference.forward_batch(cpu_model, cols, 3, "cpu")
     for a, b in zip(bert_inference.forward_batch(on_cpu, cols, 3, "cpu"), cpu_want):
         np.testing.assert_allclose(a, b, atol=1e-5 * np.abs(b).max(), rtol=0)
+
+
+@pytest.mark.parametrize("partitions", [4, 1])
+def test_tfmodel_transform_on_the_card_from_threads(tmp_path, partitions):
+    """``TFModel.transform`` loads the export on the card and serves one
+    partition a thread: K1 once a layer and batch, counted from every
+    thread, and logits equal to the signature called in this thread."""
+    from tensorflowonspark_tpu_torch.dataframe import DataFrame, Row
+
+    config = {**SMALL, "num_heads": 1}
+    cfg = bert_inference.qa_config(config)
+    model = build_qa_model(cfg, init_params(cfg, 0), "cuda")
+    d = bert_train.export(str(tmp_path / "e"), model, seq_len=40)
+    rows = bert_inference.make_rows(32, 40, 128, seed=2)
+    names = list(bert_train.SERVE_INPUTS)
+    df = DataFrame([Row(_fields=names, _values=list(r)) for r in rows],
+                   num_partitions=partitions)
+    tf_model = pl.TFModel().setExportDir(d).setBatchSize(8)
+    before = flash_attention.launches
+    out = tf_model.transform(df).collect()
+    assert flash_attention.launches - before == SMALL["num_layers"] * 4
+    sig = pl._load_model_cached(d, "serve").signature()
+    assert sig.device.type == "cuda"
+    for b in range(0, 32, 8):
+        want = sig(*[np.stack([r[c] for r in rows[b:b + 8]]) for c in range(3)])
+        for name in bert_train.SERVE_OUTPUTS:
+            got = np.stack([np.asarray(getattr(r, name)) for r in out[b:b + 8]])
+            assert np.array_equal(got, want[name].cpu().numpy())
 
 
 @pytest.mark.parametrize("async_save", [False, True], ids=["sync", "async"])
