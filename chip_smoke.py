@@ -17,7 +17,8 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    ``build/torch_native/`` (no pure-Python fallback here);
 3. kernels: the forward (K1) and the dQ (K2) and dK/dV (K3) backward
    kernels each held against their plain PyTorch versions on the card, at
-   the main path's shapes and at edge cases (single TMA tiles, boxes that
+   the main paths' shapes (BERT's and the decoder's causal one) and at
+   edge cases (single TMA tiles, boxes that
    overhang ragged edges, D = 128, and head dims 8, 16 and 96 zero-padded
    to the kernels' 64 or 128, each call counting one launch), then timed
    (the padded head dims too, against SDPA) beside their bound, their
@@ -107,14 +108,45 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    :data:`TRAIN_TOL` of an unbroken in-process replay through the plain
    attention, where an Estimator that restarts the input at batch 0
    (``checkpoint_input_state=False``) must not be; detection latency,
-   restart-to-first-step, the checkpoints' seconds and the goodput.
+   restart-to-first-step, the checkpoints' seconds and the goodput;
+13. the decoder family's main path: the port's ``examples/gpt/gpt_tiny.py``
+   flow (``Estimator`` + ``train_and_evaluate``, Adam 1e-4, an eval every 4
+   steps) at GPT-124M-class width (vocab 32000, hidden 768, 12 layers, 12
+   heads, FFN 3072, 1024 positions, bf16 compute on float32 parameters),
+   batch 8 at T = 1024 on the "+1" corpus, 8 steps, the flash kernels
+   causal: each kernel 12 times a training step (K1 also at each eval
+   batch), every step's loss and the final weights within
+   :data:`GPT_TRAIN_TOL` of a replay in this process through the plain
+   attention (same weights, batches and Adam), where an attention that
+   drops ``causal=True`` and one with dK zeroed must not be; then the
+   chunked LM-head loss (``tied_softmax_xent``, chunk 4096) against logits
+   + cross-entropy on the trained weights, in the loss and the gradients
+   of ``tok_emb`` and the final hidden states (:data:`XENT_TOL`);
+13b. the llama-class variant (RoPE, RMSNorm, SwiGLU, 4 K/V heads for 12,
+   a 512-token window) at the same width, cut to
+   ``LLAMA_VARIANT["num_layers"]`` layers, under the same kind of gate
+   (dK zeroed and the window dropped must fail);
+14. generation on phase 13's weights: in float32, the cached greedy decode,
+   the int8 KV cache, a rolling window and the paged pool against the
+   full forward's argmax rollout without a cache, and ``lookup_generate``
+   and ``beam_generate`` with one beam against it too; the bf16 prefill
+   against the full forward through the kernels (:data:`PREFILL_TOL`);
+   ``quantize_params`` halving the quantized weights' bytes; the int8
+   export (``quantize_params``' default leaves in int8, the rest in bf16)
+   reloaded on the card, its logits bit-identical to the eager int8
+   model, its variables within :data:`EXPORT_BYTES_SLACK` of the share
+   its parameter bytes give of the bf16 export's; then ``bench_gpt_decode``'s JSON line (bf16, int8,
+   int8 + int8 KV and lookup decode tok/s).
 
 Each phase's seconds are printed.  The ResNet and MNIST paths run none of
 the repo's hand-written kernels (their convolutions are cuDNN's); the
 summary's ``launches_by_path`` shows each kernel's launches on every path,
-and ``launches`` is phase 11's fit (this slice's main path).  The line before the last is the
-card's name and power limit; the line before that is the ``{"kernels":
-[...]}`` summary; the last line is ``{"ok": true, "device": {...}}``.
+and ``launches`` is phase 13's (this slice's main path).  The summary's
+times, bound and yardsticks are at phase 13's shape ([8, 1024, 12, 64]
+bf16, causal, the bound counting the causal trim), with the BERT shape's
+under ``bert_shape``.  The line before the last is the card's name and
+power limit; the line before that is the ``{"kernels": [...]}`` summary;
+the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout.
 """
@@ -212,8 +244,11 @@ def check_sass(libs: dict) -> dict:
 
 def flash_cases(seed: int):
     """(name, B, Tq, Tk, H, D, dtype, key lengths or None, causal, window,
-    atol).  The first is the main path's shape: BERT-base at T=384 in
-    batches of 16, with ragged key padding and one fully masked row."""
+    atol).  Every shape a path of the smoke gives the kernels is here: the
+    first is BERT-base at T=384 in batches of 16, with ragged key padding
+    and one fully masked row; the next three are the decoder's (phase 13's
+    causal training shape, the main path; phase 13b's windowed one; phase
+    14's prefill and export)."""
     import numpy as np
     import torch
 
@@ -223,6 +258,13 @@ def flash_cases(seed: int):
     bf16, f32 = torch.bfloat16, torch.float32
     return [
         ("bert_bf16", 16, 384, 384, 12, 64, bf16, bert_lens, False, None, 2e-2),
+        # the decoder's training shape (phase 13): GPT-124M-class, causal
+        ("gpt_causal_bf16", 8, 1024, 1024, 12, 64, bf16, None, True, None, 2e-2),
+        # the llama-class variant's (phase 13b): the GQA repeat before the
+        # kernels leaves 12 heads; a 512-token window at T = 1024
+        ("llama_window_bf16", 8, 1024, 1024, 12, 64, bf16, None, True, 512, 2e-2),
+        # generation's (phase 14): the bf16 full forward at the prompt
+        ("gen_causal_bf16", 4, 32, 32, 12, 64, bf16, None, True, None, 2e-2),
         ("bert_f32", 16, 384, 384, 12, 64, f32, bert_lens, False, None, 2e-5),
         ("causal_window_d128", 2, 512, 512, 8, 128, bf16, None, True, 128, 2e-2),
         ("tq_ne_tk", 4, 100, 300, 12, 64, bf16, [300, 250, 17, 299], False, None, 2e-2),
@@ -238,6 +280,13 @@ def flash_cases(seed: int):
         ("head_dim_96", 4, 384, 384, 12, 96, bf16, [384, 200, 1, 333], False, None, 2e-2),
     ]
 
+
+#: the cases timed beside their bound, plain version and SDPA: this
+#: slice's main path (phase 13's causal GPT shape, the summary's top level)
+#: and the BERT shape of the earlier slices (``bert_shape`` in the summary)
+MAIN_CASE, BERT_CASE = "gpt_causal_bf16", "bert_bf16"
+#: plain versions at the GPT shape take milliseconds a call: fewer samples
+PLAIN_REPS = {MAIN_CASE: 5, BERT_CASE: KERNEL_REPS}
 
 #: the padded head dims timed against SDPA, at BERT-base's batch and length
 PADDED_HEAD_DIMS = (16, 96)
@@ -266,7 +315,7 @@ def check_flash(seed: int) -> dict:
     from tensorflowonspark_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_attention_reference)
 
-    summary = None
+    timed = {}
     for i, (name, B, Tq, Tk, H, D, dtype, lens, causal, window, atol) in \
             enumerate(flash_cases(seed)):
         q, k, v, mask = make_inputs(B, Tq, Tk, H, D, dtype, lens, seed + i)
@@ -290,32 +339,42 @@ def check_flash(seed: int) -> dict:
             f"max|lse-plain|={lse_err:.3g} atol={atol} -> {'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise SystemExit(f"flash kernel disagrees with its plain version in {name}")
-        if i > 0:
+        if name not in PLAIN_REPS:
             continue
-        # main path's shape: the kernel and SDPA in turns, the plain version
-        # SDPA returns NaN on a fully masked row: give that row its keys back
-        sdpa_mask = mask.clone()
-        sdpa_mask[lens.index(0)] = True
+        # a timed shape: the kernel and SDPA in turns, the plain version
+        sdpa_kw = {"is_causal": True} if causal else {}
+        if lens is not None:  # SDPA returns NaN on a fully masked row: give it its keys
+            sdpa_mask = mask.clone()
+            sdpa_mask[lens.index(0)] = True
+            sdpa_kw = {"attn_mask": sdpa_mask[:, None, None, :]}
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        kernel = lambda: flash_attention_fwd(q, k, v, mask=mask)  # noqa: E731
+        kernel = lambda: flash_attention_fwd(q, k, v, mask=mask, causal=causal)  # noqa: E731
         turns = time_in_turns({"kernel": kernel, "sdpa": lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=sdpa_mask[:, None, None, :])}, KERNEL_REPS)
+            qt, kt, vt, **sdpa_kw)}, KERNEL_REPS)
         kernel_ms, library_ms = turns["kernel"], turns["sdpa"]
-        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, mask=mask), KERNEL_REPS)
+        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, mask=mask, causal=causal),
+                           PLAIN_REPS[name])
         elt = q.element_size()
         bytes_moved = (3 * B * Tk * H * D * elt + B * Tq * H * D * elt   # q k v in, out
-                       + B * H * Tq * 4 + B * Tk)                        # lse out, mask in
-        flops = 4 * B * H * Tq * Tk * D            # no causal trim on this path
-        summary = {
-            "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": FLASH_REPLACES, "design": HOPPER_DESIGN, "launches": None,
+                       + B * H * Tq * 4 + (B * Tk if mask is not None else 0))  # lse, mask
+        flops = 2 * 2 * B * H * D * visible_pairs(Tq, Tk, causal)   # two products
+        timed[name] = {
             "max_abs_err": err, "tolerance": atol, "ms": kernel_ms, "plain_ms": plain_ms,
             "host_us": host_us(kernel), "library_timed": "in turns with the kernel",
             **bound(bytes_moved, flops), "library_ms": library_ms,
-            "shape": f"B={B} T={Tq} H={H} D={D} bf16",
+            "shape": f"B={B} T={Tq} H={H} D={D} bf16" + (" causal" if causal else ""),
             "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
         }
-    return summary
+    return {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES, "design": HOPPER_DESIGN, "launches": None,
+            **timed[MAIN_CASE], "bert_shape": timed[BERT_CASE]}
+
+
+def visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
+    """(query, key) pairs a (batch, head) computes: all of them, or under
+    causal masking (Tq == Tk) the lower triangle, T(T+1)/2: the work the
+    kernels' causal trim leaves, which the bound counts."""
+    return Tq * (Tq + 1) // 2 if causal and Tq == Tk else Tq * Tk
 
 
 def flash_attention_fwd_launches() -> int:
@@ -386,7 +445,7 @@ def check_flash_bwd(seed: int) -> list[dict]:
         flash_attention_dkv_reference, flash_attention_dq, flash_attention_dq_reference,
         flash_attention_fwd)
 
-    entries = None
+    timed = {}
     for i, (name, B, Tq, Tk, H, D, dtype, lens, causal, window, _) in \
             enumerate(flash_cases(seed)):
         q, k, v, mask = make_inputs(B, Tq, Tk, H, D, dtype, lens, seed + 100 + i)
@@ -416,49 +475,48 @@ def check_flash_bwd(seed: int) -> list[dict]:
             + f" -> {'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise SystemExit(f"flash backward kernels disagree with the plain version in {name}")
-        if i > 0:
+        if name not in PLAIN_REPS:
             continue
-        # main path's shape: time each kernel, the plain backward and SDPA's
+        # a timed shape: each kernel, the plain backward and SDPA's
         delta = (out.float() * g.float()).sum(-1).transpose(1, 2).contiguous()
-        sdpa_mask = mask.clone()                     # SDPA: NaN on a fully masked row
-        sdpa_mask[lens.index(0)] = True
+        sdpa_kw = {"is_causal": True} if causal else {}
+        if lens is not None:  # SDPA: NaN on a fully masked row
+            sdpa_mask = mask.clone()
+            sdpa_mask[lens.index(0)] = True
+            sdpa_kw = {"attn_mask": sdpa_mask[:, None, None, :]}
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt,
-                                                  attn_mask=sdpa_mask[:, None, None, :])
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
         gt = g.transpose(1, 2)
-        dq_fn = lambda: flash_attention_dq(q, k, v, mask, g, lse, delta)  # noqa: E731
-        dkv_fn = lambda: flash_attention_dkv(q, k, v, mask, g, lse, delta)  # noqa: E731
+        dq_fn = lambda: flash_attention_dq(q, k, v, mask, g, lse, delta, causal)  # noqa: E731
+        dkv_fn = lambda: flash_attention_dkv(q, k, v, mask, g, lse, delta, causal)  # noqa: E731
         turns = time_in_turns({"dq": dq_fn, "dkv": dkv_fn, "sdpa": lambda: torch.autograd.grad(
             sdpa_out, (qt, kt, vt), gt, retain_graph=True)}, KERNEL_REPS)
-        dq_ms, dkv_ms, library_ms = turns["dq"], turns["dkv"], turns["sdpa"]
-        dq_plain_ms = time_ms(lambda: flash_attention_dq_reference(q, k, v, mask, g, lse,
-                                                                   delta), KERNEL_REPS)
-        dkv_plain_ms = time_ms(lambda: flash_attention_dkv_reference(q, k, v, mask, g, lse,
-                                                                     delta), KERNEL_REPS)
+        dq_plain_ms = time_ms(lambda: flash_attention_dq_reference(
+            q, k, v, mask, g, lse, delta, causal), PLAIN_REPS[name])
+        dkv_plain_ms = time_ms(lambda: flash_attention_dkv_reference(
+            q, k, v, mask, g, lse, delta, causal), PLAIN_REPS[name])
         elt = q.element_size()
         tensor = B * Tq * H * D * elt                # one of q, k, v, dO, dq, dk, dv
-        rows = 2 * B * H * Tq * 4 + B * Tk           # lse and delta (f32), the mask
-        prod = 2 * B * H * Tq * Tk * D               # one T x T x D product
-        shape = f"B={B} T={Tq} H={H} D={D} bf16"
-        common = {"route": "cuda", "source": BWD_SOURCE, "launches": None,
-                  "tolerance": rel, "tolerance_relative_to": "max |plain gradient|",
-                  "library_ms": library_ms, "library_timed": "in turns with both kernels",
-                  "shape": shape,
+        rows = 2 * B * H * Tq * 4 + (B * Tk if mask is not None else 0)  # lse, delta, mask
+        prod = 2 * B * H * D * visible_pairs(Tq, Tk, causal)  # one T x T x D product
+        common = {"tolerance": rel, "tolerance_relative_to": "max |plain gradient|",
+                  "library_ms": turns["sdpa"], "library_timed": "in turns with both kernels",
+                  "shape": f"B={B} T={Tq} H={H} D={D} bf16" + (" causal" if causal else ""),
                   "library_note": "scaled_dot_product_attention backward: dq, dk and dv "
                                   "in one call; compare with dq ms + dkv ms"}
-        entries = [
-            {"name": "flash_attention_dq", "replaces": DQ_REPLACES, "design": HOPPER_DESIGN,
-             "max_abs_err": errs["dq"], "ms": dq_ms, "plain_ms": dq_plain_ms,
-             "host_us": host_us(dq_fn), **common,
-             **bound(5 * tensor + rows, 3 * prod),
-             "achieved_tflops": 3 * prod / (dq_ms * 1e-3) / 1e12},
-            {"name": "flash_attention_dkv", "replaces": DKV_REPLACES, "design": HOPPER_DESIGN,
-             "max_abs_err": max(errs["dk"], errs["dv"]), "ms": dkv_ms,
+        timed[name] = (
+            {"max_abs_err": errs["dq"], "ms": turns["dq"], "plain_ms": dq_plain_ms,
+             "host_us": host_us(dq_fn), **common, **bound(5 * tensor + rows, 3 * prod),
+             "achieved_tflops": 3 * prod / (turns["dq"] * 1e-3) / 1e12},
+            {"max_abs_err": max(errs["dk"], errs["dv"]), "ms": turns["dkv"],
              "plain_ms": dkv_plain_ms, "host_us": host_us(dkv_fn), **common,
              **bound(6 * tensor + rows, 4 * prod),
-             "achieved_tflops": 4 * prod / (dkv_ms * 1e-3) / 1e12},
-        ]
-    return entries
+             "achieved_tflops": 4 * prod / (turns["dkv"] * 1e-3) / 1e12})
+    return [{"name": kname, "route": "cuda", "source": BWD_SOURCE, "replaces": replaces,
+             "design": HOPPER_DESIGN, "launches": None, **timed[MAIN_CASE][j],
+             "bert_shape": timed[BERT_CASE][j]}
+            for j, (kname, replaces) in enumerate((("flash_attention_dq", DQ_REPLACES),
+                                                   ("flash_attention_dkv", DKV_REPLACES)))]
 
 
 # ------------------------------------------------------------ model grads
@@ -479,10 +537,11 @@ GRAD_SEEDS = 3                     # weights and batch from --seed and the next 
 
 
 def attention_fn(fwd: str, bwd: str, dk_scale: float = 1.0):
-    """A BERT ``attention_fn`` whose forward is K1 (``"kernel"``) or its
-    plain version (``"plain"``) and whose backward is K2 + K3 or the plain
-    backward.  ``dk_scale`` scales dK: 0 plants a fault (the keys get no
-    gradient) that every gradient and weight gate must catch."""
+    """An ``attention_fn`` (BERT's, with a mask, or GPT's, causal with a
+    window) whose forward is K1 (``"kernel"``) or its plain version
+    (``"plain"``) and whose backward is K2 + K3 or the plain backward.
+    ``dk_scale`` scales dK: 0 plants a fault (the keys get no gradient)
+    that every gradient and weight gate must catch."""
     import torch
 
     from tensorflowonspark_tpu_torch.ops.flash_attention import (
@@ -494,19 +553,22 @@ def attention_fn(fwd: str, bwd: str, dk_scale: float = 1.0):
 
     class Attention(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, mask):
-            out, lse = forward(q, k, v, mask)
+        def forward(ctx, q, k, v, mask, causal, window):
+            out, lse = forward(q, k, v, mask, causal=causal, window=window)
             ctx.save_for_backward(q, k, v, out, lse)
-            ctx.mask = mask
+            ctx.args = (mask, causal, window)
             return out
 
         @staticmethod
         def backward(ctx, grad_out):
             q, k, v, out, lse = ctx.saved_tensors
-            dq, dk, dv = backward(q, k, v, ctx.mask, out, lse, grad_out)
-            return dq, dk * dk_scale, dv, None
+            mask, causal, window = ctx.args
+            dq, dk, dv = backward(q, k, v, mask, out, lse, grad_out, causal=causal,
+                                  window=window)
+            return dq, dk * dk_scale, dv, None, None, None
 
-    return lambda q, k, v, mask=None: Attention.apply(q, k, v, mask)
+    return lambda q, k, v, mask=None, causal=False, window=None: Attention.apply(
+        q, k, v, mask, causal, window)
 
 
 def grad_readings(grads: dict, plain: dict) -> dict:
@@ -966,21 +1028,25 @@ def within_export(r: dict) -> bool:
     return r["logits"] <= EXPORT_TOL["logits"] and r["spans"] >= EXPORT_TOL["spans"]
 
 
-def weight_readings(w: dict, w_plain: dict, w0: dict) -> dict:
+def weight_readings(w: dict, w_plain: dict, w0: dict, zero: set | None = None,
+                    lr_steps: float = TRAIN_LR * TRAIN_STEPS) -> dict:
     """Final weights ``w`` against the replay's ``w_plain`` (both from
     ``w0``) as :data:`TRAIN_TOL` reads them.  A zero-in-theory parameter
-    moves by Adam's noise-driven steps in both runs, so it is held only to
-    Adam's bound, in units of ``lr x steps``."""
+    (``zero``; default BERT's, :func:`zero_in_theory`) moves by Adam's
+    noise-driven steps in both runs, so it is held only to Adam's bound, in
+    units of ``lr x steps``."""
     import numpy as np
 
-    layers = 1 + max(int(n.split(".")[2]) for n in w_plain if n.startswith("bert.layers."))
+    if zero is None:
+        layers = 1 + max(int(n.split(".")[2]) for n in w_plain if n.startswith("bert.layers."))
+        zero = {n for n in w_plain if zero_in_theory(n, layers)}
     rel = {n: ((w[n] - p).norm() / (p - w0[n]).norm()).item()
-           for n, p in w_plain.items() if not zero_in_theory(n, layers)}
+           for n, p in w_plain.items() if n not in zero}
     worst = max(rel, key=rel.get)
     return {"max": rel[worst], "worst": worst, "median": float(np.median(list(rel.values()))),
             "params": len(rel),
-            "noise": max((w[n] - p).abs().max().item() for n, p in w_plain.items()
-                         if zero_in_theory(n, layers)) / (TRAIN_LR * TRAIN_STEPS)}
+            "noise": max(((w[n] - w_plain[n]).abs().max().item() for n in zero), default=0.0)
+            / lr_steps}
 
 
 # ------------------------------------------------------------------ ResNet
@@ -1806,12 +1872,416 @@ def run_estimator_recovery(seed: int, card: str, wd: str, cfg=None,
 
 
 
+# ----------------------------------------------------------- the decoder
+
+#: phase 13: ``bench.py::bench_gpt_decode``'s GPT-124M-class widths trained
+#: through the port's ``examples/gpt/gpt_tiny.py`` flow (Estimator,
+#: train_and_evaluate, Adam :data:`GPT_LR`, an eval every 4 steps), bf16
+#: compute on float32 parameters, the flash kernels causal
+GPT_WIDTH = {"vocab": 32000, "hidden": 768, "num_layers": 12, "num_heads": 12,
+             "seq_len": 1024, "max_position_embeddings": 1024, "batch_size": 8}
+GPT_STEPS = 8
+#: Adam's rate: gpt_tiny's own (:data:`GPT_TINY_LR`) suits its tiny default
+#: width; at this width from the 0.02 init it drives the loss up and the
+#: run chaotic, so the gate could not tell a fault (``--calibrate-gpt``
+#: reads both; PERF.md, "GPT gate")
+GPT_LR, GPT_TINY_LR = 1e-4, 3e-3
+#: phase 13b: the llama-class variant at the same width, cut to 4 layers
+#: for time (three replays at full width besides the run)
+LLAMA_VARIANT = {"arch": "llama", "num_layers": 4, "num_kv_heads": 4, "sliding_window": 512}
+#: phase 13's gate against the plain-attention replay (same weights,
+#: batches, Adam): every step's loss, and the final weights as
+#: ||w - w_plain|| / ||w_plain - w0|| (max and median over the parameters)
+#: with the zero-in-theory ones (the key biases of a learned-position
+#: model) in units of lr x steps.  Sound readings at seeds 0-2 reach loss
+#: 2.4e-4, max 0.125, median 0.0385, noise 1.40 x lr x steps; dK zeroed
+#: reads a max of 1 (loss 1.0e-3-5.0e-3), the dropped causal mask a loss of
+#: 0.072-0.117 and a median of 0.84-0.87 (PERF.md, "GPT gate").
+GPT_TRAIN_TOL = {"loss": 1e-3, "max": 0.3, "median": 0.08, "noise": 2.03}
+#: the chunked LM-head loss against logits + cross-entropy, float32 on the
+#: card: |loss diff| / loss and ||g - g_dense|| / ||g_dense|| for the
+#: gradients of tok_emb and of the final hidden states
+XENT_CHUNK, XENT_TOL = 4096, 1e-4
+#: phase 14: bf16 prefill logits (the decode path's dense attention over
+#: the cache) against the full forward (the flash kernels), as max |diff| /
+#: max |logit|
+PREFILL_TOL = 3e-2
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 32, 24
+#: the int8 export's variables over the bf16 export's may exceed the share
+#: its parameter bytes give (int8 leaves and scales, the rest bf16) by this
+#: much: the files' own overhead
+EXPORT_BYTES_SLACK = 0.01
+
+
+def gpt_args(seed: int, model_dir: str, **over):
+    """``gpt_tiny``'s flags for phase 13 (or 13b with ``over``)."""
+    return argparse.Namespace(**{**GPT_WIDTH, "max_steps": GPT_STEPS, "lr": GPT_LR,
+                                 "arch": "gpt2",
+                                 "chunked_xent": False, "model_dir": model_dir, "seed": seed,
+                                 "num_kv_heads": None, "sliding_window": None, "bf16": True,
+                                 "flash": True, "cpu": False, **over})
+
+
+def no_causal_attention(q, k, v, causal=False, window=None):
+    """The planted fault of phase 13: the kernels without ``causal`` (and
+    ``window``), so every token sees the future — on the "+1" corpus the
+    next token itself."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention
+
+    return flash_attention(q, k, v)
+
+
+def no_window_attention(q, k, v, causal=False, window=None):
+    """The planted fault of phase 13b: the kernels causal but without the
+    window, so a query past the window's length sees every earlier key."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention
+
+    return flash_attention(q, k, v, causal=causal)
+
+
+def gpt_replay(cfg, batches: list, seed: int, attention_fn, device, lr: float) -> dict:
+    """The training steps of ``batches`` in this process: the same initial
+    weights (``seed``), Adam at ``lr`` and loss as the Estimator's run,
+    through ``attention_fn``.  ``{"losses", "w0", "w"}``."""
+    import dataclasses
+
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.gpt import gpt_tiny
+    from tensorflowonspark_tpu_torch.parallel.strategy import adam
+
+    model = gpt_tiny.build_model(dataclasses.replace(cfg, attention_fn=attention_fn),
+                                 seed).to(device)
+    w0 = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    opt = adam(lr)(model.parameters())
+    losses = []
+    for ids in batches:
+        opt.zero_grad(set_to_none=True)
+        loss = gpt_tiny.next_token_loss(model, ids)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    return {"losses": [float(x) for x in losses], "w0": w0,
+            "w": {n: t.detach() for n, t in model.state_dict().items()}}
+
+
+def gpt_step_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step, 2 a multiply-add, x3 for forward
+    and backward: the dense products (the tied LM head included) and the
+    attention's two products over the pairs the causal (or windowed) mask
+    leaves."""
+    hid, ffn, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    kv = (cfg.num_kv_heads or cfg.num_heads) * cfg.head_dim
+    mlp = (3 if cfg.mlp == "swiglu" else 2) * hid * ffn
+    dense = L * (2 * hid * hid + 2 * hid * kv + mlp) + cfg.vocab_size * hid
+    W = cfg.sliding_window or seq
+    pairs = sum(min(t + 1, W) for t in range(seq))
+    return 3 * (2 * dense * batch * seq + L * 2 * 2 * batch * hid * pairs)
+
+
+def run_gpt_training(seed: int, card: str, wd: str, variant: dict | None = None,
+                     device: str = "cuda", width: dict | None = None, gate: bool = True,
+                     lr: float = GPT_LR) -> dict:
+    """Phase 13 (``variant`` None) or 13b: ``gpt_tiny.train`` at full width
+    on the card, each flash kernel 12 (L) times a training step (K1 also at
+    each eval batch), every step's loss and the final weights within
+    :data:`GPT_TRAIN_TOL` of the plain-attention replay while the planted
+    faults fall outside; phase 13 also holds the chunked LM-head loss to
+    logits + cross-entropy.  ``width`` and ``device="cpu"`` rehearse it
+    at a tiny size (no launches there); ``lr`` other than :data:`GPT_LR`
+    only with ``gate`` false (``--calibrate-gpt``).  Returns the launches, the step
+    time and the trained weights and config."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.gpt import gpt_tiny
+    from tensorflowonspark_tpu_torch.ops import flash_attention_plain
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (flash_attention,
+                                                                 flash_attention_bwd)
+
+    name = "llama" if variant else "gpt2"
+    args = gpt_args(seed, os.path.join(wd, f"gpt_{name}_{seed}_{lr:g}"),
+                    **{**(width or {}), **(variant or {}), "lr": lr})
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    zero_launch_counts()                   # counts start at 0 for this path
+    t0 = time.perf_counter()
+    out = gpt_tiny.train(args, dev)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "flash_attention_dq": flash_attention_bwd.launches_dq,
+                "flash_attention_dkv": flash_attention_bwd.launches_dkv}
+    cfg, L = out["cfg"], out["cfg"].num_layers
+    steps = len(out["losses"])
+    want = ({"flash_attention_fwd": L * (steps + out["eval_batches"]),
+             "flash_attention_dq": L * steps, "flash_attention_dkv": L * steps}
+            if dev.type == "cuda" else dict.fromkeys(launches, 0))
+    log(f"{name} training at Adam {lr:g} ({L} layers, hidden {cfg.hidden_size}, {cfg.num_heads} heads"
+        f"{', ' + str(cfg.num_kv_heads) + ' K/V heads' if cfg.num_kv_heads else ''}, window "
+        f"{cfg.sliding_window}, B={args.batch_size} T={args.seq_len} V={args.vocab}): {steps} "
+        f"steps + {out['eval_batches']} eval batches in {wall:.2f} s wall (weights, steps, "
+        f"evals, checkpoints); eval loss {out['final']['loss']:.4f}; launches {launches} "
+        f"(expected {want})")
+    if steps != GPT_STEPS or launches != want:
+        raise SystemExit(f"the {name} training path did not launch every kernel once a layer "
+                         "and step (K1 also a layer and eval batch)")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise SystemExit(f"non-finite {name} training loss: {out['losses']}")
+    med = statistics.median(out["step_ms"][1:])
+    tokens = args.batch_size * args.seq_len
+    flops = gpt_step_flops(cfg, args.batch_size, args.seq_len)
+    log(f"{name} training on {card}: median step {med:.2f} ms (step starts 2..{steps}; all "
+        f"{[round(x, 2) for x in out['step_ms']]}) = {tokens / med * 1e3:.0f} tokens/s; model "
+        f"{flops / 1e12:.3f} TFLOP a step = {flops / (med * 1e-3) / 1e12:.1f} TFLOP/s = "
+        f"{flops / (med * 1e-3) / H100_BF16_FLOPS:.4f} of 989 TFLOP/s")
+
+    # the same batches in this process through the plain attention, and
+    # through the kernels with each planted fault
+    plain = gpt_replay(cfg, out["batches"], seed, flash_attention_plain, dev, lr)
+    if dev.type == "cuda" and (flash_attention.launches, flash_attention_bwd.launches_dq) != (
+            launches["flash_attention_fwd"], launches["flash_attention_dq"]):
+        raise SystemExit("the plain-attention replay launched a kernel")
+    readings = {"kernels (Estimator)": (out["losses"], out["params"])}
+    faults = {"dK x 0 (planted fault)": attention_fn("kernel", "kernel", dk_scale=0.0)}
+    if not variant:
+        faults["no causal mask (planted fault)"] = no_causal_attention
+    if cfg.sliding_window:
+        faults["window dropped (planted fault)"] = no_window_attention
+    for fname, fn in faults.items():
+        r = gpt_replay(cfg, out["batches"], seed, fn, dev, lr)
+        readings[fname] = (r["losses"], r["w"])
+    log(f"{name} plain-attention replay: losses {[round(x, 5) for x in plain['losses']]}")
+    verdict = {}
+    for rname, (losses, w) in readings.items():
+        # with learned positions the key biases are zero in theory (softmax
+        # ignores a shift of every score of a row); RoPE rotates them
+        zero = {n for n in plain["w"]
+                if cfg.pos_encoding == "learned" and n.endswith("attn.key.bias")}
+        r = weight_readings(w, plain["w"], plain["w0"], zero, lr * GPT_STEPS)
+        r["loss"] = max(abs(a - b) for a, b in zip(losses, plain["losses"]))
+        verdict[rname] = within(r, GPT_TRAIN_TOL)
+        log(f"{name} training, {rname} vs the replay: losses {[round(x, 5) for x in losses]} "
+            f"(max |diff| {r['loss']:.4g}); final weights ||w-w_plain||/||w_plain-w0|| over "
+            f"{r['params']} parameters: max {r['max']:.4g} ({r['worst']}), median "
+            f"{r['median']:.4g}; zero-in-theory: max |w-w_plain| {r['noise']:.3g} x lr x steps")
+    ok = verdict["kernels (Estimator)"] and not any(verdict[f] for f in faults)
+    log(f"{name} training gate {GPT_TRAIN_TOL}: " + "; ".join(
+        f"{k} {'within' if v else 'outside'}" for k, v in verdict.items()))
+    if gate and not ok:
+        raise SystemExit(f"the {name} training gate failed: the Estimator's run must be "
+                         "within it and every planted fault outside")
+    del plain, readings
+    if not variant:
+        check_chunked_xent(out["params"], cfg, out["batches"][-1], dev)
+    return {"launches": launches, "step_ms": med, "tokens_per_s": tokens / med * 1e3,
+            "mfu": flops / (med * 1e-3) / H100_BF16_FLOPS, "params": out["params"],
+            "cfg": cfg, "args": args}
+
+
+def check_chunked_xent(params: dict, cfg, ids, device) -> None:
+    """``tied_softmax_xent`` (chunk :data:`XENT_CHUNK`) against the logits
+    and ``F.cross_entropy`` on the trained weights and one batch: the loss
+    and the gradients of ``tok_emb`` and of the final hidden states."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch.models.gpt import _model
+    from tensorflowonspark_tpu_torch.ops import tied_softmax_xent
+
+    with torch.no_grad():
+        h = _model(dataclasses.replace(cfg, attention_fn=None), params).hidden(ids)
+    h = h[:, :-1].detach().requires_grad_()
+    table = params["tok_emb.weight"].detach().requires_grad_()
+    labels = ids[:, 1:]
+    dense = F.cross_entropy((h @ table.T).reshape(-1, cfg.vocab_size), labels.reshape(-1))
+    g_dense = torch.autograd.grad(dense, (h, table))
+    chunked = tied_softmax_xent(h, table, labels, chunk_size=XENT_CHUNK).mean()
+    g_chunked = torch.autograd.grad(chunked, (h, table))
+    r = {"loss": abs(chunked.item() - dense.item()) / dense.item(),
+         **{what: ((a - b).norm() / b.norm()).item()
+            for what, a, b in zip(("d hidden", "d tok_emb"), g_chunked, g_dense)}}
+    log(f"chunked LM-head loss (chunk {XENT_CHUNK}, {-(-cfg.vocab_size // XENT_CHUNK)} chunks, "
+        f"ragged last) vs logits + cross-entropy, float32 on the trained weights: loss "
+        f"{chunked.item():.6f} vs {dense.item():.6f}; relative: " +
+        ", ".join(f"{k} {v:.3g}" for k, v in r.items()) + f" (tolerance {XENT_TOL})")
+    if not all(v <= XENT_TOL for v in r.values()):
+        raise SystemExit("the chunked LM-head loss disagrees with logits + cross-entropy")
+
+
+def _greedy_rollout(model, prompt, n: int):
+    """Argmax rollout of the full forward, no cache: the reference every
+    cached decode must reproduce."""
+    import torch
+
+    ids = prompt
+    with torch.no_grad():
+        for _ in range(n):
+            ids = torch.cat([ids, model(ids)[:, -1].argmax(-1, keepdim=True)], dim=1)
+    return ids
+
+
+def _paged_greedy(cfg, params, prompt, n: int):
+    """Greedy decode through the paged pool: each row owns consecutive
+    pages (its block table written as a batcher would), then prefill and
+    single-token steps."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.models.gpt import _model, init_cache
+
+    B, pt = prompt.shape[0], cfg.kv_page_tokens
+    need = -(-(prompt.shape[1] + n) // pt)
+    cache = init_cache(cfg, params, B)
+    for lc in cache["layers"]:
+        for r in range(B):
+            lc["block_table"][r, :need] = torch.arange(r * need, (r + 1) * need)
+    model = _model(cfg, params)
+    ids = prompt
+    with torch.no_grad():
+        tok = model(prompt, cache=cache)[:, -1].argmax(-1)
+        for _ in range(n):
+            ids = torch.cat([ids, tok[:, None]], dim=1)
+            tok = model(tok[:, None], cache=cache)[:, -1].argmax(-1)
+    return ids
+
+
+def _export_bytes(export_dir: str) -> int:
+    vdir = os.path.join(export_dir, "variables")
+    return sum(os.path.getsize(os.path.join(vdir, f)) for f in os.listdir(vdir))
+
+
+def check_gpt_generation(seed: int, card: str, wd: str, trained: dict,
+                         device: str = "cuda") -> dict:
+    """Phase 14 on phase 13's trained weights: cached decodes against the
+    full forward's argmax rollout in float32 (greedy, int8 KV, a rolling
+    window, the paged pool), lookup and beam(1) against greedy, the bf16
+    prefill against the full forward through the kernels, int8 weights'
+    bytes, and the int8 export against the eager int8 model.  Returns the
+    kernels' launches (the export check runs K1)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.checkpoint import ExportedModel, export_model
+    from tensorflowonspark_tpu_torch.models import gpt
+    from tensorflowonspark_tpu_torch.ops import quantize_params, tree_nbytes
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (flash_attention,
+                                                                 flash_attention_bwd)
+    from tensorflowonspark_tpu_torch.ops.quant import _QuantArray
+
+    cfg, params = trained["cfg"], trained["params"]
+    dev = torch.device(device)
+    zero_launch_counts()
+    rng = np.random.default_rng(seed + 14)
+    V = cfg.vocab_size
+    ramp = np.arange(GEN_PROMPT)[None, :]
+    prompt = torch.from_numpy((rng.integers(0, V, (GEN_BATCH, 1)) + ramp) % V).to(dev)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32, attention_fn=None)
+    want = _greedy_rollout(gpt._model(f32, params), prompt, GEN_NEW)
+    windowed = dataclasses.replace(f32, sliding_window=GEN_PROMPT // 4)
+    want_w = _greedy_rollout(gpt._model(windowed, params), prompt, GEN_NEW)
+    pages = dict(per_row_positions=True, kv_page_tokens=16,
+                 kv_pool_pages=GEN_BATCH * cfg.max_position_embeddings // 16)
+    runs = {
+        "greedy (KV cache)": (gpt.greedy_generate(f32, params, prompt, GEN_NEW), want),
+        "int8 KV cache": (gpt.greedy_generate(dataclasses.replace(f32, kv_cache_int8=True),
+                                              params, prompt, GEN_NEW), want),
+        f"rolling window {windowed.sliding_window}": (gpt.greedy_generate(
+            dataclasses.replace(windowed, rolling_kv_cache=True), params, prompt, GEN_NEW),
+            want_w),
+        "paged pool": (_paged_greedy(dataclasses.replace(f32, **pages), params, prompt,
+                                     GEN_NEW), want),
+        "beam_generate, 1 beam": (gpt.beam_generate(f32, params, prompt, GEN_NEW, num_beams=1),
+                                  want),
+    }
+    lookup, stats = gpt.lookup_generate(f32, params, prompt, GEN_NEW, draft_len=8,
+                                        return_stats=True)
+    runs["lookup_generate (draft 8)"] = (lookup, want)
+    log(f"generation, float32 on {card}: {GEN_BATCH} rows, prompt {GEN_PROMPT}, {GEN_NEW} new "
+        f"tokens; full-forward rollout row 0: {want[0, GEN_PROMPT:].tolist()}")
+    bad = []
+    for rname, (got, ref) in runs.items():
+        same = torch.equal(got, ref)
+        log(f"generation, {rname}: {'equal to' if same else 'DIFFERS from'} the full forward's "
+            f"argmax rollout" + (f" ({stats['forwards']} verify forwards for {GEN_NEW} tokens)"
+                                 if rname.startswith("lookup") else ""))
+        bad += [] if same else [rname]
+    if bad:
+        raise SystemExit(f"cached decoding differs from the full forward: {bad}")
+
+    # bf16: the prefill (dense attention over the cache) against the full
+    # forward through the flash kernels
+    with torch.no_grad():
+        model = gpt._model(cfg, params)
+        full = model(prompt)
+        pre = model(prompt, cache=gpt.init_cache(cfg, params, GEN_BATCH))
+    rel = ((pre - full).abs().max() / full.abs().max()).item()
+    log(f"prefill (bf16, cache path) vs full forward (bf16, flash kernels): max |diff| / max "
+        f"|logit| {rel:.4g} (tolerance {PREFILL_TOL})")
+    if not rel <= PREFILL_TOL:
+        raise SystemExit("the bf16 prefill disagrees with the full forward")
+
+    # int8 weights: the quantized leaves' bytes against the same leaves in bf16
+    q = quantize_params(params)
+    qnames = [n for n, v in q.items() if isinstance(v, _QuantArray)]
+    int8_bytes = sum(q[n].nbytes for n in qnames)
+    bf16_bytes = sum(params[n].numel() * 2 for n in qnames)
+    log(f"quantize_params: {len(qnames)} Linear weights, {int8_bytes} bytes int8 with scales "
+        f"vs {bf16_bytes} bf16 = {int8_bytes / bf16_bytes:.4f}x; whole tree "
+        f"{tree_nbytes(q)} vs {tree_nbytes(params)} float32")
+    if not int8_bytes <= 0.51 * bf16_bytes:
+        raise SystemExit("int8 weights do not halve the bytes of the bf16 ones")
+
+    # the int8 export against eager: quantize_params' default leaves (the
+    # Linear weights) int8, the rest (the tied table among them) bf16
+    qe = {n: v if isinstance(v, _QuantArray) else v.to(torch.bfloat16) for n, v in q.items()}
+    ids = prompt[:2]
+    with torch.device("meta"):
+        skeleton = gpt.GPT(cfg)
+    serve = lambda p, x: gpt.bind(skeleton, p)(x)  # noqa: E731
+    t0 = time.perf_counter()
+    d8 = export_model(os.path.join(wd, "gpt_int8_export"), serve, qe, [ids.cpu()])
+    export_s = time.perf_counter() - t0
+    d16 = export_model(os.path.join(wd, "gpt_bf16_export"), serve,
+                       {n: t.to(torch.bfloat16) for n, t in params.items()}, [ids.cpu()])
+    before = flash_attention.launches
+    with torch.no_grad():
+        eager = gpt._model(cfg, {n: v.to(dev) for n, v in qe.items()})(ids)
+    got = next(iter(ExportedModel.load(d8, device=dev)(ids).values()))
+    k1 = flash_attention.launches - before
+    ratio = _export_bytes(d8) / _export_bytes(d16)
+    # what the parameters alone give: int8 leaves with their scales, the
+    # rest bf16, over every parameter in bf16
+    share = (int8_bytes + sum(v.numel() * 2 for n, v in params.items() if n not in qnames)) / (
+        sum(v.numel() * 2 for v in params.values()))
+    same = torch.equal(got, eager)
+    log(f"int8 export: {export_s:.1f} s; logits {'bit-identical to' if same else 'DIFFER from'} "
+        f"the eager int8 model (max |diff| {(got - eager).abs().max().item():.3g}); K1 launches "
+        f"{k1} (eager + exported); variables {_export_bytes(d8)} bytes vs the bf16 export's "
+        f"{_export_bytes(d16)} = {ratio:.4f}x, the parameter bytes' share {share:.4f}x "
+        f"(slack {EXPORT_BYTES_SLACK})")
+    if not same or not ratio <= share + EXPORT_BYTES_SLACK or (
+            dev.type == "cuda" and k1 != 2 * cfg.num_layers):
+        raise SystemExit("the int8 export is not bit-identical to eager int8, stores more than "
+                         "its int8 parameters, or did not run K1 once a layer")
+    return {"flash_attention_fwd": flash_attention.launches,
+            "flash_attention_dq": flash_attention_bwd.launches_dq,
+            "flash_attention_dkv": flash_attention_bwd.launches_dkv}
+
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0, help="weights and data seed")
     p.add_argument("--calibrate-resnet", action="store_true",
                    help="only log the ResNet-50 gate's readings at the scales of "
                         "RESNET_CALIBRATION_SCALES, batches 8 and 2, and exit (no result)")
+    p.add_argument("--calibrate-gpt", action="store_true",
+                   help="only build the kernels and log phase 13's and 13b's gate readings "
+                        "at seeds --seed..--seed+2, at GPT_LR and at gpt_tiny's own rate "
+                        "(GPT_TINY_LR), and exit (no result)")
     args = p.parse_args()
 
     import torch
@@ -1835,6 +2305,20 @@ def main() -> int:
         return 0
 
     from tensorflowonspark_tpu_torch.device_info import card_name_and_limit
+
+    if args.calibrate_gpt:
+        build_kernels()
+        card = card_name_and_limit()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+            for lr in (GPT_LR, GPT_TINY_LR):
+                for seed in range(args.seed, args.seed + 3):
+                    for variant in (None, LLAMA_VARIANT):
+                        t0 = time.perf_counter()
+                        del run_gpt_training(seed, card, wd, variant, gate=False,
+                                             lr=lr)["params"]
+                        log(f"calibration Adam {lr:g} seed {seed} "
+                            f"{'llama' if variant else 'gpt2'}: {time.perf_counter() - t0:.1f} s")
+        return 0
 
     t_start = time.perf_counter()
     # 1. device
@@ -1876,6 +2360,11 @@ def main() -> int:
     log(f"backward at {dq['shape']} on {card}: dq + dkv kernels {dq['ms'] + dkv['ms']:.6f} ms, "
         f"SDPA backward {dq['library_ms']:.6f} ms (in turns), plain "
         f"{dq['plain_ms'] + dkv['plain_ms']:.6f} ms")
+    for e in (flash, dq, dkv):
+        b = e["bert_shape"]
+        log(f"{e['name']} at {b['shape']} on {card}: kernel {b['ms']:.6f} ms, SDPA "
+            f"{b['library_ms']:.6f} ms (in turns), plain {b['plain_ms']:.6f} ms, bound "
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']}), {b['achieved_tflops']:.2f} TFLOP/s")
     for e in (flash, dq, dkv):
         log(f"{e['name']}: host {e['host_us']:.1f} us a call (wrapper, no sync)")
     for e, kernel in ((flash, "flash_fwd_tma_kernel<64"), (dq, "flash_dq_tma_kernel<64"),
@@ -1928,6 +2417,24 @@ def main() -> int:
         # 12. the Estimator under run_with_recovery, one lost worker
         recovery = timed("12 recovery", run_estimator_recovery, args.seed, card, wd)
 
+        # 13. the decoder: gpt_tiny's flow at GPT-124M width, the kernels causal
+        gpt_train = timed("13 GPT training", run_gpt_training, args.seed, card, wd)
+
+        # 13b. the llama-class variant (RoPE, RMSNorm, SwiGLU, GQA, a window), 4 layers
+        llama = timed("13b llama training", run_gpt_training, args.seed, card, wd,
+                      LLAMA_VARIANT)
+        del llama["params"]
+
+        # 14. generation, int8 weights and the int8 export on phase 13's weights
+        generation = timed("14 generation", check_gpt_generation, args.seed, card, wd,
+                           gpt_train)
+        del gpt_train["params"]
+        from tensorflowonspark_tpu_torch import bench_gpt_decode
+
+        t0 = time.perf_counter()
+        print(json.dumps(bench_gpt_decode.bench(seed=args.seed)), flush=True)
+        phase_s["14 decode bench"] = time.perf_counter() - t0
+
     # 10. the bench
     from tensorflowonspark_tpu_torch import bench_resnet
 
@@ -1935,19 +2442,22 @@ def main() -> int:
     print(json.dumps(bench_resnet.bench(seed=args.seed)), flush=True)
     phase_s["10 bench"] = time.perf_counter() - t0
 
-    flash["launches"] = pipeline["fit"]["flash_attention_fwd"]
+    flash["launches"] = gpt_train["launches"]["flash_attention_fwd"]
     flash["launches_by_path"] = {"inference": inference,
                                  "training": training["flash_attention_fwd"],
                                  "export_serving": export_serving,
                                  "pipeline_transform": pipeline["transform"]}
     for e in (dq, dkv):
-        e["launches"] = pipeline["fit"][e["name"]]
+        e["launches"] = gpt_train["launches"][e["name"]]
         e["launches_by_path"] = {"training": training[e["name"]]}
     for e in (flash, dq, dkv):
         e["launches_by_path"].update({"resnet_training": resnet[e["name"]],
                                       "mnist_training": mnist[e["name"]],
                                       "pipeline_training": pipeline["fit"][e["name"]],
-                                      "estimator_recovery": recovery[e["name"]]})
+                                      "estimator_recovery": recovery[e["name"]],
+                                      "gpt_training": gpt_train["launches"][e["name"]],
+                                      "llama_training": llama["launches"][e["name"]],
+                                      "gpt_generation": generation[e["name"]]})
     log("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [flash, dq, dkv]}))

@@ -22,8 +22,12 @@ the framework's machinery does the work; the JAX package stands orbax and
   kernels are custom ops (``ops/flash_attention.py``), so a program keeps
   calling them.
 
-Not ported yet (ROADMAP A5): the int8 plainify/requant round trip
-(``checkpoint.py:291-395`` in the JAX package), which needs ``ops/quant.py``.
+An export of quantized parameters (``ops.quant.quantize_params``) keeps
+them quantized: each quantized leaf is written as ``{"q", "scale"[,
+"lshape"]}`` (int8 or packed uint8 values and their scales,
+:func:`_plainify_int8`), and each signature rebuilds the wrappers from
+those buffers before calling ``fn`` (:func:`_requant_int8`), so the program
+dequantizes inside.
 
 Layout of a ``model_dir``::
 
@@ -53,6 +57,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 
+from tensorflowonspark_tpu_torch.data import _tree_map
 from tensorflowonspark_tpu_torch.util import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -302,6 +307,124 @@ def _as_cpu_tensor(x):
     return x.detach().cpu() if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
 
 
+_INT8_KEYS = frozenset({"q", "scale"})
+
+
+def _walk_containers(node, path, visit):
+    """Shared container walk for :func:`_plainify_int8` /
+    :func:`_requant_int8` — the two must build IDENTICAL tree paths, so the
+    dispatch lives in one place.  ``visit(node, path)`` returns a
+    replacement subtree, or None to recurse into the standard containers
+    (any Mapping, namedtuples, lists, tuples); other nodes are returned
+    unchanged."""
+    out = visit(node, path)
+    if out is not None:
+        return out
+    if isinstance(node, Mapping):
+        items = {k: _walk_containers(v, path + (k,), visit) for k, v in node.items()}
+        try:
+            return type(node)(items)
+        except TypeError:
+            # Mapping subclasses whose constructor does not take a mapping
+            # (defaultdict wants its factory first) become a plain dict
+            return items
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_walk_containers(v, path + (i,), visit)
+                            for i, v in enumerate(node)))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_walk_containers(v, path + (i,), visit) for i, v in enumerate(node))
+    return node
+
+
+def _quant_leaves(node) -> list:
+    """Every ``ops.quant`` array anywhere under ``node``: in containers,
+    dataclass fields and object attributes, where the walk does not go."""
+    import dataclasses
+
+    from tensorflowonspark_tpu_torch.ops.quant import _QuantArray
+
+    if isinstance(node, _QuantArray):
+        return [node]
+    if isinstance(node, Mapping):
+        children = list(node.values())
+    elif isinstance(node, (list, tuple)):
+        children = list(node)
+    elif dataclasses.is_dataclass(node) and not isinstance(node, type):
+        children = [getattr(node, f.name) for f in dataclasses.fields(node)]
+    elif hasattr(node, "__dict__") and not isinstance(node, type):
+        children = list(vars(node).values())
+    else:
+        return []
+    return [leaf for child in children for leaf in _quant_leaves(child)]
+
+
+def _plainify_int8(params):
+    """Replace quantized leaves (``ops.quant`` Int8Array/Int4Array/
+    Int4PackedArray) with ``{"q", "scale"[, "lshape"]}`` dicts of tensors,
+    which DCP and ``torch.export`` take as they are.  Returns ``(tree,
+    had_any, lshapes)``: ``lshapes`` maps each packed-int4 dict's tree path
+    to its logical shape, which :func:`_requant_int8` needs while the
+    program is traced (a traced ``lshape`` has no readable values).
+
+    A native :class:`~.ops.quant.Int4Array` keeps one value a byte in int8,
+    so it comes back as an ``Int8Array``: the same values and the same
+    dequantization."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.ops.quant import _QuantArray
+
+    found = []
+    lshapes = {}
+
+    def visit(node, path):
+        if not isinstance(node, _QuantArray):
+            return None
+        found.append(True)
+        out = {"q": node.q, "scale": node.scale}
+        lshape = getattr(node, "logical_shape", None)
+        if lshape is not None:  # packed int4: the uint8 q loses the logical last dim
+            lshapes[path] = tuple(lshape)
+            out["lshape"] = torch.tensor(lshape, dtype=torch.int64)
+        return out
+
+    out = _walk_containers(params, (), visit)
+    # a quantized leaf inside a container the walk does not know would be
+    # exported as whatever that container makes of it — fail loudly instead
+    stragglers = _quant_leaves(out)
+    if stragglers:
+        raise ValueError(
+            f"{len(stragglers)} quantized leaf/leaves sit inside a "
+            "container type _plainify_int8 does not traverse (only "
+            "Mapping/namedtuple/list/tuple are supported); exporting "
+            "would silently write dequantized full-precision weights. "
+            "Restructure the params tree or unbox the custom node first.")
+    return out, bool(found), lshapes
+
+
+def _requant_int8(params, lshapes=None):
+    """Inverse of :func:`_plainify_int8`: rebuild the quantized wrappers so
+    unmodified model code consumes the int8 weights (and dequantizes them
+    at the call).  ``lshapes`` supplies the packed-int4 logical shapes
+    while the params are traced tensors."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.ops.quant import Int4PackedArray, Int8Array
+
+    def visit(node, path):
+        if not isinstance(node, Mapping):
+            return None
+        dtype = getattr(node.get("q"), "dtype", None)
+        if set(node.keys()) == _INT8_KEYS | {"lshape"} and dtype == torch.uint8:
+            lshape = (lshapes[path] if lshapes is not None
+                      else tuple(int(d) for d in node["lshape"].tolist()))
+            return Int4PackedArray(node["q"], node["scale"], lshape)
+        if set(node.keys()) == _INT8_KEYS and dtype == torch.int8:
+            return Int8Array(node["q"], node["scale"])
+        return None
+
+    return _walk_containers(params, (), visit)
+
+
 def _program(fn: Callable):
     """``fn(params, *inputs)`` as the module ``torch.export`` traces."""
     import torch
@@ -338,6 +461,10 @@ def export_model(export_dir: str,
     ``torch.export.Dim`` so the signature accepts any batch size (the
     SavedModel ``None`` batch dimension; an example batch of 1 is traced
     as 2, since ``torch.export`` specialises a size of 1).
+
+    Quantized leaves (``ops.quant``) are written as their int8/uint8
+    values and scales, and ``fn`` receives them rebuilt inside the program
+    (module docstring).
     """
     if not is_chief:
         return None
@@ -346,7 +473,8 @@ def export_model(export_dir: str,
 
     export_dir = os.path.abspath(export_dir)
     os.makedirs(os.path.join(export_dir, _SIGNATURES_DIR), exist_ok=True)
-    params = {name: _as_cpu_tensor(t) for name, t in params.items()}
+    params, had_quant, lshapes = _plainify_int8(dict(params))
+    params = _tree_map(_as_cpu_tensor, params)
     vdir = os.path.join(export_dir, _VARIABLES_DIR)
     shutil.rmtree(vdir, ignore_errors=True)
     with _single_process():
@@ -354,6 +482,11 @@ def export_model(export_dir: str,
 
     signatures = {signature_name: (fn, example_inputs)}
     signatures.update(extra_signatures or {})
+    if had_quant:
+        signatures = {
+            name: ((lambda f: lambda p, *a: f(_requant_int8(p, lshapes), *a))(sig_fn),
+                   sig_inputs)
+            for name, (sig_fn, sig_inputs) in signatures.items()}
     meta: dict[str, Any] = {"format_version": _FORMAT_VERSION,
                             "tags": sorted(tags), "signatures": {}}
     for name, (sig_fn, sig_inputs) in signatures.items():
@@ -363,7 +496,7 @@ def export_model(export_dir: str,
                   for x, p in zip(inputs, poly)]
         batch = torch.export.Dim("batch")      # one symbol for every input's batch
         # the program's arguments are (params, inputs): *inputs is one tuple
-        dynamic = ({k: None for k in params},
+        dynamic = (_tree_map(lambda _: None, params),
                    tuple({0: batch} if p else None for p in poly))
         with torch.no_grad():
             program = torch.export.export(_program(sig_fn), (params, *traced),
@@ -474,8 +607,8 @@ class ExportedModel:
                 raise ValueError(f"tag_set {sorted(want)} not found in export "
                                  f"(has {sorted(have)})")
 
-        params = {name: t.to(device) for name, t in
-                  _host_state(os.path.join(export_dir, _VARIABLES_DIR)).items()}
+        params = _tree_map(lambda t: t.to(device),
+                           _host_state(os.path.join(export_dir, _VARIABLES_DIR)))
         signatures = {}
         for name, spec in meta["signatures"].items():
             program = torch.export.load(

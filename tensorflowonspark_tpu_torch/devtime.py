@@ -17,7 +17,8 @@ are all queued, and run back to back.
 (a kernel and its library yardstick), so that both see the same clocks,
 power and neighbours.  :func:`device_ms` sums a ``torch.profiler``
 trace's device time by kernel family (:data:`FAMILIES`), for the
-breakdowns of ``profile_bert`` and ``bench_resnet --profile``.  Needs a
+breakdowns of ``profile_bert``, ``profile_gpt`` and ``bench_resnet
+--profile`` (:func:`profile_calls` traces a callable).  Needs a
 CUDA card.
 """
 
@@ -42,8 +43,9 @@ FAMILIES = (  # first match wins; names as CUPTI reports them
     ("gelu", ("gelu",)),
     ("dropout masks", ("bernoulli", "philox")),
     ("reductions (delta, losses, grad sums)", ("reduce",)),
+    ("softmax", ("softmax",)),
     ("casts and copies", ("copy", "memcpy", "cast")),
-    ("embedding", ("embedding", "index")),
+    ("embedding, gathers and cache writes", ("embedding", "index", "gather", "scatter")),
 )
 
 
@@ -76,6 +78,44 @@ def device_ms(prof) -> tuple[dict, dict]:
             by_family[fam] = by_family.get(fam, 0.0) + dev_us / 1e3
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dev_us / 1e3
     return by_family, by_kernel
+
+
+def profile_calls(run, calls: int, unit: str) -> dict:
+    """Warm ``run`` up, time ``calls`` calls of it with the profiler off,
+    then trace as many with ``torch.profiler``.  Prints device ms a
+    ``unit`` by kernel family and the top kernels; returns the wall and
+    busy ms a unit, the idle shares (of the traced and of the unprofiled
+    wall) and the device ms a unit by family."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()       # the same work with the profiler off
+    for _ in range(calls):
+        run()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_family, by_kernel = device_ms(prof)
+    busy = sum(by_family.values())
+    print(f"{calls} x {unit}: wall {wall_ms / calls:.3f} ms a {unit}, device busy "
+          f"{busy / calls:.3f} ms (idle share {1 - busy / wall_ms:.3f}); profiler off: wall "
+          f"{plain_ms / calls:.3f} ms, idle share {1 - busy / plain_ms:.3f}")
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:40s} {ms / calls:9.3f} ms a {unit}  {ms / busy:6.3f} of device time")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {ms / calls:9.3f} ms a {unit}  {name[:100]}")
+    return {"calls": calls, "wall_ms": wall_ms / calls, "device_busy_ms": busy / calls,
+            "idle_share": 1 - busy / wall_ms, "wall_ms_unprofiled": plain_ms / calls,
+            "idle_share_unprofiled": 1 - busy / plain_ms,
+            "device_ms_by_family": {f: ms / calls for f, ms in by_family.items()}}
 
 
 @functools.cache

@@ -7,3 +7,10 @@ from tensorflowonspark_tpu_torch.models.mnist import MNISTNet  # noqa: F401
 from tensorflowonspark_tpu_torch.models.resnet import (  # noqa: F401
     BasicBlock, Bottleneck, CifarResNet, ResNet, ResNet18, ResNet34, ResNet50,
     conv7_stem_to_s2d_kernel, space_to_depth)
+from tensorflowonspark_tpu_torch.models.gpt import (GPT, GPTConfig,  # noqa: F401
+                                                    beam_generate, greedy_generate,
+                                                    init_cache, lookup_generate,
+                                                    sample_generate)
+from tensorflowonspark_tpu_torch.models.convert import (  # noqa: F401
+    bert_config_from_hf, bert_params_from_hf, gpt2_config_from_hf,
+    gpt2_params_from_hf, llama_config_from_hf, llama_params_from_hf)

@@ -39,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensorflowonspark_tpu_torch.ops.quant import _QuantArray
+
 logger = logging.getLogger(__name__)
 
 
@@ -68,8 +70,11 @@ class BertConfig:
 
 
 def _dense(layer: nn.Linear, x, dtype):
-    """flax ``nn.Dense(dtype=...)``: input, weight and bias in ``dtype``."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    """flax ``nn.Dense(dtype=...)``: input, weight and bias in ``dtype``.  A
+    quantized weight (``ops.quant``) is dequantized here, at the call."""
+    w = layer.weight
+    w = w.dequantize(dtype) if isinstance(w, _QuantArray) else w.to(dtype)
+    return F.linear(x.to(dtype), w, layer.bias.to(dtype))
 
 
 def _layer_norm(layer: nn.LayerNorm, x, dtype):

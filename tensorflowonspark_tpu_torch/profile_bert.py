@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 
 def forward(seed: int, device):
@@ -69,52 +68,18 @@ def main() -> int:
                    help="profile a training step instead of an inference batch")
     args = p.parse_args()
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from tensorflowonspark_tpu_torch.device_info import card_name_and_limit
-    from tensorflowonspark_tpu_torch.devtime import device_ms
+    from tensorflowonspark_tpu_torch.devtime import profile_calls
     from tensorflowonspark_tpu_torch.util import resolve_device, strict_matmul_precision
 
     device = resolve_device("cuda")
     strict_matmul_precision()
     card = card_name_and_limit()
     run = train_step(args.seed, device) if args.train else forward(args.seed, device)
-    for _ in range(3):
-        run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()       # the same work with the profiler off
-    for _ in range(args.batches):
-        run()
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.batches):
-            run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    by_family, by_kernel = device_ms(prof)
-    busy_ms = sum(by_family.values())
-    per = args.batches
-    what = "training steps" if args.train else "batches"
-    print(f"profile_bert on {card}: {per} {what} of 16 x 384, wall {wall_ms / per:.3f} ms "
-          f"a batch, device busy {busy_ms / per:.3f} ms a batch "
-          f"({busy_ms / wall_ms:.3f} of wall; idle share {1 - busy_ms / wall_ms:.3f}); "
-          f"with the profiler off: wall {plain_wall_ms / per:.3f} ms a batch, idle share "
-          f"{1 - busy_ms / plain_wall_ms:.3f}")
-    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam:36s} {ms / per:9.3f} ms a batch  {ms / busy_ms:6.3f} of device time")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"    {ms / per:9.3f} ms a batch  {name[:100]}")
+    what = "training step" if args.train else "batch"
+    print(f"profile_bert on {card}: {what}s of 16 x 384")
     print(json.dumps({"card": card, "mode": "train" if args.train else "inference",
-                      "batches": per, "wall_ms_per_batch": wall_ms / per,
-                      "device_busy_ms_per_batch": busy_ms / per,
-                      "idle_share": 1 - busy_ms / wall_ms,
-                      "wall_ms_per_batch_unprofiled": plain_wall_ms / per,
-                      "idle_share_unprofiled": 1 - busy_ms / plain_wall_ms,
-                      "device_ms_per_batch": {f: ms / per for f, ms in by_family.items()}}))
+                      **profile_calls(run, args.batches, what)}))
     return 0
 
 

@@ -375,3 +375,85 @@ def test_bert_trains_exports_and_serves_through_the_cluster(tmp_path):
     for j in range(2):
         np.testing.assert_allclose(np.stack([r[j] for r in results]), want[j],
                                    atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------------------------ int8 export
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_gpt_export_keeps_int8_and_serves_bit_identical(tmp_path, bits):
+    """A tiny GPT with ``quantize_params`` weights, exported: the variables
+    hold int8 (or packed uint8) values with their scales, the program
+    dequantizes inside, and its logits equal the eager quantized model's
+    bit for bit."""
+    from tensorflowonspark_tpu_torch.models import gpt
+    from tensorflowonspark_tpu_torch.ops import quantize_params
+
+    cfg = gpt.GPTConfig(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+                        intermediate_size=64, max_position_embeddings=16, dtype=torch.float32)
+    qparams = quantize_params(gpt.init_params(cfg, 0), bits=bits)
+    with torch.device("meta"):
+        skeleton = gpt.GPT(cfg)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (3, 8)))
+    with torch.no_grad():
+        want = gpt._model(cfg, qparams)(ids)
+    d = ckpt.export_model(str(tmp_path / "e"), lambda p, x: gpt.bind(skeleton, p)(x),
+                          qparams, [ids])
+    loaded = ckpt.ExportedModel.load(d, device="cpu")
+    assert torch.equal(next(iter(loaded(ids).values())), want)
+    stored = loaded.params["layers.0.mlp_up.weight"]
+    assert stored["q"].dtype == (torch.int8 if bits == 8 else torch.uint8)
+    assert set(stored) == ({"q", "scale"} if bits == 8 else {"q", "scale", "lshape"})
+    assert loaded.params["tok_emb.weight"].dtype == torch.float32
+
+
+def test_int8_export_serves_as_the_jax_int8_export(tmp_path):
+    """The JAX package's ``test_int8_export_serves_without_model_code`` net
+    (Dense 32, ReLU, Dense 4), quantized on both sides from the same
+    weights and exported by each package: the same outputs (float32,
+    ``atol = rtol = 1e-5``; the dequantized weights are equal)."""
+    import flax.linen as nn
+
+    from tensorflowonspark_tpu.ops import quantize_params as jax_quantize
+    from tensorflowonspark_tpu_torch.ops import quantize_params
+
+    class Net(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            x = nn.relu(nn.Dense(32)(x))
+            return nn.Dense(4)(x)
+
+    x = np.random.default_rng(0).normal(size=(8, 16)).astype(np.float32)
+    params = Net().init(jax.random.key(0), x)["params"]
+    jdir = jckpt.export_model(str(tmp_path / "jax"), lambda p, x: Net().apply({"params": p}, x),
+                              jax_quantize(params), [x])
+    want = np.asarray(next(iter(jckpt.ExportedModel.load(jdir)(x).values())))
+
+    sd = {}
+    for name in ("Dense_0", "Dense_1"):
+        sd[f"{name}.weight"] = torch.from_numpy(np.array(params[name]["kernel"]).T.copy())
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(params[name]["bias"]))
+
+    def fwd(p, x):
+        def dense(name, x):
+            w = p[f"{name}.weight"].dequantize()
+            return torch.nn.functional.linear(x, w, p[f"{name}.bias"])
+        return dense("Dense_1", torch.relu(dense("Dense_0", x)))
+
+    pdir = ckpt.export_model(str(tmp_path / "port"), fwd, quantize_params(sd),
+                             [torch.from_numpy(x)])
+    got = next(iter(ckpt.ExportedModel.load(pdir, device="cpu")(x).values())).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_a_quantized_leaf_the_walk_cannot_reach_raises(tmp_path):
+    import dataclasses
+
+    from tensorflowonspark_tpu_torch.ops import quantize_int8
+
+    @dataclasses.dataclass
+    class Holder:
+        w: object
+
+    params = {"h": Holder(quantize_int8(torch.ones(4, 4)))}
+    with pytest.raises(ValueError, match="does not traverse"):
+        ckpt.export_model(str(tmp_path / "e"), lambda p, x: x, params, [torch.ones(2, 4)])

@@ -143,7 +143,7 @@ def test_device_default_is_the_card():
             resolve_device(None)
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorflowonspark_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "transformers", "tensorflowonspark_tpu")
 PACKAGE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "tensorflowonspark_tpu_torch")
 
@@ -177,7 +177,9 @@ def test_port_imports_no_jax_nor_the_jax_package():
                  "resnet_train", "mnist_train", "bench_resnet", "filesystem", "tfrecord",
                  "example_proto", "dataframe", "dfutil", "preemption", "checkpoint",
                  "pipeline", "estimator", "examples.mnist.mnist_pipeline",
-                 "examples.mnist.mnist_estimator", "examples.bert.bert_squad"):
+                 "examples.mnist.mnist_estimator", "examples.bert.bert_squad",
+                 "models.gpt", "models.kv_pages", "models.convert", "ops.quant", "ops.xent",
+                 "examples.gpt.gpt_tiny", "bench_gpt_decode"):
         assert f"tensorflowonspark_tpu_torch.{name}" in report["imported"], name
     assert [m for m in report["new"] if _forbidden(m)] == []
 
@@ -242,6 +244,58 @@ def test_root_exports_what_the_reference_root_exports_for_ported_modules():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report == {"bad": [], "jax": []}
+
+
+def _reference_package_imports(package: str) -> list[tuple[str, str]]:
+    """``(module, name)`` for every ``from tensorflowonspark_tpu.<package>.<module>
+    import <name>`` in the JAX package's ``<package>/__init__.py``."""
+    path = os.path.join(os.path.dirname(PACKAGE_DIR), "tensorflowonspark_tpu", package,
+                        "__init__.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    prefix = f"tensorflowonspark_tpu.{package}."
+    return [(node.module[len(prefix):], a.name) for node in tree.body
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(prefix)
+            for a in node.names]
+
+
+#: names of ported modules that the port leaves out, each waiting for its
+#: queue item: ``shard_quantized`` for the port's mesh (A6), BERT's
+#: sequence-classification head for A5b
+NOT_PORTED_YET = {("ops", "quant", "shard_quantized"),
+                  ("models", "bert", "BertForSequenceClassification")}
+
+
+@pytest.mark.parametrize("package", ["models", "ops"])
+def test_models_and_ops_export_the_reference_names_of_ported_modules(package):
+    """For every module of the JAX package's ``models``/``ops`` imports
+    that the port has, the port's package exports the same names (the
+    port module's objects), the only gaps being :data:`NOT_PORTED_YET` — in
+    a fresh interpreter that loads no JAX-family module."""
+    expected, missing = [], set()
+    for module, name in _reference_package_imports(package):
+        if not os.path.exists(os.path.join(PACKAGE_DIR, package, module + ".py")):
+            continue                              # not ported yet
+        mod = importlib.import_module(f"tensorflowonspark_tpu_torch.{package}.{module}")
+        if hasattr(mod, name):
+            expected.append((module, name))
+        else:
+            missing.add((package, module, name))
+    assert missing == {m for m in NOT_PORTED_YET if m[0] == package}
+    assert {"gpt", "convert", "quant", "xent"} & {m for m, _ in expected}
+    code = (
+        "import importlib, json, sys\n"
+        f"pkg = importlib.import_module('tensorflowonspark_tpu_torch.{package}')\n"
+        f"expected = {expected!r}\n"
+        "bad = [(m, n) for m, n in expected if getattr(pkg, n, None) is not getattr("
+        f"importlib.import_module('tensorflowonspark_tpu_torch.{package}.' + m), n)]\n"
+        "print(json.dumps({'bad': bad, 'jax': sorted(m for m in sys.modules "
+        "if m.split('.')[0] in %r)}))\n" % (_FORBIDDEN,))
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=os.path.dirname(PACKAGE_DIR), env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"bad": [], "jax": []}
 
 
 def test_port_sources_name_no_jax_import():

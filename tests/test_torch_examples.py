@@ -5,7 +5,9 @@
 2 gloo workers, at the JAX package's example test sizes
 (``tests/test_examples.py``) cut to finish in seconds.  Each must print its
 closing line; the estimator's workers must both report the final eval at
-the step budget.  ``bert_squad``'s ``train_fn``, rows and mappings run in
+the step budget.  ``gpt_tiny`` (in-process ``train_and_evaluate``, then
+greedy and lookup generation, which must agree) runs both archs, the
+llama-class one with the chunked LM-head loss.  ``bert_squad``'s ``train_fn``, rows and mappings run in
 ``test_torch_pipeline_bert.py``.
 """
 
@@ -28,6 +30,13 @@ CASES = {
                          "--num_samples", "256"],
                         ["mnist_estimator: done", "node 0: final eval step=8",
                          "node 1: final eval step=8"]),
+    "gpt_tiny_gpt2": (["gpt.gpt_tiny", "--cpu", "--max_steps", "6"],
+                      ["gpt_tiny: eval loss", "at step 6", "gpt_tiny: generated [7, 8, 9",
+                       "speculative decode matched greedy", "gpt_tiny: done"]),
+    "gpt_tiny_llama": (["gpt.gpt_tiny", "--cpu", "--max_steps", "6", "--arch", "llama",
+                        "--chunked_xent"],
+                       ["gpt_tiny: eval loss", "at step 6", "speculative decode matched greedy",
+                        "gpt_tiny: done"]),
 }
 
 
@@ -35,7 +44,7 @@ CASES = {
 def test_example_runs(tmp_path, name):
     argv, expected = CASES[name]
     module, *flags = argv
-    out_flag = "--model_dir" if name == "mnist_estimator" else "--export_dir"
+    out_flag = "--export_dir" if name == "mnist_pipeline" else "--model_dir"
     cmd = [sys.executable, "-m", f"tensorflowonspark_tpu_torch.examples.{module}", *flags,
            out_flag, str(tmp_path / "out")]
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
