@@ -136,15 +136,52 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    reloaded on the card, its logits bit-identical to the eager int8
    model, its variables within :data:`EXPORT_BYTES_SLACK` of the share
    its parameter bytes give of the bf16 export's; then ``bench_gpt_decode``'s JSON line (bf16, int8,
-   int8 + int8 KV and lookup decode tok/s).
+   int8 + int8 KV and lookup decode tok/s);
+15. BASELINE config 4: the port's ``examples/wide_deep/wide_deep_criteo.py``
+   through ``TPUCluster.run`` (one worker, ``InputMode.TENSORFLOW``, 26
+   categorical and 13 dense features, ``vocab_size`` 1,298,561 a feature:
+   the Criteo Kaggle total of 33.76M table rows, embed 16, MLP (256, 128,
+   64), batch 8192, 8 steps of dense optax adagrad, checkpoints at steps 4
+   and 8); its first 4 steps replayed by the port's float32 path on the
+   CPU: every loss, the MLP and the touched table rows within
+   :data:`WIDE_DEEP_TOL`, untouched rows bit for bit their initial values,
+   where ``torch.optim.Adagrad``'s semantics on the card must not be; then
+   ``build_sparse_embedding_train_step`` (adagrad) on one table holding all
+   26 Kaggle vocabularies end to end (33,762,577 x 16), held to a CPU replay
+   (:data:`SPARSE_TOL`), where writes that let the last duplicate id win
+   must not be; then ``bench_embedding``'s JSON line;
+16. Inception-v3 at full width: one train-mode step at 299 px, batch 2,
+   aux head, BatchNorm scales from U(0.5, 1.5), on the card in float32 and
+   in bf16 against the port's float32 CPU path (logits, aux logits, loss,
+   gradients, BatchNorm buffers; :data:`INCEPTION_TOL`), where the 1x7 /
+   7x1 kernels with their axes swapped must not be; then the port's
+   ``inception_imagenet.py`` through ``TPUCluster.run``, 4 steps of 32 at
+   299 px (bf16, aux loss 0.3, RMSProp under the decay): finite losses,
+   every RMSProp momentum moved; images/s and FLOP share;
+17. U-Net at its default widths (64, 128, 256, 512), 256 px: the same
+   card-against-CPU gate at batch 1 (:data:`UNET_TOL`; the transposed
+   kernels without flax's flip must fail), then the port's
+   ``unet_segmentation.py`` through ``TPUCluster.run``, 6 steps of 8;
+18. BERT-base sequence classification (T 128, batch 32, 3 classes, dropout
+   0.1, AdamW) with ``remat=True``, 8 steps through the flash kernels (K1
+   24 times a step: 12 in the forward, 12 in the recomputation; K2 and K3
+   12): every loss and the final weights within :data:`TRAIN_TOL` of a
+   plain-attention replay, where a remat whose recomputation draws fresh
+   dropout masks must not be; remat's gradients equal no remat's from the
+   same generator (:data:`REMAT_TOL`; the fresh-mask remat must not); step
+   time and peak memory with and without remat.
 
-Each phase's seconds are printed.  The ResNet and MNIST paths run none of
-the repo's hand-written kernels (their convolutions are cuDNN's); the
-summary's ``launches_by_path`` shows each kernel's launches on every path,
-and ``launches`` is phase 13's (this slice's main path).  The summary's
-times, bound and yardsticks are at phase 13's shape ([8, 1024, 12, 64]
-bf16, causal, the bound counting the causal trim), with the BERT shape's
-under ``bert_shape``.  The line before the last is the card's name and
+``python3 chip_smoke.py --calibrate-slice9`` only logs phases 15-18's gate
+readings at three seeds (the examples and the bench at the first).
+
+Each phase's seconds are printed.  The ResNet, MNIST, Wide&Deep,
+Inception-v3 and U-Net paths run none of the repo's hand-written kernels
+(their convolutions and GEMMs are cuDNN's and cuBLAS's); the summary's
+``launches_by_path`` shows each kernel's launches on every path, and
+``launches`` is phase 18's (this slice's path through the kernels).  The
+summary's times, bound and yardsticks are at phase 18's shape ([32, 128,
+12, 64] bf16, key padding), with the decoder's causal shape under
+``gpt_shape`` and the BERT QA shape under ``bert_shape``.  The line before the last is the card's name and
 power limit; the line before that is the ``{"kernels": [...]}`` summary;
 the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result line, without a CUDA card or outside a
@@ -246,18 +283,23 @@ def flash_cases(seed: int):
     """(name, B, Tq, Tk, H, D, dtype, key lengths or None, causal, window,
     atol).  Every shape a path of the smoke gives the kernels is here: the
     first is BERT-base at T=384 in batches of 16, with ragged key padding
-    and one fully masked row; the next three are the decoder's (phase 13's
-    causal training shape, the main path; phase 13b's windowed one; phase
-    14's prefill and export)."""
+    and one fully masked row; the second BERT-base classification's (phase
+    18, this slice's main path: batch 32 at T = 128); the next three are the
+    decoder's (phase 13's causal training shape; phase 13b's windowed one;
+    phase 14's prefill and export)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     bert_lens = [int(x) for x in rng.integers(192, 385, 16)]
     bert_lens[5] = 0                                   # a fully masked row
+    cls_lens = [int(x) for x in rng.integers(64, 129, 32)]
     bf16, f32 = torch.bfloat16, torch.float32
     return [
         ("bert_bf16", 16, 384, 384, 12, 64, bf16, bert_lens, False, None, 2e-2),
+        # BERT-base sequence classification (phase 18): one 128-row tile
+        # with key padding (lengths 64..128)
+        ("bert_cls_bf16", 32, 128, 128, 12, 64, bf16, cls_lens, False, None, 2e-2),
         # the decoder's training shape (phase 13): GPT-124M-class, causal
         ("gpt_causal_bf16", 8, 1024, 1024, 12, 64, bf16, None, True, None, 2e-2),
         # the llama-class variant's (phase 13b): the GQA repeat before the
@@ -282,11 +324,12 @@ def flash_cases(seed: int):
 
 
 #: the cases timed beside their bound, plain version and SDPA: this
-#: slice's main path (phase 13's causal GPT shape, the summary's top level)
-#: and the BERT shape of the earlier slices (``bert_shape`` in the summary)
-MAIN_CASE, BERT_CASE = "gpt_causal_bf16", "bert_bf16"
+#: slice's main path (phase 18's classification shape, the summary's top
+#: level), the decoder's causal shape (``gpt_shape``) and the BERT QA shape
+#: of the earlier slices (``bert_shape``)
+MAIN_CASE, GPT_CASE, BERT_CASE = "bert_cls_bf16", "gpt_causal_bf16", "bert_bf16"
 #: plain versions at the GPT shape take milliseconds a call: fewer samples
-PLAIN_REPS = {MAIN_CASE: 5, BERT_CASE: KERNEL_REPS}
+PLAIN_REPS = {MAIN_CASE: KERNEL_REPS, GPT_CASE: 5, BERT_CASE: KERNEL_REPS}
 
 #: the padded head dims timed against SDPA, at BERT-base's batch and length
 PADDED_HEAD_DIMS = (16, 96)
@@ -345,7 +388,7 @@ def check_flash(seed: int) -> dict:
         sdpa_kw = {"is_causal": True} if causal else {}
         if lens is not None:  # SDPA returns NaN on a fully masked row: give it its keys
             sdpa_mask = mask.clone()
-            sdpa_mask[lens.index(0)] = True
+            sdpa_mask[[i for i, n in enumerate(lens) if n == 0]] = True
             sdpa_kw = {"attn_mask": sdpa_mask[:, None, None, :]}
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         kernel = lambda: flash_attention_fwd(q, k, v, mask=mask, causal=causal)  # noqa: E731
@@ -367,7 +410,7 @@ def check_flash(seed: int) -> dict:
         }
     return {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES, "design": HOPPER_DESIGN, "launches": None,
-            **timed[MAIN_CASE], "bert_shape": timed[BERT_CASE]}
+            **timed[MAIN_CASE], "gpt_shape": timed[GPT_CASE], "bert_shape": timed[BERT_CASE]}
 
 
 def visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
@@ -482,7 +525,7 @@ def check_flash_bwd(seed: int) -> list[dict]:
         sdpa_kw = {"is_causal": True} if causal else {}
         if lens is not None:  # SDPA: NaN on a fully masked row
             sdpa_mask = mask.clone()
-            sdpa_mask[lens.index(0)] = True
+            sdpa_mask[[i for i, n in enumerate(lens) if n == 0]] = True
             sdpa_kw = {"attn_mask": sdpa_mask[:, None, None, :]}
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
@@ -514,7 +557,7 @@ def check_flash_bwd(seed: int) -> list[dict]:
              "achieved_tflops": 4 * prod / (turns["dkv"] * 1e-3) / 1e12})
     return [{"name": kname, "route": "cuda", "source": BWD_SOURCE, "replaces": replaces,
              "design": HOPPER_DESIGN, "launches": None, **timed[MAIN_CASE][j],
-             "bert_shape": timed[BERT_CASE][j]}
+             "gpt_shape": timed[GPT_CASE][j], "bert_shape": timed[BERT_CASE][j]}
             for j, (kname, replaces) in enumerate((("flash_attention_dq", DQ_REPLACES),
                                                    ("flash_attention_dkv", DKV_REPLACES)))]
 
@@ -2272,12 +2315,795 @@ def check_gpt_generation(seed: int, card: str, wd: str, trained: dict,
 
 
 
+# ------------------------------------------------- the other models (slice 9)
+
+#: the 26 categorical vocabularies of Criteo Kaggle (the DLRM repository's
+#: Kaggle loader); they sum to 33,762,577 rows
+CRITEO_KAGGLE_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+                        8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
+                        286181, 105, 142572)
+#: phase 15's dense run: the JAX example takes one vocab for all 26
+#: features, so 1,298,561 rows each gives the Kaggle total (33.76M rows,
+#: 2.2 GB of float32 embeddings at 16 wide); the replay on the CPU covers
+#: the first ``replay_steps`` (the worker checkpoints there too)
+WIDE_DEEP = {"vocab_size": 1_298_561, "embed_dim": 16, "batch_size": 8192, "steps": 8,
+             "lr": 0.05, "save_every": 4, "replay_steps": 4}
+#: the Wide&Deep gates against the CPU replay (float32 both sides, no TF32):
+#: each step's loss, relative; ||w - w_cpu|| / ||w_cpu - w0|| of the MLP's
+#: parameters (max) and of each table over the rows the batches touched
+#: (max); rows no batch touched must equal their initial value bit for
+#: bit.  The sparse step: the touched rows of the table and of the adagrad
+#: slot likewise.  Readings at seeds 0-2 and the planted faults: PERF.md
+WIDE_DEEP_TOL = {"loss": 1e-4, "mlp": 1e-2, "rows": 1e-2}
+SPARSE_TOL = {"loss": 1e-4, "rows": 1e-3, "slot": 1e-3}
+SPARSE = {"batch_size": 8192, "steps": 8, "embed_dim": 16, "lr": 0.05}
+
+
+def wide_deep_args(seed: int, model_dir: str, cfg: dict, device: str):
+    return argparse.Namespace(cluster_size=1, num_ps=1, batch_size=cfg["batch_size"],
+                              steps=cfg["steps"], lr=cfg["lr"], vocab_size=cfg["vocab_size"],
+                              embed_dim=cfg["embed_dim"], seed=seed,
+                              save_every=cfg["save_every"], model_dir=model_dir,
+                              cpu=device == "cpu", device=device)
+
+
+def wide_deep_readings(w: dict, w_cpu: dict, w0: dict, touched: list) -> dict:
+    """``w`` against the CPU replay's ``w_cpu`` (both from ``w0``), as
+    :data:`WIDE_DEEP_TOL` reads them; ``touched[i]``: feature ``i``'s rows."""
+    import torch
+
+    mlp, rows, untouched_equal = {}, {}, True
+    for name, ref in w_cpu.items():
+        got, start = w[name].cpu(), w0[name]
+        if name.startswith(("wide.", "emb.")):
+            i = int(name.split(".")[1])
+            t = torch.zeros(ref.shape[0], dtype=torch.bool)
+            t[torch.from_numpy(touched[i])] = True
+            rows[name] = ((got[t] - ref[t]).norm() / (ref[t] - start[t]).norm()).item()
+            untouched_equal &= torch.equal(got[~t], start[~t])
+        else:
+            mlp[name] = ((got - ref).norm() / (ref - start).norm()).item()
+    return {"mlp": max(mlp.values()), "mlp_worst": max(mlp, key=mlp.get),
+            "rows": max(rows.values()), "rows_worst": max(rows, key=rows.get),
+            "untouched_equal": untouched_equal}
+
+
+def run_wide_deep(seed: int, card: str, wd: str, cfg: dict | None = None,
+                  device: str = "cuda", gate: bool = True) -> dict:
+    """BASELINE config 4, dense: the port's ``wide_deep_criteo.main_fun``
+    through ``TPUCluster.run`` (one worker, ``InputMode.TENSORFLOW``) at the
+    Criteo Kaggle total of table rows (:data:`WIDE_DEEP`), checkpointing at
+    ``replay_steps`` and at the end; then the same batches replayed by the
+    port's float32 path on the CPU, and the card again with
+    ``torch.optim.Adagrad`` (the planted fault), each against the replay
+    (:data:`WIDE_DEEP_TOL`).  Returns the run's numbers."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint
+    from tensorflowonspark_tpu_torch.cluster import InputMode, TPUCluster
+    from tensorflowonspark_tpu_torch.examples.wide_deep import wide_deep_criteo as wdc
+    from tensorflowonspark_tpu_torch.models.wide_deep import WideDeep
+
+    cfg = cfg or WIDE_DEEP
+    model_dir = os.path.join(wd, "wide_deep_model")
+    args = wide_deep_args(seed, model_dir, cfg, device)
+    rows = cfg["vocab_size"] * wdc.NUM_CATEGORICAL
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cluster = TPUCluster.run(wdc.main_fun, args, 1, input_mode=InputMode.TENSORFLOW,
+                             reservation_timeout=600, working_dir=os.path.join(wd, "wide_deep"))
+    cluster.shutdown(timeout=900)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(cluster.working_dir, "wide_deep_stats.0.json")) as f:
+        st = json.load(f)
+    if len(st["losses"]) != cfg["steps"] or not all(map(math.isfinite, st["losses"])):
+        raise SystemExit(f"Wide&Deep losses: {st['losses']}")
+    steady = statistics.median(st["step_ms"][1:])
+    out = {"rows": rows, "step_ms": steady, "examples_per_s": cfg["batch_size"] / steady * 1e3,
+           "peak_MB": (st["peak_bytes"] or 0) / 1e6, "wall_s": wall, "losses": st["losses"]}
+    log(f"Wide&Deep (dense) through TPUCluster.run on {st['device']}: {cfg['steps']} steps of "
+        f"{cfg['batch_size']} over {rows:,} table rows x ({cfg['embed_dim']} + 1), "
+        f"{wall:.1f} s wall; median step {steady:.2f} ms over steps 2..{cfg['steps']} "
+        f"(all {[round(x, 2) for x in st['step_ms']]}) = {1e3 / steady:.1f} steps/s, "
+        f"{out['examples_per_s']:,.0f} examples/s; peak memory {out['peak_MB']:,.0f} MB; losses "
+        f"{[round(x, 5) for x in st['losses']]}")
+
+    # the replay on the CPU, float32, over the first replay_steps batches
+    n = cfg["replay_steps"]
+    batches = list(itertools.islice(wdc.batches(args, 17), n))
+    touched = [np.unique(np.concatenate([c[:, i] for _, c, _ in batches]))
+               for i in range(wdc.NUM_CATEGORICAL)]
+    t0 = time.perf_counter()
+    model = wdc.build_model(args, torch.device("cpu"))
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    replay = wdc.train(model, args, torch.device("cpu"), batches)
+    w_cpu = {k: v.detach() for k, v in model.state_dict().items()}
+    del model
+    log(f"Wide&Deep CPU replay of {n} steps: {time.perf_counter() - t0:.1f} s; losses "
+        f"{[round(x, 5) for x in replay['losses']]}")
+    saved = restore_checkpoint(model_dir, step=n)["model"]
+
+    def fault_run():
+        with torch.device("meta"):
+            fmodel = WideDeep([args.vocab_size] * wdc.NUM_CATEGORICAL, args.embed_dim)
+        fmodel = fmodel.to_empty(device=device)
+        fmodel.load_state_dict(w0)                   # the replay's start, copied
+        fstats = wdc.train(fmodel, args, torch.device(device), batches,
+                           optimizer_fn=lambda p: torch.optim.Adagrad(p, lr=args.lr))
+        return fstats["losses"], {k: v.detach().cpu() for k, v in fmodel.state_dict().items()}
+
+    verdicts = {}
+    for name, (losses, w) in (("card (worker)", (st["losses"][:n], saved)),
+                              ("card, torch.optim.Adagrad (planted fault)", fault_run())):
+        r = wide_deep_readings(w, w_cpu, w0, touched)
+        r["loss"] = max(abs(a - b) / abs(b) for a, b in zip(losses, replay["losses"]))
+        verdicts[name] = within(r, WIDE_DEEP_TOL) and r["untouched_equal"]
+        log(f"Wide&Deep gate, {name} vs the CPU replay: loss {r['loss']:.3g}; MLP max "
+            f"{r['mlp']:.3g} ({r['mlp_worst']}); touched rows max {r['rows']:.3g} "
+            f"({r['rows_worst']}); untouched rows bit-identical {r['untouched_equal']}")
+        out[name] = r
+    del w_cpu, w0, saved
+    _gate(gate, "Wide&Deep", WIDE_DEEP_TOL, verdicts)
+    return out
+
+
+def _gate(gate: bool, what: str, tol: dict, verdicts: dict) -> None:
+    """Fail unless every sound run is within ``tol`` and every planted
+    fault (a name with "fault") outside it; only log with ``gate=False``."""
+    sound = [ok for name, ok in verdicts.items() if "fault" not in name]
+    faults = [ok for name, ok in verdicts.items() if "fault" in name]
+    log(f"{what} gate {tol}: sound runs {'within' if all(sound) else 'OUTSIDE'}; planted "
+        f"faults {'outside' if not any(faults) else 'INSIDE'}")
+    if gate and not all(sound):
+        raise SystemExit(f"{what}: the card disagrees with the CPU replay")
+    if gate and any(faults):
+        raise SystemExit(f"{what}: the gate does not see the planted fault")
+
+
+def _last_duplicate_wins(table, acc, local, g, lr, eps, optimizer):
+    """The planted fault: adagrad rows written with ``index_put_`` without
+    ``accumulate``, so of duplicate ids one write wins."""
+    import torch
+
+    local = local.reshape(-1)
+    g = g.reshape(local.shape[0], -1).to(table.dtype)
+    acc.index_put_((local,), acc[local] + g * g)
+    table.index_put_((local,), table[local] - lr * g / torch.sqrt(acc[local] + 1e-8))
+    return table, acc
+
+
+def run_sparse_criteo(seed: int, card: str, vocabs=CRITEO_KAGGLE_VOCABS, cfg: dict | None = None,
+                      device: str = "cuda", gate: bool = True) -> dict:
+    """``build_sparse_embedding_train_step`` (adagrad) on one table holding
+    every Criteo Kaggle vocabulary end to end (33,762,577 x 16), each
+    feature's ids drawn from its own vocabulary (the JAX example's click
+    rule) and offset by the vocabularies before it; the objective is the
+    logit ``sum_f <emb_f, W_f>`` under the sigmoid cross-entropy.  The card's
+    run and a run whose writes let the last duplicate win (the planted
+    fault; three features have 3, 4 and 10 ids, so every batch of 8192
+    repeats ids) against the same steps on the CPU (:data:`SPARSE_TOL`)."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.wide_deep import wide_deep_criteo as wdc
+    from tensorflowonspark_tpu_torch.models.wide_deep import sigmoid_binary_cross_entropy
+    from tensorflowonspark_tpu_torch.parallel import build_sparse_embedding_train_step
+    from tensorflowonspark_tpu_torch.parallel import embedding
+
+    cfg = cfg or SPARSE
+    V, F, B = sum(vocabs), cfg["embed_dim"], cfg["batch_size"]
+    offsets = np.concatenate([[0], np.cumsum(vocabs)[:-1]])
+    rng = np.random.default_rng([seed, 15])
+    proj = rng.standard_normal((len(vocabs), F)).astype(np.float32)
+    batches = []
+    for _ in range(cfg["steps"]):
+        _, cat, label = wdc._batch(rng, vocabs, B)
+        batches.append((cat + offsets, label))
+    ids_all = np.unique(np.concatenate([ids.reshape(-1) for ids, _ in batches]))
+    table0 = torch.empty(V, F).normal_(0.0, 0.02, generator=torch.Generator().manual_seed(seed))
+
+    def run(dev, fault=False):
+        dev = torch.device(dev)
+        w = torch.from_numpy(proj).to(dev)
+        step = build_sparse_embedding_train_step(
+            None, lambda e, y: sigmoid_binary_cross_entropy((e * w).sum((1, 2)), y).mean(),
+            lr=cfg["lr"], optimizer="adagrad")
+        cuda = dev.type == "cuda"
+        base = torch.cuda.memory_allocated() if cuda else 0
+        table, slot = table0.to(dev, copy=True), torch.zeros(V, F, device=dev)
+        saved = embedding._sparse_rows_update
+        if fault:
+            embedding._sparse_rows_update = _last_duplicate_wins
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        try:
+            for ids, y in batches:
+                t0 = time.perf_counter()
+                table, slot, loss = step(table, slot, torch.from_numpy(ids).to(dev),
+                                         torch.from_numpy(y).to(dev))
+                losses.append(float(loss))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            embedding._sparse_rows_update = saved
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6 if cuda else None
+        return losses, ms, peak, table, slot
+
+    losses, ms, peak, table, slot = run(device)
+    t0 = time.perf_counter()
+    c_losses, _, _, c_table, c_slot = run("cpu")
+    replay_s = time.perf_counter() - t0
+    steady = statistics.median(ms[1:])
+    out = {"rows": V, "step_ms": steady, "examples_per_s": B / steady * 1e3, "peak_MB": peak,
+           "lookups_per_s": B * len(vocabs) / steady * 1e3, "touched_rows": int(len(ids_all))}
+    log(f"sparse Criteo step on {card}: one {V:,} x {F} table (all 26 Kaggle vocabularies), "
+        f"batch {B} x {len(vocabs)} ids, {len(ids_all):,} rows touched in {cfg['steps']} "
+        f"steps; median step {steady:.3f} ms = {1e3 / steady:.1f} steps/s, "
+        f"{out['examples_per_s']:,.0f} examples/s, {out['lookups_per_s']:,.0f} "
+        f"lookups+updates/s; peak memory {peak or 0:,.0f} MB (table and slot "
+        f"{2 * V * F * 4 / 1e6:,.0f} MB); CPU replay {replay_s:.1f} s")
+    t = torch.zeros(V, dtype=torch.bool)
+    t[torch.from_numpy(ids_all)] = True
+    fault = run(device, fault=True)
+    verdicts = {}
+    for name, (ls, tab, sl) in (("card", (losses, table, slot)),
+                                ("card, last duplicate wins (planted fault)",
+                                 (fault[0], fault[3], fault[4]))):
+        tab, sl = tab.cpu(), sl.cpu()
+        r = {"loss": max(abs(a - b) / abs(b) for a, b in zip(ls, c_losses)),
+             "rows": ((tab[t] - c_table[t]).norm() / (c_table[t] - table0[t]).norm()).item(),
+             "slot": ((sl[t] - c_slot[t]).norm() / c_slot[t].norm()).item(),
+             "untouched_equal": torch.equal(tab[~t], table0[~t]) and not sl[~t].any()}
+        verdicts[name] = within(r, SPARSE_TOL) and r["untouched_equal"]
+        log(f"sparse gate, {name} vs the CPU replay: loss {r['loss']:.3g}; touched rows "
+            f"{r['rows']:.3g}; slot {r['slot']:.3g}; untouched rows and slot unchanged "
+            f"{r['untouched_equal']}")
+        out[name] = r
+    _gate(gate, "sparse Criteo step", SPARSE_TOL, verdicts)
+    return out
+
+
+def conv_macs(model, x, **kwargs) -> int:
+    """Multiply-adds of one forward of ``model`` on ``x`` (convolutions,
+    transposed convolutions and Dense layers, from their output shapes),
+    counted on the meta device: nothing is computed."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    from tensorflowonspark_tpu_torch.models.resnet import Conv
+    from tensorflowonspark_tpu_torch.models.unet import ConvTranspose
+
+    total = [0]
+
+    def hook(mod, inputs, out):
+        out = out[0] if isinstance(out, tuple) else out
+        w = mod.weight
+        if isinstance(mod, nn.Linear):
+            total[0] += out.numel() * w.shape[1]
+        elif isinstance(mod, ConvTranspose):
+            total[0] += inputs[0].numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        else:
+            total[0] += out.numel() * w[0].numel()
+
+    meta = copy.deepcopy(model).to("meta")
+    for mod in meta.modules():
+        if isinstance(mod, (Conv, nn.Conv2d, nn.Linear, ConvTranspose)):
+            mod.register_forward_hook(hook)
+    with torch.no_grad():
+        meta(x.to("meta"), **kwargs)
+    return total[0]
+
+
+def image_gate_readings(card: dict, cpu: dict) -> dict:
+    """A card step's outputs against the CPU's: ``{name: tensor}`` of
+    ``logits``/``aux``/``loss``, ``grad/<param>`` and ``buffer/<name>``
+    (with ``buffer0/<name>`` the values before the step), as
+    :data:`INCEPTION_TOL` and :data:`UNET_TOL` read them."""
+    import numpy as np
+
+    r = {}
+    for k in ("logits", "aux"):
+        if k in cpu:
+            r[k] = ((card[k].cpu().float() - cpu[k]).abs().max() / cpu[k].abs().max()).item()
+    r["loss"] = abs(card["loss"] - cpu["loss"])
+    rel = {n: ((card[n].cpu() - g).norm() / g.norm()).item()
+           for n, g in cpu.items() if n.startswith("grad/") and g.norm() > 0}
+    worst = max(rel, key=rel.get)
+    r.update(max=rel[worst], worst=worst[5:], median=float(np.median(list(rel.values()))))
+    bufs = [((card[n].cpu() - b).norm() / (b - cpu["buffer0/" + n[7:]]).norm()).item()
+            for n, b in cpu.items() if n.startswith("buffer/")]
+    if bufs:
+        r["buffers"] = max(bufs)
+    return r
+
+
+def image_step(model, x, y, device: str, loss_fn) -> dict:
+    """One train-mode forward and backward of ``model`` on ``device``: the
+    outputs :func:`image_gate_readings` compares."""
+    import torch
+
+    dev = torch.device(device)
+    model = model.to(dev)
+    x = x.to(dev)
+    if dev.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+        x = x.contiguous(memory_format=torch.channels_last)
+    bufs0 = {n: b.detach().clone() for n, b in model.named_buffers() if "running" in n}
+    out = loss_fn(model, x, y.to(dev))
+    out["loss"].backward()
+    res = {k: v.detach() for k, v in out.items() if k != "loss"}
+    res["loss"] = out["loss"].item()
+    res.update({"grad/" + n: p.grad.detach() for n, p in model.named_parameters()})
+    res.update({"buffer/" + n: b.detach() for n, b in model.named_buffers() if "running" in n})
+    res.update({"buffer0/" + n: b for n, b in bufs0.items()})
+    return res
+
+
+#: phase 16's gate, one train-mode step at 299 px, batch 2, aux head on,
+#: dropout 0, BatchNorm scales from U(0.5, 1.5), against the port's CPU
+#: path: max |logit diff| over max |logit| (logits and aux logits), the
+#: loss's |diff|, ||g - g_cpu|| / ||g_cpu|| over the parameters (max and
+#: median), and ||b - b_cpu|| / ||b_cpu - b0|| of the BatchNorm buffers
+#: (max).  At init the train-mode network is chaotic: its gradients through
+#: ~94 batch-normalised layers amplify rounding by ~1e7 (float32 card
+#: against float32 CPU: gradients max 1.1, median 0.41, where the forward
+#: agrees to 4e-5), so the gradients are gated in float64 on both sides
+#: (cuDNN's float64 convolutions on the card), the float32 step's forward
+#: quantities (logits, loss, buffers) in float32, and the bf16 step is
+#: logged only; the planted fault (the 1x7 / 7x1 kernels with their axes
+#: swapped) must fall outside the float64 gate.  Readings at seeds 0-2:
+#: PERF.md
+INCEPTION_TOL = {"float64": {"logits": 1e-6, "aux": 1e-6, "loss": 1e-6, "max": 1e-4,
+                             "median": 1e-6, "buffers": 1e-6},
+                 "float32": {"logits": 1e-3, "aux": 1e-3, "loss": 1e-3, "buffers": 1e-3}}
+INCEPTION = {"image_size": 299, "gate_batch": 2, "batch_size": 32, "steps": 4,
+             "num_samples": 128, "num_classes": 1000, "lr": 0.045}
+
+
+def _inception_loss(model, x, y):
+    import torch.nn.functional as F
+
+    logits, aux = model(x, train=True)
+    return {"logits": logits, "aux": aux,
+            "loss": F.cross_entropy(logits, y) + 0.3 * F.cross_entropy(aux, y)}
+
+
+def _swap_rect_kernels(model):
+    """The planted fault: every 1x7 / 7x1 (and 1x3 / 3x1) kernel with its
+    spatial axes swapped."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.models.resnet import Conv
+
+    for mod in model.modules():
+        if isinstance(mod, Conv) and mod.weight.shape[2] != mod.weight.shape[3]:
+            mod.weight = torch.nn.Parameter(mod.weight.detach().transpose(2, 3).contiguous())
+    return model
+
+
+def image_gate(what: str, fault: str, build, loss_fn, x, y, device: str, variants: list,
+               gate: bool) -> dict:
+    """One train-mode step on the card per ``(dtype, tol, with_fault)`` of
+    ``variants`` against the port's CPU path in float64 (for a float64
+    card run) or float32 (the others), same weights and batch; each held to
+    ``tol`` (:func:`image_gate_readings`; ``None``: logged only), and with
+    ``with_fault`` the planted ``fault`` (``build(dtype, fault=True)``) must
+    fall outside it."""
+    import torch
+
+    # one step a variant: cuDNN's autotuning (left on by phase 8) would only
+    # add its search to every convolution's first call
+    torch.backends.cudnn.benchmark = False
+    ref = {}
+    verdicts, out = {}, {}
+    for dtype, tol, with_fault in variants:
+        ref_dtype = torch.float64 if dtype == torch.float64 else torch.float32
+        if ref_dtype not in ref:
+            ref[ref_dtype] = image_step(build(ref_dtype), x, y, "cpu", loss_fn)
+        kind = str(dtype)[6:]
+        runs = [(f"card {kind}", False)] + (
+            [(f"card {kind}, {fault} (planted fault)", True)] if with_fault else [])
+        for name, planted in runs:
+            r = image_gate_readings(image_step(build(dtype, planted), x, y, device, loss_fn),
+                                    ref[ref_dtype])
+            out[name] = r
+            if tol is not None:
+                verdicts[name] = within(r, tol)
+            log(f"{what} gate, {name} vs the CPU {str(ref_dtype)[6:]} path: "
+                + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                            for k, v in r.items())
+                + (f" (gate {tol})" if tol is not None else " (logged, not gated)"))
+    _gate(gate, what, {str(d)[6:]: t for d, t, _ in variants}, verdicts)
+    return out
+
+
+def check_inception(seed: int, card: str, cfg: dict | None = None, device: str = "cuda",
+                    gate: bool = True) -> dict:
+    """Phase 16's gate (:data:`INCEPTION_TOL`)."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import inception
+
+    cfg = cfg or INCEPTION
+    size, B, C = cfg["image_size"], cfg["gate_batch"], cfg["num_classes"]
+    rng = np.random.default_rng([seed, 16])
+    x = torch.from_numpy(rng.random((B, 3, size, size), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, C, B))
+
+    def build(dtype, fault=False):
+        f64 = dtype == torch.float64
+        model = inception.InceptionV3(C, aux_logits=True, dropout_rate=0.0, dtype=dtype,
+                                      image_size=size,
+                                      norm_dtype=torch.float64 if f64 else torch.float32)
+        model.load_state_dict(inception.init_params(model, seed, scales=(0.5, 1.5)))
+        model = model.double() if f64 else model
+        return _swap_rect_kernels(model) if fault else model
+
+    log(f"Inception-v3 gate, seed {seed}: {size} px, batch {B}, aux head, train mode")
+    return image_gate("Inception-v3", "1x7 axes swapped", build, _inception_loss, x, y, device,
+                      [(torch.float64, INCEPTION_TOL["float64"], True),
+                       (torch.float32, INCEPTION_TOL["float32"], False),
+                       (torch.bfloat16, None, False)], gate)
+
+
+def run_inception(seed: int, card: str, wd: str, cfg: dict | None = None,
+                  device: str = "cuda", gate: bool = True) -> dict:
+    """Phase 16: the gate, then the port's ``inception_imagenet.py``
+    through ``TPUCluster.run`` for ``steps`` steps at full width (aux head,
+    RMSProp under the decay): finite losses, every RMSProp momentum buffer
+    moved (read from the chief's checkpoint); images/s and the model's FLOP
+    share of 989 TFLOP/s (2 FLOPs a multiply-add, x3 for the backward)."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint
+    from tensorflowonspark_tpu_torch.cluster import InputMode, TPUCluster
+    from tensorflowonspark_tpu_torch.examples.imagenet import inception_imagenet as ii
+    from tensorflowonspark_tpu_torch.models import inception
+
+    cfg = cfg or INCEPTION
+    gate = check_inception(seed, card, cfg, device, gate)
+    model_dir = os.path.join(wd, "inception_model")
+    args = argparse.Namespace(cluster_size=1, batch_size=cfg["batch_size"], steps=cfg["steps"],
+                              lr=cfg["lr"], image_size=cfg["image_size"],
+                              num_classes=cfg["num_classes"], num_samples=cfg["num_samples"],
+                              seed=seed, data_dir="", model_dir=model_dir,
+                              cpu=device == "cpu", device=device)
+    t0 = time.perf_counter()
+    cluster = TPUCluster.run(ii.main_fun, args, 1, input_mode=InputMode.TENSORFLOW,
+                             reservation_timeout=600, working_dir=os.path.join(wd, "inception"))
+    cluster.shutdown(timeout=900)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(cluster.working_dir, "inception_stats.0.json")) as f:
+        st = json.load(f)
+    if len(st["losses"]) != cfg["steps"] or not all(map(math.isfinite, st["losses"])):
+        raise SystemExit(f"Inception-v3 example losses: {st['losses']}")
+    saved = restore_checkpoint(model_dir)
+    traces = [s["trace"] for s in saved["optim"]["state"].values()]
+    if saved["step"] != cfg["steps"] or not traces or not all(t.abs().max() > 0 for t in traces):
+        raise SystemExit("the Inception-v3 checkpoint lacks its step or a moved RMSProp "
+                         "momentum")
+    size = cfg["image_size"]
+    model = inception.InceptionV3(cfg["num_classes"], aux_logits=True, dropout_rate=0.0,
+                                  image_size=size)
+    flops = 3 * 2 * conv_macs(model, torch.zeros(1, 3, size, size), train=True)
+    steady = statistics.median(st["step_ms"][1:])
+    ips = cfg["batch_size"] / steady * 1e3
+    share = flops * ips / H100_BF16_FLOPS
+    log(f"Inception-v3 example through TPUCluster.run on {card}: {cfg['steps']} steps of "
+        f"{cfg['batch_size']} x {size} px (aux head, RMSProp), {wall:.1f} s wall; losses "
+        f"{[round(x, 4) for x in st['losses']]}; {len(traces)} momentum buffers moved; median "
+        f"step {steady:.2f} ms over steps 2..{cfg['steps']} (all "
+        f"{[round(x, 1) for x in st['step_ms']]}) = {ips:.1f} images/s; "
+        f"{flops / 1e9:.2f} GFLOP an image (train) = {share:.4f} of 989 TFLOP/s; peak memory "
+        f"{(st['peak_bytes'] or 0) / 1e6:,.0f} MB")
+    return {"gate": gate, "images_per_s": ips, "step_ms": steady, "flop_share": share,
+            "gflop_per_image": flops / 1e9, "peak_MB": (st["peak_bytes"] or 0) / 1e6}
+
+
+#: phase 17's gate, one train-mode step of the default-width U-Net (64,
+#: 128, 256, 512) at 256 px, batch 1 (the float32 CPU path's time; GroupNorm
+#: is per image): the card in float32 and in bf16 against the CPU's float32
+#: as :data:`INCEPTION_TOL` reads (no aux, no buffers); readings at seeds
+#: 0-2 and the planted fault (the transposed kernels without flax's flip):
+#: PERF.md
+UNET_TOL = {"float32": {"logits": 1e-3, "loss": 1e-3, "max": 2e-2, "median": 5e-3},
+            "bfloat16": {"logits": 5e-2, "loss": 2e-2, "max": 0.6, "median": 0.3}}
+UNET = {"image_size": 256, "gate_batch": 1, "batch_size": 8, "steps": 6, "num_samples": 64,
+        "features": (64, 128, 256, 512), "lr": 1e-3}
+
+
+def _unet_loss(model, x, y):
+    import torch.nn.functional as F
+
+    logits = model(x)
+    return {"logits": logits, "loss": F.cross_entropy(logits, y)}
+
+
+def check_unet(seed: int, card: str, cfg: dict | None = None, device: str = "cuda",
+               gate: bool = True) -> dict:
+    """Phase 17's gate (:data:`UNET_TOL`)."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import unet
+
+    cfg = cfg or UNET
+    size, B = cfg["image_size"], cfg["gate_batch"]
+    rng = np.random.default_rng([seed, 17])
+    x = torch.from_numpy(rng.random((B, 3, size, size), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 2, (B, size, size)))
+
+    def build(dtype, fault=False):
+        model = unet.UNet(2, cfg["features"], dtype=dtype)
+        sd = unet.init_params(model, seed)
+        sd.update({k: torch.from_numpy(np.random.default_rng([seed, 1, i]).uniform(
+            0.5, 1.5, v.shape).astype(np.float32)) for i, (k, v) in enumerate(sd.items())
+            if ".norms." in k and k.endswith("weight")})
+        if fault:                       # the transposed kernels without flax's flip
+            sd = {k: v.flip(2, 3) if k.startswith("ups.") and k.endswith("weight") else v
+                  for k, v in sd.items()}
+        model.load_state_dict(sd)
+        return model
+
+    log(f"U-Net gate, seed {seed}: {size} px, batch {B}, widths {cfg['features']}")
+    return image_gate("U-Net", "unflipped transposed kernels", build, _unet_loss, x, y, device,
+                      [(torch.float32, UNET_TOL["float32"], True),
+                       (torch.bfloat16, UNET_TOL["bfloat16"], True)], gate)
+
+
+def run_unet(seed: int, card: str, wd: str, cfg: dict | None = None,
+             device: str = "cuda", gate: bool = True) -> dict:
+    """Phase 17: the gate, then the port's ``unet_segmentation.py`` through
+    ``TPUCluster.run`` at the default widths, ``batch_size`` x
+    ``image_size``: finite losses, IoU read; images/s and FLOP share."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.cluster import InputMode, TPUCluster
+    from tensorflowonspark_tpu_torch.examples.segmentation import unet_segmentation as us
+    from tensorflowonspark_tpu_torch.models import unet
+
+    cfg = cfg or UNET
+    gate = check_unet(seed, card, cfg, device, gate)
+    size = cfg["image_size"]
+    args = argparse.Namespace(cluster_size=1, batch_size=cfg["batch_size"], steps=cfg["steps"],
+                              lr=cfg["lr"], image_size=size, num_samples=cfg["num_samples"],
+                              features=",".join(map(str, cfg["features"])), seed=seed,
+                              data_dir="", model_dir="", cpu=device == "cpu", device=device)
+    t0 = time.perf_counter()
+    cluster = TPUCluster.run(us.main_fun, args, 1, input_mode=InputMode.TENSORFLOW,
+                             reservation_timeout=600, working_dir=os.path.join(wd, "unet"))
+    cluster.shutdown(timeout=900)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(cluster.working_dir, "unet_stats.0.json")) as f:
+        st = json.load(f)
+    if len(st["losses"]) != cfg["steps"] or not all(map(math.isfinite, st["losses"])):
+        raise SystemExit(f"U-Net example losses: {st['losses']}")
+    flops = 3 * 2 * conv_macs(unet.UNet(2, cfg["features"]), torch.zeros(1, 3, size, size))
+    steady = statistics.median(st["step_ms"][1:])
+    ips = cfg["batch_size"] / steady * 1e3
+    share = flops * ips / H100_BF16_FLOPS
+    log(f"U-Net example through TPUCluster.run on {card}: {cfg['steps']} steps of "
+        f"{cfg['batch_size']} x {size} px, widths {cfg['features']}, {wall:.1f} s wall; losses "
+        f"{[round(x, 4) for x in st['losses']]}, IoU {[round(x, 3) for x in st['iou']]}; "
+        f"median step {steady:.2f} ms over steps 2..{cfg['steps']} = {ips:.1f} images/s; "
+        f"{flops / 1e9:.1f} GFLOP an image (train) = {share:.4f} of 989 TFLOP/s; peak memory "
+        f"{(st['peak_bytes'] or 0) / 1e6:,.0f} MB")
+    return {"gate": gate, "images_per_s": ips, "step_ms": steady, "flop_share": share,
+            "peak_MB": (st["peak_bytes"] or 0) / 1e6}
+
+
+#: phase 18: BERT-base sequence classification, remat on, the flash
+#: kernels, AdamW at bert_squad.py's rate; the gate is :data:`TRAIN_TOL`
+#: against a plain-attention replay; remat's gradients against no remat's
+#: from the same generator: max ||g - g_no_remat|| / ||g_no_remat||
+#: (:data:`REMAT_TOL`; a recomputation on fresh dropout masks, the planted
+#: fault, must fall outside both)
+BERT_CLS = {"seq_len": 128, "batch_size": 32, "num_classes": 3, "steps": 8,
+            "no_remat_steps": 4}
+REMAT_TOL = 1e-3
+
+
+def _naive_remat(block, x, train, rng, **kwargs):
+    """The planted fault: checkpointing on the live generator, so the
+    recomputation draws fresh dropout masks."""
+    import torch
+
+    return torch.utils.checkpoint.checkpoint(
+        lambda t: block(t, train=train, rng=rng, **kwargs), x, use_reentrant=False)
+
+
+def bert_cls_batches(seed: int, cfg: dict, vocab: int, n: int):
+    """``n`` classification batches ``(ids, mask, types, labels)`` of
+    ``batch_size`` x ``seq_len``, lengths from half to all of ``seq_len``."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 18])
+    B, T = cfg["batch_size"], cfg["seq_len"]
+    out = []
+    for _ in range(n):
+        lens = rng.integers(T // 2, T + 1, B)
+        mask = np.arange(T)[None, :] < lens[:, None]
+        ids = np.where(mask, rng.integers(1, vocab, (B, T)), 0)
+        types = (np.arange(T)[None, :] >= lens[:, None] // 2).astype(np.int64) * mask
+        out.append((ids.astype(np.int64), mask, types, rng.integers(0, cfg["num_classes"], B)))
+    return out
+
+
+def run_bert_cls(seed: int, card: str, cfg: dict | None = None, width: dict | None = None,
+                 device: str = "cuda", gate: bool = True) -> dict:
+    """Phase 18: BERT-base ``BertForSequenceClassification`` (``width``:
+    the BERT-base config) with ``remat=True``, dropout 0.1, AdamW, trained
+    ``steps`` steps through the strategy with the flash kernels (K1 12
+    times a step and 12 more in the recomputation, K2 and K3 12 times);
+    every loss and the final weights against a plain-attention replay
+    (:data:`TRAIN_TOL`), where a remat on fresh masks must fall outside;
+    remat's gradients against no remat's (:data:`REMAT_TOL`); step time and
+    peak memory with and without remat."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch import bert_inference as bi
+    from tensorflowonspark_tpu_torch import bert_train as bt
+    from tensorflowonspark_tpu_torch.models import bert
+    from tensorflowonspark_tpu_torch.ops.flash_attention import flash_attention as flash
+    from tensorflowonspark_tpu_torch.parallel import DataParallelStrategy
+
+    cfg = cfg or BERT_CLS
+    width = width or bi.BERT_BASE
+    dev = torch.device(device)
+    width = {k: v for k, v in width.items() if k != "dtype"}
+    base = bert.BertConfig(**width, dropout_rate=TRAIN_DROPOUT, dtype=torch.bfloat16,
+                           attention_fn=flash, remat=True)
+    layers, steps = base.num_layers, cfg["steps"]
+    sd = bert.init_params(base, seed, num_classes=cfg["num_classes"])
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in b)
+               for b in bert_cls_batches(seed, cfg, base.vocab_size, steps)]
+
+    def loss_fn(model, batch, rng=None):
+        ids, mask, types, labels = batch
+        return F.cross_entropy(model(ids, mask, types, train=True, rng=rng), labels)
+
+    def train(attention, n=steps, remat=True):
+        held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        c = dataclasses.replace(base, attention_fn=attention, remat=remat)
+        model = bert.BertForSequenceClassification(c, cfg["num_classes"])
+        model.load_state_dict(sd)
+        strategy = DataParallelStrategy(dev, seed=seed)
+        state = strategy.init_state(model, bt.adamw(TRAIN_LR))
+        w0 = {k: v.detach().clone() for k, v in state.module.state_dict().items()}
+        step = strategy.build_train_step(loss_fn)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for b in batches[:n]:
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = ((torch.cuda.max_memory_allocated() - held) / 1e6 if dev.type == "cuda"
+                else None)
+        return losses, ms, peak, state.module.state_dict(), w0
+
+    zero_launch_counts()                   # counts start at 0 for the main path
+    losses, ms, peak, w, w0 = train(flash)
+    launches = bt.kernel_launches()
+    want = {"flash_attention_fwd": 2 * layers * steps, "flash_attention_dq": layers * steps,
+            "flash_attention_dkv": layers * steps}
+    _, nr_ms, nr_peak, _, _ = train(flash, cfg["no_remat_steps"], remat=False)
+    T, B = cfg["seq_len"], cfg["batch_size"]
+    med, nr_med = statistics.median(ms[1:]), statistics.median(nr_ms[1:])
+    log(f"BERT-base classification (T {T}, batch {B}, {cfg['num_classes']} classes, remat, "
+        f"dropout {TRAIN_DROPOUT}, AdamW) on {card}: launches {launches} (expected {want}: "
+        f"K1 once in the forward and once in the recomputation a layer); losses "
+        f"{[round(x, 5) for x in losses]}; median step {med:.2f} ms, peak memory "
+        f"{peak or 0:,.0f} MB; without remat {nr_med:.2f} ms, {nr_peak or 0:,.0f} MB "
+        f"(steps 2..{cfg['no_remat_steps']})")
+    if device == "cuda" and launches != want:
+        raise SystemExit("the BERT classification path did not go through each kernel "
+                         "once a layer and step (K1 also in the recomputation)")
+    if not all(map(math.isfinite, losses)):
+        raise SystemExit(f"non-finite BERT classification loss: {losses}")
+
+    plain, _, _, w_plain, _ = train(attention_fn("plain", "plain"))
+    keys = {n for n in w_plain if n.endswith("attn.key.bias")}
+    saved = bert._remat
+    bert._remat = _naive_remat
+    try:
+        f_losses, _, _, w_fault, _ = train(flash)
+    finally:
+        bert._remat = saved
+    verdicts, out = {}, {"launches": launches, "step_ms": med, "peak_MB": peak,
+                         "no_remat_step_ms": nr_med, "no_remat_peak_MB": nr_peak}
+    for name, (ls, ww) in (("kernels, remat", (losses, w)),
+                           ("kernels, remat on fresh masks (planted fault)", (f_losses, w_fault))):
+        r = weight_readings(ww, w_plain, w0, zero=keys, lr_steps=TRAIN_LR * steps)
+        r["loss"] = max(abs(a - b) for a, b in zip(ls, plain))
+        verdicts[name] = within(r, TRAIN_TOL)
+        out[name] = r
+        log(f"BERT classification, {name} vs the plain-attention replay: loss {r['loss']:.4g}; "
+            f"weights max {r['max']:.4g} ({r['worst']}), median {r['median']:.4g}; key "
+            f"biases {r['noise']:.3g} x lr x steps")
+
+    # remat's gradients against no remat's, one batch, the same generator
+    def grads(remat_fn, remat=True):
+        bert._remat = remat_fn
+        try:
+            c = dataclasses.replace(base, remat=remat)
+            model = bert.BertForSequenceClassification(c, cfg["num_classes"]).to(dev)
+            model.load_state_dict(sd)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            loss_fn(model, batches[0], gen).backward()
+            return {n: p.grad for n, p in model.named_parameters()}
+        finally:
+            bert._remat = saved
+
+    ref = grads(saved, remat=False)
+    for name, fn in (("remat", saved), ("remat on fresh masks (planted fault)", _naive_remat)):
+        g = grads(fn)
+        rel = max(((g[n] - r).norm() / r.norm()).item() for n, r in ref.items()
+                  if n not in keys and r.norm() > 0)
+        verdicts[f"gradients, {name}"] = rel <= REMAT_TOL
+        log(f"BERT classification gradients, {name} vs no remat (same generator): max "
+            f"||g - g_no_remat|| / ||g_no_remat|| {rel:.3g} (gate {REMAT_TOL})")
+    _gate(gate, "BERT classification", TRAIN_TOL, verdicts)
+    return out
+
+
+def run_new_models(seed: int, card: str, wd: str, gate: bool = True, examples: bool = True,
+                   phase_s: dict | None = None) -> dict:
+    """Phases 15-18 (the other models), each timed into ``phase_s``; with
+    ``examples=False`` only the gates (the calibration's later seeds)."""
+    import torch
+
+    from tensorflowonspark_tpu_torch import bench_embedding
+
+    phase_s = {} if phase_s is None else phase_s
+    out = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        torch.cuda.empty_cache()
+        return r
+
+    out["wide_deep"] = timed("15 Wide&Deep dense", run_wide_deep, seed, card, wd, gate=gate)
+    out["sparse"] = timed("15 Wide&Deep sparse", run_sparse_criteo, seed, card, gate=gate)
+    if examples:
+        t0 = time.perf_counter()
+        print(json.dumps(bench_embedding.bench(seed=seed)), flush=True)
+        phase_s["15 embedding bench"] = time.perf_counter() - t0
+        out["inception"] = timed("16 Inception-v3", run_inception, seed, card, wd, gate=gate)
+        out["unet"] = timed("17 U-Net", run_unet, seed, card, wd, gate=gate)
+    else:
+        timed("16 Inception-v3 gate", check_inception, seed, card, gate=gate)
+        timed("17 U-Net gate", check_unet, seed, card, gate=gate)
+    out["bert_cls"] = timed("18 BERT classification", run_bert_cls, seed, card, gate=gate)
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0, help="weights and data seed")
     p.add_argument("--calibrate-resnet", action="store_true",
                    help="only log the ResNet-50 gate's readings at the scales of "
                         "RESNET_CALIBRATION_SCALES, batches 8 and 2, and exit (no result)")
+    p.add_argument("--calibrate-slice9", action="store_true",
+                   help="only build the kernels and log the gates of phases 15-18 at seeds "
+                        "--seed..--seed+2 (the examples and benches at --seed), and exit "
+                        "(no result)")
     p.add_argument("--calibrate-gpt", action="store_true",
                    help="only build the kernels and log phase 13's and 13b's gate readings "
                         "at seeds --seed..--seed+2, at GPT_LR and at gpt_tiny's own rate "
@@ -2320,6 +3146,16 @@ def main() -> int:
                             f"{'llama' if variant else 'gpt2'}: {time.perf_counter() - t0:.1f} s")
         return 0
 
+    if args.calibrate_slice9:
+        build_kernels()
+        card = card_name_and_limit()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+            for seed in range(args.seed, args.seed + 3):
+                t0 = time.perf_counter()
+                run_new_models(seed, card, wd, gate=False, examples=seed == args.seed)
+                log(f"calibration seed {seed}: {time.perf_counter() - t0:.1f} s")
+        return 0
+
     t_start = time.perf_counter()
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -2360,11 +3196,15 @@ def main() -> int:
     log(f"backward at {dq['shape']} on {card}: dq + dkv kernels {dq['ms'] + dkv['ms']:.6f} ms, "
         f"SDPA backward {dq['library_ms']:.6f} ms (in turns), plain "
         f"{dq['plain_ms'] + dkv['plain_ms']:.6f} ms")
-    for e in (flash, dq, dkv):
-        b = e["bert_shape"]
-        log(f"{e['name']} at {b['shape']} on {card}: kernel {b['ms']:.6f} ms, SDPA "
-            f"{b['library_ms']:.6f} ms (in turns), plain {b['plain_ms']:.6f} ms, bound "
-            f"{b['bound_ms']:.6f} ms ({b['bound_by']}), {b['achieved_tflops']:.2f} TFLOP/s")
+    for shape in ("gpt_shape", "bert_shape"):
+        for e in (flash, dq, dkv):
+            b = e[shape]
+            log(f"{e['name']} at {b['shape']} on {card}: kernel {b['ms']:.6f} ms, SDPA "
+                f"{b['library_ms']:.6f} ms (in turns), plain {b['plain_ms']:.6f} ms, bound "
+                f"{b['bound_ms']:.6f} ms ({b['bound_by']}), {b['achieved_tflops']:.2f} TFLOP/s")
+        log(f"backward at {dq[shape]['shape']} on {card}: dq + dkv kernels "
+            f"{dq[shape]['ms'] + dkv[shape]['ms']:.6f} ms, SDPA backward "
+            f"{dq[shape]['library_ms']:.6f} ms (in turns)")
     for e in (flash, dq, dkv):
         log(f"{e['name']}: host {e['host_us']:.1f} us a call (wrapper, no sync)")
     for e, kernel in ((flash, "flash_fwd_tma_kernel<64"), (dq, "flash_dq_tma_kernel<64"),
@@ -2435,6 +3275,12 @@ def main() -> int:
         print(json.dumps(bench_gpt_decode.bench(seed=args.seed)), flush=True)
         phase_s["14 decode bench"] = time.perf_counter() - t0
 
+        # 15-18. the other models: Wide&Deep at Criteo scale, Inception-v3,
+        # U-Net, BERT classification with remat through the kernels
+        t0 = time.perf_counter()
+        new_models = run_new_models(args.seed, card, wd, phase_s=phase_s)
+        phase_s["15-18 total"] = time.perf_counter() - t0
+
     # 10. the bench
     from tensorflowonspark_tpu_torch import bench_resnet
 
@@ -2442,13 +3288,13 @@ def main() -> int:
     print(json.dumps(bench_resnet.bench(seed=args.seed)), flush=True)
     phase_s["10 bench"] = time.perf_counter() - t0
 
-    flash["launches"] = gpt_train["launches"]["flash_attention_fwd"]
+    flash["launches"] = new_models["bert_cls"]["launches"]["flash_attention_fwd"]
     flash["launches_by_path"] = {"inference": inference,
                                  "training": training["flash_attention_fwd"],
                                  "export_serving": export_serving,
                                  "pipeline_transform": pipeline["transform"]}
     for e in (dq, dkv):
-        e["launches"] = gpt_train["launches"][e["name"]]
+        e["launches"] = new_models["bert_cls"]["launches"][e["name"]]
         e["launches_by_path"] = {"training": training[e["name"]]}
     for e in (flash, dq, dkv):
         e["launches_by_path"].update({"resnet_training": resnet[e["name"]],
@@ -2457,7 +3303,9 @@ def main() -> int:
                                       "estimator_recovery": recovery[e["name"]],
                                       "gpt_training": gpt_train["launches"][e["name"]],
                                       "llama_training": llama["launches"][e["name"]],
-                                      "gpt_generation": generation[e["name"]]})
+                                      "gpt_generation": generation[e["name"]],
+                                      "bert_cls_training":
+                                          new_models["bert_cls"]["launches"][e["name"]]})
     log("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [flash, dq, dkv]}))

@@ -20,10 +20,21 @@ Port of ``tensorflowonspark_tpu/models/bert.py`` (the repo's flagship model,
   with masks drawn from the explicit ``torch.Generator`` ``rng``, never
   from the global RNG.  It cannot reproduce JAX's random bits.
 
+:class:`BertForSequenceClassification` puts a float32 ``pooler`` (tanh) on
+token 0, then dropout and ``cls_head``, as the flax head does.
+
+``remat=True`` checkpoints each encoder layer's activations
+(``torch.utils.checkpoint``) and recomputes them in the backward pass; the
+recomputation draws the dropout masks the forward drew (:func:`_remat`).
+``scan_layers`` is accepted so a config carries over, and
+:func:`params_from_flax` reads a scanned model's stacked ``layers`` tree
+(a leading axis of ``num_layers``); the torch module stays a loop of
+layers, since eager PyTorch has no compile time for a scan to save.
+
 :func:`params_from_flax` carries the JAX package's parameters across;
 :func:`init_params` draws random ones from a seed with numpy.  Not ported
-yet (ROADMAP queue A): ``scan_layers``/``remat``, mesh anchoring
-(``act_spec``/``emb_spec``) and ``BertForSequenceClassification``.
+yet: mesh anchoring (``act_spec``/``emb_spec``), which waits for the port's
+``DeviceMesh`` (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tensorflowonspark_tpu_torch.ops.quant import _QuantArray
@@ -63,6 +75,11 @@ class BertConfig:
     # the JAX module's behavior (tanh gelu, flax eps 1e-6).
     norm_eps: float = 1e-6
     gelu_exact: bool = False
+    # The JAX module's nn.scan of the layers (params with a leading
+    # ``layers`` axis; here only the carry-over reads it) and per-layer
+    # activation checkpointing.
+    scan_layers: bool = False
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -94,6 +111,30 @@ def _dropout(x, rate: float, train: bool, rng):
     keep = torch.empty(x.shape, device=x.device).bernoulli_(keep_prob, generator=rng)
     return torch.where(keep.bool(), x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                                 device=x.device))
+
+
+def _remat(block: nn.Module, x, train: bool, rng, **kwargs):
+    """``block(x, train=train, rng=rng, **kwargs)`` under activation
+    checkpointing.  The recomputation must draw the dropout masks the
+    forward drew, so the block runs on a private generator restored from
+    ``rng``'s state each time, and ``rng`` then continues from where the
+    forward left it (``torch.utils.checkpoint`` restores only the global
+    RNG)."""
+    if rng is None or not train or block.cfg.dropout_rate <= 0:
+        return torch.utils.checkpoint.checkpoint(
+            lambda t: block(t, train=train, **kwargs), x, use_reentrant=False)
+    start, end = rng.get_state(), []
+
+    def run(t):
+        gen = torch.Generator(device=rng.device)
+        gen.set_state(start)
+        out = block(t, train=train, rng=gen, **kwargs)
+        end[:] = [gen.get_state()]
+        return out
+
+    out = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+    rng.set_state(end[0])
+    return out
 
 
 @functools.cache
@@ -186,7 +227,10 @@ class Bert(nn.Module):
         x = _dropout(_layer_norm(self.ln_emb, x, cfg.dtype), cfg.dropout_rate, train, rng)
         mask = None if attention_mask is None else attention_mask.bool()
         for layer in self.layers:
-            x = layer(x, mask, train=train, rng=rng)
+            if cfg.remat and torch.is_grad_enabled():
+                x = _remat(layer, x, train, rng, mask=mask)
+            else:
+                x = layer(x, mask, train=train, rng=rng)
         return x
 
 
@@ -206,12 +250,34 @@ class BertForQuestionAnswering(nn.Module):
         return logits[..., 0], logits[..., 1]
 
 
+class BertForSequenceClassification(nn.Module):
+    """Sequence classifier: a float32 ``pooler`` Dense with tanh on token
+    0's hidden state, dropout, then the float32 ``cls_head``."""
+
+    def __init__(self, cfg: BertConfig, num_classes: int = 2):
+        super().__init__()
+        self.cfg, self.num_classes = cfg, num_classes
+        self.bert = Bert(cfg)
+        self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.cls_head = nn.Linear(cfg.hidden_size, num_classes)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None, *,
+                train: bool = False, rng=None):
+        x = self.bert(input_ids, attention_mask, token_type_ids, train=train, rng=rng)
+        pooled = torch.tanh(F.linear(x[:, 0].float(), self.pooler.weight, self.pooler.bias))
+        pooled = _dropout(pooled, self.cfg.dropout_rate, train, rng)
+        return F.linear(pooled, self.cls_head.weight, self.cls_head.bias)
+
+
 # ------------------------------------------------------------------ weights
 
 def params_from_flax(flax_params: dict) -> dict[str, torch.Tensor]:
-    """The JAX package's ``BertForQuestionAnswering`` parameters (a nested
-    dict of numpy arrays, the ``params`` collection unboxed) as this
-    module's ``state_dict``.
+    """The JAX package's ``BertForQuestionAnswering`` or
+    ``BertForSequenceClassification`` parameters (a nested dict of numpy
+    arrays, the ``params`` collection unboxed) as this module's
+    ``state_dict``.  A model built with ``scan_layers=True`` keeps its
+    layers stacked under ``bert/layers`` with a leading axis of
+    ``num_layers``; layer ``i`` is that axis's entry ``i``.
 
     ``Dense`` kernels ``(in, out)`` become ``nn.Linear.weight`` ``(out, in)``;
     ``Embed`` tables and LayerNorm ``scale``/``bias`` carry over as they are.
@@ -240,30 +306,47 @@ def params_from_flax(flax_params: dict) -> dict[str, torch.Tensor]:
     for name in ("tok_emb", "pos_emb", "type_emb", "ln_emb"):
         if name in bert:
             module(f"bert.{name}", bert[name])
-    i = 0
-    while f"layer_{i}" in bert:
-        layer = bert[f"layer_{i}"]
+    if "layers" in bert:                                    # scan_layers: stacked
+        stacked = bert["layers"]
+        n = len(np.asarray(stacked["ln_attn"]["scale"]))
+        layers = [_tree_index(stacked, i) for i in range(n)]
+    else:
+        layers = []
+        while f"layer_{len(layers)}" in bert:
+            layers.append(bert[f"layer_{len(layers)}"])
+    for i, layer in enumerate(layers):
         for name in ("query", "key", "value", "out"):
             module(f"bert.layers.{i}.attn.{name}", layer["attn"][name])
         for name in ("ln_attn", "mlp_up", "mlp_down", "ln_mlp"):
             module(f"bert.layers.{i}.{name}", layer[name])
-        i += 1
-    module("qa_head", flax_params["qa_head"])
+    for head in ("qa_head", "pooler", "cls_head"):
+        if head in flax_params:
+            module(head, flax_params[head])
     return sd
 
 
-def init_params(cfg: BertConfig, seed: int) -> dict[str, torch.Tensor]:
-    """Random ``BertForQuestionAnswering`` weights drawn with numpy from
-    ``seed``: normal(0, 0.02) kernels and tables as the JAX module
-    initialises them, zero biases, unit LayerNorm scales, and a
-    normal(0, 1/sqrt(hidden)) QA head."""
+def _tree_index(tree, i: int):
+    """Entry ``i`` of every leaf's leading axis."""
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def init_params(cfg: BertConfig, seed: int,
+                num_classes: int | None = None) -> dict[str, torch.Tensor]:
+    """Random ``BertForQuestionAnswering`` weights (with ``num_classes``:
+    ``BertForSequenceClassification``'s) drawn with numpy from ``seed``:
+    normal(0, 0.02) kernels and tables as the JAX module initialises them,
+    zero biases, unit LayerNorm scales, and normal(0, 1/sqrt(hidden)) head
+    kernels (the QA head, the pooler and the classifier)."""
     rng = np.random.default_rng(seed)
     sd: dict[str, torch.Tensor] = {}
     with torch.device("meta"):  # shapes only, nothing allocated
-        shapes = BertForQuestionAnswering(cfg).state_dict()
+        shapes = (BertForQuestionAnswering(cfg) if num_classes is None
+                  else BertForSequenceClassification(cfg, num_classes)).state_dict()
     for name, t in shapes.items():
         shape = tuple(t.shape)
-        if name.startswith("qa_head.") and name.endswith("weight"):
+        if name.startswith(("qa_head.", "pooler.", "cls_head.")) and name.endswith("weight"):
             arr = rng.standard_normal(shape, dtype=np.float32) / math.sqrt(cfg.hidden_size)
         elif name.endswith("bias"):
             arr = np.zeros(shape, np.float32)

@@ -57,7 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tensorflowonspark_tpu_torch.models.bert import _dense, _dropout
+from tensorflowonspark_tpu_torch.models.bert import _dense, _dropout, _remat
 from tensorflowonspark_tpu_torch.ops.quant import _QuantArray
 
 NEG_INF = -1e30
@@ -402,28 +402,6 @@ class DecoderBlock(nn.Module):
             y = F.gelu(_dense(self.mlp_up, y, cfg.dtype), approximate="tanh")
         y = _dense(self.mlp_down, y, cfg.dtype)
         return x + _dropout(y, cfg.dropout_rate, train, rng)
-
-
-def _remat(block: DecoderBlock, x, train: bool, rng):
-    """``block(x)`` under activation checkpointing.  The recomputation must
-    draw the dropout masks the forward drew, so the block runs on a private
-    generator restored from ``rng``'s state each time, and ``rng`` then
-    continues from where the forward left it."""
-    if rng is None or not train or block.cfg.dropout_rate <= 0:
-        return torch.utils.checkpoint.checkpoint(
-            lambda t: block(t, train=train), x, use_reentrant=False)
-    start, end = rng.get_state(), []
-
-    def run(t):
-        gen = torch.Generator(device=rng.device)
-        gen.set_state(start)
-        out = block(t, train=train, rng=gen)
-        end[:] = [gen.get_state()]
-        return out
-
-    out = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
-    rng.set_state(end[0])
-    return out
 
 
 class GPT(nn.Module):

@@ -84,26 +84,34 @@ def _channels_last(x: torch.Tensor) -> bool:
             and not x.is_contiguous())
 
 
-class Conv(nn.Module):
-    """flax ``nn.Conv(features, (k, k), strides, padding, use_bias=False,
-    dtype=dtype)``: an OIHW float32 kernel, cast with the input to ``dtype``
-    for the product.  ``padding`` is ``"SAME"`` or explicit ``((top,
-    bottom), (left, right))``."""
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int,
-                 stride: int = 1, padding="SAME"):
+
+class Conv(nn.Module):
+    """flax ``nn.Conv(features, kernel, strides, padding, use_bias=False,
+    dtype=dtype)``: an OIHW float32 kernel, cast with the input to ``dtype``
+    for the product.  ``kernel`` and ``stride`` are an int or ``(h, w)``;
+    ``padding`` is ``"SAME"`` (per axis, from the kernel's own shape),
+    ``"VALID"`` or explicit ``((top, bottom), (left, right))``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel, stride=1,
+                 padding="SAME"):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel, kernel))
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *_pair(kernel)))
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
-        self.kernel, self.stride, self.padding = kernel, stride, padding
+        self.stride, self.padding = _pair(stride), padding
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        k, s = self.kernel, self.stride
+        (kh, kw), (sh, sw) = self.weight.shape[2:], self.stride
         if self.padding == "SAME":
-            (top, bottom), (left, right) = (same_padding(x.shape[2], k, s),
-                                            same_padding(x.shape[3], k, s))
+            (top, bottom), (left, right) = (same_padding(x.shape[2], kh, sh),
+                                            same_padding(x.shape[3], kw, sw))
+        elif self.padding == "VALID":
+            (top, bottom), (left, right) = (0, 0), (0, 0)
         else:
             (top, bottom), (left, right) = self.padding
+        s = self.stride
         x, w = x.to(dtype), self.weight.to(dtype)
         if top == bottom and left == right:
             return F.conv2d(x, w, None, s, (top, left))
@@ -136,16 +144,17 @@ def _group_size() -> int:
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=norm_dtype)``
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=eps, dtype=norm_dtype)``
     over the channel dim: float32 ``weight`` (flax's ``scale``, 0 when
     ``zero_scale``), ``bias``, and ``running_mean``/``running_var`` buffers
-    (flax's ``batch_stats`` ``mean``/``var``)."""
+    (flax's ``batch_stats`` ``mean``/``var``).  ``eps`` is 1e-5 in every
+    BatchNorm of the flax ResNet, 1e-3 in Inception-v3's."""
 
-    momentum, eps = 0.9, 1e-5          # every BatchNorm of the flax ResNet
+    momentum = 0.9
 
-    def __init__(self, channels: int, zero_scale: bool = False):
+    def __init__(self, channels: int, zero_scale: bool = False, eps: float = 1e-5):
         super().__init__()
-        self.zero_scale = zero_scale
+        self.zero_scale, self.eps = zero_scale, eps
         self.weight = nn.Parameter(torch.zeros(channels) if zero_scale else torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))

@@ -266,6 +266,105 @@ def adam(lr: float):
     return lambda params: torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+@dataclasses.dataclass(frozen=True)
+class exponential_decay:  # noqa: N801 (optax's name)
+    """``optax.exponential_decay(init_value, transition_steps, decay_rate)``:
+    ``count -> init_value * decay_rate ** (count / transition_steps)``, not
+    staircase; ``count`` is 0 at the first update.  A plain value, so an
+    optimizer's checkpoint holds it."""
+
+    init_value: float
+    transition_steps: int
+    decay_rate: float
+
+    def __post_init__(self):
+        if self.transition_steps <= 0:
+            raise ValueError(f"transition_steps must be > 0, got {self.transition_steps}")
+
+    def __call__(self, count: int) -> float:
+        return self.init_value * self.decay_rate ** (count / self.transition_steps)
+
+
+class OptaxAdagrad(torch.optim.Optimizer):
+    """``optax.adagrad(lr, initial_accumulator_value, eps)``: the
+    accumulator starts at ``initial_accumulator_value`` (0.1), gains ``g^2``
+    each step, and the step is ``-lr * g * rsqrt(acc + eps)`` with ``eps``
+    (1e-7) inside the root, 0 where ``acc`` is 0.  (``torch.optim.Adagrad``
+    starts at 0 and adds its eps outside the root.)"""
+
+    def __init__(self, params, lr: float, initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7):
+        super().__init__(params, {"lr": lr, "initial_accumulator_value":
+                                  initial_accumulator_value, "eps": eps})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["sum_of_squares"] = torch.full_like(
+                        p, group["initial_accumulator_value"])
+                acc, g = state["sum_of_squares"], p.grad
+                acc.addcmul_(g, g)
+                scale = (acc + group["eps"]).rsqrt_()
+                if group["initial_accumulator_value"] <= 0:
+                    scale.masked_fill_(acc <= 0, 0.0)
+                p.add_(scale.mul_(g), alpha=-group["lr"])
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(learning_rate, decay, eps, momentum=m)``: ``nu =
+    decay * nu + (1 - decay) * g^2`` from 0, the update ``g * rsqrt(nu +
+    eps)`` (eps inside the root) scaled by ``-lr(count)``, then the trace
+    ``t = update + m * t`` applied.  The scheduled rate sits inside the
+    momentum buffer; ``torch.optim.RMSprop`` adds eps outside the root and
+    applies ``lr`` after the momentum.  ``lr`` is a number or a schedule
+    ``count -> rate`` (:func:`exponential_decay`), ``count`` the updates
+    made before this one."""
+
+    def __init__(self, params, lr, decay: float = 0.9, eps: float = 1e-8,
+                 momentum: float | None = None):
+        super().__init__(params, {"lr": lr, "decay": decay, "eps": eps,
+                                  "momentum": momentum})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr = group["lr"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["count"] = torch.zeros((), dtype=torch.int64)
+                    state["nu"] = torch.zeros_like(p)
+                    if group["momentum"] is not None:
+                        state["trace"] = torch.zeros_like(p)
+                count = int(state["count"])
+                rate = lr(count) if callable(lr) else lr
+                g, nu = p.grad, state["nu"]
+                nu.mul_(group["decay"]).addcmul_(g, g, value=1 - group["decay"])
+                update = (nu + group["eps"]).rsqrt_().mul_(g).mul_(-rate)
+                if group["momentum"] is not None:
+                    update = state["trace"].mul_(group["momentum"]).add_(update)
+                p.add_(update)
+                state["count"] = torch.tensor(count + 1, dtype=torch.int64)
+
+
+def adagrad(lr: float, initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+    """``optax.adagrad(lr)`` as ``optimizer_fn`` (:class:`OptaxAdagrad`)."""
+    return lambda params: OptaxAdagrad(params, lr, initial_accumulator_value, eps)
+
+
+def rmsprop(lr, decay: float = 0.9, eps: float = 1e-8, momentum: float | None = None):
+    """``optax.rmsprop(lr, decay, eps, momentum=momentum)`` as
+    ``optimizer_fn`` (:class:`OptaxRMSprop`); ``lr`` may be a schedule."""
+    return lambda params: OptaxRMSprop(params, lr, decay, eps, momentum)
+
+
 def cross_replica_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean of ``x`` over the process group (all-reduce, then divide by
     the world size); ``x`` itself without a group."""

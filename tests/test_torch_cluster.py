@@ -260,18 +260,19 @@ def _reference_package_imports(package: str) -> list[tuple[str, str]]:
 
 
 #: names of ported modules that the port leaves out, each waiting for its
-#: queue item: ``shard_quantized`` for the port's mesh (A6), BERT's
-#: sequence-classification head for A5b
+#: queue item: ``shard_quantized`` and the mesh strategies for the port's
+#: mesh (A6)
 NOT_PORTED_YET = {("ops", "quant", "shard_quantized"),
-                  ("models", "bert", "BertForSequenceClassification")}
+                  ("parallel", "strategy", "FSDPStrategy"),
+                  ("parallel", "strategy", "MeshStrategy")}
 
 
-@pytest.mark.parametrize("package", ["models", "ops"])
+@pytest.mark.parametrize("package", ["models", "ops", "parallel"])
 def test_models_and_ops_export_the_reference_names_of_ported_modules(package):
-    """For every module of the JAX package's ``models``/``ops`` imports
-    that the port has, the port's package exports the same names (the
-    port module's objects), the only gaps being :data:`NOT_PORTED_YET` — in
-    a fresh interpreter that loads no JAX-family module."""
+    """For every module of the JAX package's ``models``/``ops``/``parallel``
+    imports that the port has, the port's package exports the same names
+    (the port module's objects), the only gaps being :data:`NOT_PORTED_YET`
+    — in a fresh interpreter that loads no JAX-family module."""
     expected, missing = [], set()
     for module, name in _reference_package_imports(package):
         if not os.path.exists(os.path.join(PACKAGE_DIR, package, module + ".py")):
@@ -282,7 +283,10 @@ def test_models_and_ops_export_the_reference_names_of_ported_modules(package):
         else:
             missing.add((package, module, name))
     assert missing == {m for m in NOT_PORTED_YET if m[0] == package}
-    assert {"gpt", "convert", "quant", "xent"} & {m for m, _ in expected}
+    assert {"gpt", "convert", "quant", "xent", "embedding"} & {m for m, _ in expected}
+    if package == "models":
+        assert {"WideDeep", "InceptionV3", "UNet", "BertForSequenceClassification"} <= {
+            n for _, n in expected}
     code = (
         "import importlib, json, sys\n"
         f"pkg = importlib.import_module('tensorflowonspark_tpu_torch.{package}')\n"

@@ -8,7 +8,10 @@ closing line; the estimator's workers must both report the final eval at
 the step budget.  ``gpt_tiny`` (in-process ``train_and_evaluate``, then
 greedy and lookup generation, which must agree) runs both archs, the
 llama-class one with the chunked LM-head loss.  ``bert_squad``'s ``train_fn``, rows and mappings run in
-``test_torch_pipeline_bert.py``.
+``test_torch_pipeline_bert.py``.  ``wide_deep_criteo`` runs two gloo
+workers as one embedding group (``--num_ps 2``: each holds half of every
+table's rows), ``inception_imagenet`` a 75 px pass and
+``unet_segmentation`` the reference example's widths, one worker each.
 """
 
 import os
@@ -37,6 +40,19 @@ CASES = {
                         "--chunked_xent"],
                        ["gpt_tiny: eval loss", "at step 6", "speculative decode matched greedy",
                         "gpt_tiny: done"]),
+    # one embedding group of both workers (--num_ps = the cluster's size)
+    "wide_deep_criteo": (["wide_deep.wide_deep_criteo", "--cpu", "--cluster_size", "2",
+                          "--num_ps", "2", "--steps", "10", "--vocab_size", "100",
+                          "--batch_size", "32"],
+                         ["embedding group of 2, 1300 deep rows here", "step 10 logloss",
+                          "chief: saved", "wide_deep_criteo: done"]),
+    "inception_imagenet": (["imagenet.inception_imagenet", "--cpu", "--steps", "2",
+                            "--batch_size", "2", "--image_size", "75", "--num_classes", "10",
+                            "--num_samples", "8"],
+                           ["node 0: step 2 loss", "inception_imagenet: done"]),
+    "unet_segmentation": (["segmentation.unet_segmentation", "--cpu", "--steps", "5",
+                           "--image_size", "32", "--batch_size", "4", "--num_samples", "8"],
+                          ["node 0: step 5 loss", "IoU", "unet_segmentation: done"]),
 }
 
 
