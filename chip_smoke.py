@@ -169,14 +169,37 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    plain-attention replay, where a remat whose recomputation draws fresh
    dropout masks must not be; remat's gradients equal no remat's from the
    same generator (:data:`REMAT_TOL`; the fresh-mask remat must not); step
-   time and peak memory with and without remat.
+   time and peak memory with and without remat;
+19. the serving engine on phase 13's weights (run after phases 15-18): the
+   port's ``ContinuousBatcher`` at GPT-124M-class width, 4 slots, 12
+   staggered requests of 8-200 tokens (four on one 64-token prefix) with
+   budgets of 8-48; in float32 with TF32 off every stream equal to a solo
+   ``greedy_generate`` under seven regimes — dense, paged (16 tokens a page,
+   prefix hits), ``prefill_chunk`` 64, ``decode_block_steps`` 8,
+   ``speculative_k`` 4 on 8 repetitive requests (acceptance), a 2-layer
+   ``DraftModel``, and the 12-layer model as its own ``DraftModel`` over
+   the whole history (every proposal accepted) — and a sampled request
+   (T 0.8, top_p 0.9) the same alone and in company, where a skipped rewind after the bucketed prefill and a
+   scatter into a permuted slot must not be; in bf16, dense and paged
+   against solo bf16 greedy, every stream's first divergence must come at a
+   float32 top-two margin within :data:`SERVE_TIE_TOL`, where the skipped
+   rewind must not;
+20. the cluster path: the port's ``examples/gpt/cluster_serving.py`` through
+   ``TPUCluster.run`` + ``cluster.inference``, one worker hosting the batcher
+   at GPT-124M-class width in float32, 32 requests, 8 slots: every result
+   back in order and equal to the driver's solo greedy; rows/s and
+   tokens/s; then ``bench_batcher``'s JSON line (steady, bursty, blocked,
+   speculative and static tok/s, occupancy, calls).
 
 ``python3 chip_smoke.py --calibrate-slice9`` only logs phases 15-18's gate
-readings at three seeds (the examples and the bench at the first).
+readings at three seeds (the examples and the bench at the first);
+``--calibrate-serving`` trains phase 13's model at three seeds and logs
+phase 19's readings on each.
 
 Each phase's seconds are printed.  The ResNet, MNIST, Wide&Deep,
 Inception-v3 and U-Net paths run none of the repo's hand-written kernels
-(their convolutions and GEMMs are cuDNN's and cuBLAS's); the summary's
+(their convolutions and GEMMs are cuDNN's and cuBLAS's), nor do the serving
+paths of phases 19-20 (cached decode is PyTorch's); the summary's
 ``launches_by_path`` shows each kernel's launches on every path, and
 ``launches`` is phase 18's (this slice's path through the kernels).  The
 summary's times, bound and yardsticks are at phase 18's shape ([32, 128,
@@ -2315,6 +2338,297 @@ def check_gpt_generation(seed: int, card: str, wd: str, trained: dict,
 
 
 
+# ---------------------------------------------------- the serving engine (slice 10)
+
+#: phase 19: the batcher's slots and knobs at GPT-124M-class width
+SERVE_SLOTS, SERVE_PAGE, SERVE_CHUNK, SERVE_BLOCK, SERVE_SPEC_K = 4, 16, 64, 8, 4
+#: the 2-layer draft: the trained model's embeddings, ``ln_f`` and first
+#: layers, over the trailing window of each row
+SERVE_DRAFT_LAYERS, SERVE_DRAFT_WINDOW = 2, 64
+#: the self-draft: the target itself over a window that holds every
+#: request's whole history (prompt <= 264 + budget <= 48 tokens), so its
+#: cache-less forward sees what the target's cached verify sees and every
+#: proposal must be accepted
+SERVE_SELF_DRAFT_WINDOW = 320
+SERVE_SAMPLED = {"temperature": 0.8, "top_p": 0.9, "seed": 1234}
+#: the bf16 gate: each bf16 stream's first divergence from the solo bf16
+#: ``greedy_generate`` must come where the float32 full forward's top two
+#: logits on the solo stream up to that token lie within this margin (a
+#: near-tie that bf16 rounding may flip).  ``--calibrate-serving`` at seeds
+#: 0-2, dense and paged: sound divergences at margins 0.0002-0.0049 (2-4 of
+#: 12 streams a run); the skipped rewind's largest 0.16-0.44 (PERF.md, "Serving gate")
+SERVE_TIE_TOL = 0.03
+#: phase 20: ``examples/gpt/cluster_serving.py`` through one worker at
+#: GPT-124M-class width, float32
+CLUSTER_SERVING = {"requests": 32, "slots": 8, "max_prompt": 64, "max_new": 24}
+
+
+def serving_schedules(seed: int, vocab: int) -> tuple[list, list]:
+    """Phase 19's traffic, ``[(arrival step, prompt, budget)]``: 12 requests
+    of 8-200 tokens (buckets 8 to 256), four of them on one 64-token prefix
+    that arrive apart (so paged admissions hit it), budgets 8-48, staggered;
+    and 8 repetitive requests (a 3-6 token pattern tiled) for speculation."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 19)
+    prefix = rng.integers(0, vocab, 64)
+    lengths = (8, 13, 30, 9, 100, 40, 150, 3, 200, 21, 70, 47)
+    shared = {3, 5, 7, 10}                 # 64-token prefix + these lengths
+    arrivals = (0, 0, 0, 2, 4, 9, 12, 16, 20, 24, 30, 36)
+    main = []
+    for i, (t, at) in enumerate(zip(lengths, arrivals)):
+        tail = rng.integers(0, vocab, t)
+        prompt = np.concatenate([prefix, tail]) if i in shared else tail
+        main.append((at, prompt.astype(np.int32), int(rng.integers(8, 49))))
+    rep = []
+    for i in range(8):
+        pattern = rng.integers(0, vocab, int(rng.integers(3, 7)))
+        prompt = np.tile(pattern, 32)[:int(rng.integers(24, 97))]
+        rep.append((2 * i, prompt.astype(np.int32), int(rng.integers(16, 49))))
+    return main, rep
+
+
+def drive_batcher(b, schedule) -> list:
+    """Submit each request ``(arrival step, prompt, budget[, sampling
+    kwargs])`` at its arrival step, step until every one has finished; the
+    token streams in schedule order."""
+    todo = sorted(range(len(schedule)), key=lambda i: schedule[i][0])
+    rids, steps = {}, 0
+    while todo or b.load()["total"]:
+        while todo and schedule[todo[0]][0] <= steps:
+            i = todo.pop(0)
+            _, prompt, budget, *kw = schedule[i]
+            rids[i] = b.submit(prompt, budget, **(kw[0] if kw else {}))
+        b.step()
+        steps += 1
+    res = b.run()
+    return [res[rids[i]] for i in range(len(schedule))]
+
+
+def solo_streams(cfg, params, schedule) -> list:
+    from tensorflowonspark_tpu_torch.models.gpt import greedy_generate
+
+    return [greedy_generate(cfg, params, p[None, :], n)[0, len(p):].cpu().numpy()
+            for _, p, n in schedule]
+
+
+def top2_margin(model, prompt, stream, j: int) -> float:
+    """The float32 full forward's top-two logit gap at the position that
+    picks ``stream[j]`` (prompt + the solo stream's first ``j`` tokens)."""
+    import numpy as np
+    import torch
+
+    ids = torch.from_numpy(np.concatenate([prompt, stream[:j]]).astype(np.int64))
+    dev = next(iter(model.parameters())).device
+    with torch.no_grad():
+        top = torch.topk(model(ids[None].to(dev))[0, -1].float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def tie_readings(streams, solo, schedule, model32) -> list:
+    """``(request, first divergence or None, top-two margin there)`` of each
+    stream against its solo run."""
+    import numpy as np
+
+    out = []
+    for i, (got, want) in enumerate(zip(streams, solo)):
+        diff = np.flatnonzero(got != want)
+        j = int(diff[0]) if diff.size else None
+        out.append((i, j, None if j is None else top2_margin(model32, schedule[i][1], want, j)))
+    return out
+
+
+def check_serving(seed: int, card: str, trained: dict, gate: bool = True) -> dict:
+    """Phase 19 on phase 13's trained weights (it runs on their device): the
+    ``ContinuousBatcher`` at full width in float32 (TF32 off) under seven
+    regimes — dense, paged (16 tokens a page, prefix hits), chunked prefill
+    (64), decode blocks (8), prompt-lookup speculation (k 4, repetitive
+    prompts), a 2-layer ``DraftModel``, and the model as its own
+    ``DraftModel`` (every proposal accepted) — each stream equal to a solo
+    ``greedy_generate``; a
+    sampled request the same alone and in company; a skipped rewind and a
+    scatter into a permuted slot must differ.  Then bf16, dense and paged,
+    against solo bf16 greedy under the tie gate (:data:`SERVE_TIE_TOL`),
+    which the skipped rewind must fail.  With ``gate`` false it only logs
+    the readings (``--calibrate-serving``).  Returns the kernels' launches
+    (the serving path runs none)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import gpt, serving
+    from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher, DraftModel
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (flash_attention,
+                                                                 flash_attention_bwd)
+
+    cfg, params = trained["cfg"], trained["params"]
+    f32 = dataclasses.replace(cfg, dtype=torch.float32, attention_fn=None)
+    main, rep = serving_schedules(seed, cfg.vocab_size)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    want = solo_streams(f32, params, main)
+    want_rep = solo_streams(f32, params, rep)
+    log(f"serving, float32 on {card}: {len(main)} requests (prompts "
+        f"{[len(p) for _, p, _ in main]}, budgets {[n for _, _, n in main]}) and {len(rep)} "
+        f"repetitive ones; solo greedy oracles in {time.perf_counter() - t0:.1f} s")
+    draft_params = {n: t for n, t in params.items() if not n.startswith("layers.") or
+                    int(n.split(".")[1]) < SERVE_DRAFT_LAYERS}
+    draft = DraftModel(dataclasses.replace(f32, num_layers=SERVE_DRAFT_LAYERS), draft_params,
+                       window=SERVE_DRAFT_WINDOW)
+    self_draft = DraftModel(f32, params, window=SERVE_SELF_DRAFT_WINDOW)
+    regimes = {"dense": ({}, main, want),
+               f"paged ({SERVE_PAGE} tokens a page)": ({"kv_page_tokens": SERVE_PAGE}, main, want),
+               f"prefill_chunk {SERVE_CHUNK}": ({"prefill_chunk": SERVE_CHUNK}, main, want),
+               f"decode_block_steps {SERVE_BLOCK}": ({"decode_block_steps": SERVE_BLOCK}, main,
+                                                     want),
+               f"speculative_k {SERVE_SPEC_K} (repetitive)": ({"speculative_k": SERVE_SPEC_K},
+                                                               rep, want_rep),
+               f"{SERVE_DRAFT_LAYERS}-layer DraftModel, k {SERVE_SPEC_K}": (
+                   {"speculative_k": SERVE_SPEC_K}, main, want),
+               f"{cfg.num_layers}-layer self-draft, k {SERVE_SPEC_K}": (
+                   {"speculative_k": SERVE_SPEC_K,
+                    "speculative_window": SERVE_SELF_DRAFT_WINDOW}, main, want)}
+    bad = []
+    for name, (kw, sched, oracle) in regimes.items():
+        b = ContinuousBatcher(f32, params, max_batch=SERVE_SLOTS, **kw)
+        if "Draft" in name:
+            b.set_draft(draft)
+        elif "self-draft" in name:
+            b.set_draft(self_draft)
+        t0 = time.perf_counter()
+        streams = drive_batcher(b, sched)
+        wall = time.perf_counter() - t0
+        same = sum(np.array_equal(g, w) for g, w in zip(streams, oracle))
+        extra = ""
+        if b.spec_k:
+            extra = (f"; acceptance {b.spec_accepted}/{b.spec_proposed}, "
+                     f"{b.draft_dispatches} draft calls")
+        if b._pages is not None:
+            extra = f"; prefix {b.prefix_stats()}"
+        log(f"serving {name}: {same}/{len(sched)} streams equal solo greedy; "
+            f"{sum(map(len, streams)) / wall:.1f} tok/s, {b.prefill_dispatches} prefill / "
+            f"{b.decode_dispatches} decode calls ({b.decode_steps} steps){extra}")
+        ok = same == len(sched)
+        if b._pages is not None:
+            ok &= b.prefix_stats()["hit"] > 0
+        if b.spec_k and "Draft" not in name:
+            ok &= b.spec_accepted > 0
+        if "self-draft" in name:      # the target agrees with itself everywhere
+            ok &= 0 < b.spec_accepted == b.spec_proposed
+        bad += [] if ok else [name]
+    # a sampled request: alone, and in the company of the main schedule
+    sampled = (3, main[4][1], 24, SERVE_SAMPLED)
+    s_alone, = drive_batcher(ContinuousBatcher(f32, params, max_batch=SERVE_SLOTS), [sampled])
+    *streams, s_company = drive_batcher(ContinuousBatcher(f32, params, max_batch=SERVE_SLOTS),
+                                        main + [sampled])
+    company_exact = all(np.array_equal(g, w) for g, w in zip(streams, want))
+    same_sampled = np.array_equal(s_alone, s_company)
+    log(f"serving, a sampled request ({SERVE_SAMPLED}): "
+        f"{'the same' if same_sampled else 'DIFFERENT'} alone and in company "
+        f"({s_alone[:8].tolist()}...; greedy would give {want[4][:8].tolist()}...); its "
+        f"company equal to solo greedy: {company_exact}")
+    bad += [] if same_sampled and company_exact else ["sampled"]
+
+    # planted faults: both must change some stream
+    def skipped_rewind(b):
+        serving.rewind_cache = lambda cache, position: cache
+        return b
+
+    def permuted_slot(b):
+        scatter = b._scatter_rows
+        b._scatter_rows = lambda rows, slots: scatter(
+            rows, [(s + 1) % b.max_batch if s < b.max_batch else s for s in slots])
+        return b
+
+    faults = {"skipped rewind (planted fault)": skipped_rewind,
+              "scatter into a permuted slot (planted fault)": permuted_slot}
+    for name, plant in faults.items():
+        try:
+            streams = drive_batcher(plant(ContinuousBatcher(f32, params, max_batch=SERVE_SLOTS)),
+                                    main)
+        finally:
+            serving.rewind_cache = gpt.rewind_cache
+        same = sum(np.array_equal(g, w) for g, w in zip(streams, want))
+        log(f"serving {name}: {same}/{len(main)} streams equal solo greedy")
+        bad += [name] if same == len(main) else []
+
+    # bf16: dense and paged against solo bf16 greedy, tie-aware
+    model32 = gpt._model(f32, params)
+    want16 = solo_streams(cfg, params, main)
+    for name, kw, plant in (("bf16 dense", {}, None),
+                            ("bf16 paged", {"kv_page_tokens": SERVE_PAGE}, None),
+                            ("bf16 dense, skipped rewind (planted fault)", {}, skipped_rewind)):
+        b = ContinuousBatcher(cfg, params, max_batch=SERVE_SLOTS, **kw)
+        try:
+            streams = drive_batcher(plant(b) if plant else b, main)
+        finally:
+            serving.rewind_cache = gpt.rewind_cache
+        r = tie_readings(streams, want16, main, model32)
+        div = [(i, j, m) for i, j, m in r if j is not None]
+        within = all(m <= SERVE_TIE_TOL for _, _, m in div)
+        log(f"serving {name}: {len(main) - len(div)}/{len(main)} streams identical to solo bf16 "
+            f"greedy; first divergences (request, token, float32 top-two margin): "
+            f"{[(i, j, round(m, 5)) for i, j, m in div]} -> {'within' if within else 'OUTSIDE'} "
+            f"{SERVE_TIE_TOL}")
+        bad += [] if within == (plant is None) else [name]
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "flash_attention_dq": flash_attention_bwd.launches_dq,
+                "flash_attention_dkv": flash_attention_bwd.launches_dkv}
+    log(f"serving gate: {'passed' if not bad else 'FAILED: ' + ', '.join(bad)}; kernel "
+        f"launches on the serving path {launches} (the cached decode is PyTorch)")
+    if gate and bad:
+        raise SystemExit(f"the serving engine's gate failed: {bad}")
+    return launches
+
+
+def run_cluster_serving(seed: int, card: str, wd: str, device: str = "cuda",
+                        width: dict | None = None) -> dict:
+    """Phase 20: the port's ``examples/gpt/cluster_serving.py`` through
+    ``TPUCluster.run`` + ``cluster.inference``, one worker hosting a
+    ``ContinuousBatcher`` at GPT-124M-class width in float32, 32 requests,
+    8 slots: every result back in order and equal to the driver's solo
+    greedy oracle.  ``width`` and ``device="cpu"`` rehearse it at a tiny
+    size.  Returns the kernels' launches (none)."""
+    from tensorflowonspark_tpu_torch.examples.gpt import cluster_serving as cs
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (flash_attention,
+                                                                 flash_attention_bwd)
+
+    c = CLUSTER_SERVING
+    args = {"vocab": GPT_WIDTH["vocab"], "hidden": GPT_WIDTH["hidden"],
+            "num_layers": GPT_WIDTH["num_layers"], "num_heads": GPT_WIDTH["num_heads"],
+            "max_position_embeddings": GPT_WIDTH["max_position_embeddings"],
+            "intermediate_size": 4 * GPT_WIDTH["hidden"], **(width or {}),
+            "slots": c["slots"], "seed": seed, "bf16": False, "device": device}
+    reqs = cs.make_requests(c["requests"], args["vocab"], seed, c["max_prompt"], c["max_new"])
+    zero_launch_counts()
+    worker_env = {"OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""} if device == "cpu" \
+        else None
+    t0 = time.perf_counter()
+    results, stats, seconds = cs.serve(args, reqs, 1, worker_env=worker_env,
+                                       working_dir=os.path.join(wd, "cluster_serving"))
+    wall = time.perf_counter() - t0
+    import torch
+
+    want = cs.oracle(args, reqs, torch.device(device))
+    same = sum(list(g) == w for g, w in zip(results, want))
+    tokens = sum(len(r) for r in results)
+    st = stats[0]
+    log(f"cluster serving on {card}: {len(results)} of {len(reqs)} results in order, {same} equal "
+        f"to the driver's solo greedy; inference {seconds:.2f} s = {len(results) / seconds:.1f} "
+        f"rows/s, {tokens / seconds:.1f} tokens/s end to end (the worker's weights and CUDA "
+        f"start included; {wall:.1f} s with the cluster's boot and shutdown); worker, first "
+        f"submit to last result: {st['serve_s']:.2f} s = {len(results) / st['serve_s']:.1f} "
+        f"rows/s, {tokens / st['serve_s']:.1f} tokens/s, {st['prefill_dispatches']} prefill / "
+        f"{st['decode_dispatches']} decode calls; shm connections {st['shm_conns']}, "
+        f"{st['device']}")
+    if len(results) != len(reqs) or same != len(reqs):
+        raise SystemExit("the cluster serving path lost, reordered or changed a request")
+    return {"flash_attention_fwd": flash_attention.launches,
+            "flash_attention_dq": flash_attention_bwd.launches_dq,
+            "flash_attention_dkv": flash_attention_bwd.launches_dkv}
+
+
 # ------------------------------------------------- the other models (slice 9)
 
 #: the 26 categorical vocabularies of Criteo Kaggle (the DLRM repository's
@@ -3104,6 +3418,10 @@ def main() -> int:
                    help="only build the kernels and log the gates of phases 15-18 at seeds "
                         "--seed..--seed+2 (the examples and benches at --seed), and exit "
                         "(no result)")
+    p.add_argument("--calibrate-serving", action="store_true",
+                   help="only build the kernels, train phase 13's model at seeds "
+                        "--seed..--seed+2 and log phase 19's readings on each (the bf16 tie "
+                        "margins among them), and exit (no result)")
     p.add_argument("--calibrate-gpt", action="store_true",
                    help="only build the kernels and log phase 13's and 13b's gate readings "
                         "at seeds --seed..--seed+2, at GPT_LR and at gpt_tiny's own rate "
@@ -3144,6 +3462,22 @@ def main() -> int:
                                              lr=lr)["params"]
                         log(f"calibration Adam {lr:g} seed {seed} "
                             f"{'llama' if variant else 'gpt2'}: {time.perf_counter() - t0:.1f} s")
+        return 0
+
+    if args.calibrate_serving:
+        build_kernels()
+        card = card_name_and_limit()
+        from tensorflowonspark_tpu_torch.examples.gpt import gpt_tiny
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+            for seed in range(args.seed, args.seed + 3):
+                t0 = time.perf_counter()
+                out = gpt_tiny.train(gpt_args(seed, os.path.join(wd, f"gpt_{seed}")),
+                                     torch.device("cuda"))
+                check_serving(seed, card, out, gate=False)
+                del out
+                torch.cuda.empty_cache()
+                log(f"calibration seed {seed}: {time.perf_counter() - t0:.1f} s")
         return 0
 
     if args.calibrate_slice9:
@@ -3268,7 +3602,7 @@ def main() -> int:
         # 14. generation, int8 weights and the int8 export on phase 13's weights
         generation = timed("14 generation", check_gpt_generation, args.seed, card, wd,
                            gpt_train)
-        del gpt_train["params"]
+
         from tensorflowonspark_tpu_torch import bench_gpt_decode
 
         t0 = time.perf_counter()
@@ -3280,6 +3614,21 @@ def main() -> int:
         t0 = time.perf_counter()
         new_models = run_new_models(args.seed, card, wd, phase_s=phase_s)
         phase_s["15-18 total"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        # 19. the serving engine on phase 13's weights: float32 exact, bf16 tie-aware
+        serving = timed("19 serving engine", check_serving, args.seed, card, gpt_train)
+        del gpt_train["params"]
+        torch.cuda.empty_cache()
+
+        # 20. the cluster path: cluster.inference into a worker hosting the batcher
+        cluster_serving = timed("20 cluster serving", run_cluster_serving, args.seed, card, wd)
+        from tensorflowonspark_tpu_torch import bench_batcher
+
+        t0 = time.perf_counter()
+        print(json.dumps(bench_batcher.bench(seed=args.seed)), flush=True)
+        phase_s["19-20 batcher bench"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
 
     # 10. the bench
     from tensorflowonspark_tpu_torch import bench_resnet
@@ -3304,6 +3653,8 @@ def main() -> int:
                                       "gpt_training": gpt_train["launches"][e["name"]],
                                       "llama_training": llama["launches"][e["name"]],
                                       "gpt_generation": generation[e["name"]],
+                                      "serving_engine": serving[e["name"]],
+                                      "cluster_serving": cluster_serving[e["name"]],
                                       "bert_cls_training":
                                           new_models["bert_cls"]["launches"][e["name"]]})
     log("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

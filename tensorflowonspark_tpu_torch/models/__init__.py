@@ -14,6 +14,8 @@ from tensorflowonspark_tpu_torch.models.gpt import (GPT, GPTConfig,  # noqa: F40
                                                     beam_generate, greedy_generate,
                                                     init_cache, lookup_generate,
                                                     sample_generate)
+from tensorflowonspark_tpu_torch.models.serving import (ContinuousBatcher,  # noqa: F401
+                                                        DraftModel)
 from tensorflowonspark_tpu_torch.models.convert import (  # noqa: F401
     bert_config_from_hf, bert_params_from_hf, gpt2_config_from_hf,
     gpt2_params_from_hf, llama_config_from_hf, llama_params_from_hf)

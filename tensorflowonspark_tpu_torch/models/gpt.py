@@ -603,11 +603,19 @@ def rewind_cache(cache: dict, position) -> dict:
     """Set every position counter (each layer's write ``index`` and the
     learned-position ``pos``) to ``position``, in place; K/V are untouched
     — by-position causal masking plus the next block's write retire the
-    entries past it (:func:`lookup_generate`)."""
+    entries past it (:func:`lookup_generate`).  ``position`` is a scalar,
+    or a ``[B]`` tensor or array that rewinds each row of a per-row cache
+    to its own position (the continuous batcher's padded prefill)."""
+    counters = [lc["index"] for lc in cache["layers"]]
     if "pos" in cache:
-        cache["pos"].fill_(position)
-    for lc in cache["layers"]:
-        lc["index"].fill_(position)
+        counters.append(cache["pos"])
+    if not torch.is_tensor(position) and np.ndim(position) == 0:
+        for c in counters:
+            c.fill_(position)
+    else:
+        position = torch.as_tensor(position)
+        for c in counters:
+            c.copy_(position)
     return cache
 
 

@@ -179,7 +179,9 @@ def test_port_imports_no_jax_nor_the_jax_package():
                  "pipeline", "estimator", "examples.mnist.mnist_pipeline",
                  "examples.mnist.mnist_estimator", "examples.bert.bert_squad",
                  "models.gpt", "models.kv_pages", "models.convert", "ops.quant", "ops.xent",
-                 "examples.gpt.gpt_tiny", "bench_gpt_decode"):
+                 "examples.gpt.gpt_tiny", "bench_gpt_decode", "models.serving",
+                 "examples.gpt.serving_demo", "examples.gpt.cluster_serving",
+                 "bench_batcher"):
         assert f"tensorflowonspark_tpu_torch.{name}" in report["imported"], name
     assert [m for m in report["new"] if _forbidden(m)] == []
 
@@ -285,8 +287,8 @@ def test_models_and_ops_export_the_reference_names_of_ported_modules(package):
     assert missing == {m for m in NOT_PORTED_YET if m[0] == package}
     assert {"gpt", "convert", "quant", "xent", "embedding"} & {m for m, _ in expected}
     if package == "models":
-        assert {"WideDeep", "InceptionV3", "UNet", "BertForSequenceClassification"} <= {
-            n for _, n in expected}
+        assert {"WideDeep", "InceptionV3", "UNet", "BertForSequenceClassification",
+                "ContinuousBatcher", "DraftModel"} <= {n for _, n in expected}
     code = (
         "import importlib, json, sys\n"
         f"pkg = importlib.import_module('tensorflowonspark_tpu_torch.{package}')\n"

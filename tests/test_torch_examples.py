@@ -12,6 +12,8 @@ llama-class one with the chunked LM-head loss.  ``bert_squad``'s ``train_fn``, r
 workers as one embedding group (``--num_ps 2``: each holds half of every
 table's rows), ``inception_imagenet`` a 75 px pass and
 ``unet_segmentation`` the reference example's widths, one worker each.
+``serving_demo`` serves its burst with speculation and with decode blocks,
+and ``cluster_serving`` through one worker, each against solo greedy runs.
 """
 
 import os
@@ -53,16 +55,30 @@ CASES = {
     "unet_segmentation": (["segmentation.unet_segmentation", "--cpu", "--steps", "5",
                            "--image_size", "32", "--batch_size", "4", "--num_samples", "8"],
                           ["node 0: step 5 loss", "IoU", "unet_segmentation: done"]),
+    "serving_demo_speculative": (["gpt.serving_demo", "--cpu", "--requests", "6",
+                                  "--speculative", "4"],
+                                 ["6 requests greedy-exact on cpu", "drafts accepted",
+                                  "serving_demo: done"]),
+    "serving_demo_blocks": (["gpt.serving_demo", "--cpu", "--requests", "6",
+                             "--block-steps", "8"],
+                            ["6 requests greedy-exact on cpu", "steps/dispatch",
+                             "serving_demo: done"]),
+    "cluster_serving": (["gpt.cluster_serving", "--cpu", "--workers", "1"],
+                        ["node 0 served 12 requests",
+                         "12 requests greedy-exact across 1 workers", "cluster_serving: done"]),
 }
+#: where each example writes (the serving examples write nothing)
+OUT_FLAGS = {"mnist_pipeline": "--export_dir", "serving_demo_speculative": None,
+             "serving_demo_blocks": None, "cluster_serving": None}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_example_runs(tmp_path, name):
     argv, expected = CASES[name]
     module, *flags = argv
-    out_flag = "--export_dir" if name == "mnist_pipeline" else "--model_dir"
+    out_flag = OUT_FLAGS.get(name, "--model_dir")
     cmd = [sys.executable, "-m", f"tensorflowonspark_tpu_torch.examples.{module}", *flags,
-           out_flag, str(tmp_path / "out")]
+           *([out_flag, str(tmp_path / "out")] if out_flag else [])]
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
     proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(tmp_path), env=env,
                           timeout=300)
