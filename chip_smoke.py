@@ -803,6 +803,11 @@ def run_main_path(seed: int, card: str, rows_n: int, batch_size: int) -> int:
     return launches
 
 
+#: the flash-attention kernels' names, as the summary line and the
+#: workers' launch counts name them
+KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+
+
 def zero_launch_counts() -> None:
     from tensorflowonspark_tpu_torch.ops.flash_attention import (flash_attention,
                                                                  flash_attention_bwd)
@@ -2438,7 +2443,8 @@ def tie_readings(streams, solo, schedule, model32) -> list:
     return out
 
 
-def check_serving(seed: int, card: str, trained: dict, gate: bool = True) -> dict:
+def check_serving(seed: int, card: str, trained: dict, gate: bool = True,
+                  capture=None) -> dict:
     """Phase 19 on phase 13's trained weights (it runs on their device): the
     ``ContinuousBatcher`` at full width in float32 (TF32 off) under seven
     regimes — dense, paged (16 tokens a page, prefix hits), chunked prefill
@@ -2447,10 +2453,15 @@ def check_serving(seed: int, card: str, trained: dict, gate: bool = True) -> dic
     ``DraftModel`` (every proposal accepted) — each stream equal to a solo
     ``greedy_generate``; a
     sampled request the same alone and in company; a skipped rewind and a
-    scatter into a permuted slot must differ.  Then bf16, dense and paged,
+    scatter into a permuted slot must differ.  Each regime runs again with
+    its sites captured as CUDA graphs (``serving/aot.py``): every stream
+    equal to the eager batcher's token for token, no failed capture, one
+    capture a site used; a replay whose token buffer is not refilled must
+    differ.  Then bf16, dense and paged,
     against solo bf16 greedy under the tie gate (:data:`SERVE_TIE_TOL`),
     which the skipped rewind must fail.  With ``gate`` false it only logs
-    the readings (``--calibrate-serving``).  Returns the kernels' launches
+    the readings (``--calibrate-serving``); ``capture`` is the capture
+    cache's test seam, for a rehearsal on the CPU.  Returns the kernels' launches
     (the serving path runs none)."""
     import dataclasses
 
@@ -2461,6 +2472,7 @@ def check_serving(seed: int, card: str, trained: dict, gate: bool = True) -> dic
     from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher, DraftModel
     from tensorflowonspark_tpu_torch.ops.flash_attention import (flash_attention,
                                                                  flash_attention_bwd)
+    from tensorflowonspark_tpu_torch.serving.aot import AOTExecutableCache
 
     cfg, params = trained["cfg"], trained["params"]
     f32 = dataclasses.replace(cfg, dtype=torch.float32, attention_fn=None)
@@ -2474,9 +2486,13 @@ def check_serving(seed: int, card: str, trained: dict, gate: bool = True) -> dic
         f"repetitive ones; solo greedy oracles in {time.perf_counter() - t0:.1f} s")
     draft_params = {n: t for n, t in params.items() if not n.startswith("layers.") or
                     int(n.split(".")[1]) < SERVE_DRAFT_LAYERS}
-    draft = DraftModel(dataclasses.replace(f32, num_layers=SERVE_DRAFT_LAYERS), draft_params,
-                       window=SERVE_DRAFT_WINDOW)
-    self_draft = DraftModel(f32, params, window=SERVE_SELF_DRAFT_WINDOW)
+
+    def drafts():
+        """The 2-layer draft and the self-draft (fresh ones for each
+        batcher: a draft captures into its first batcher's cache)."""
+        return (DraftModel(dataclasses.replace(f32, num_layers=SERVE_DRAFT_LAYERS),
+                           draft_params, window=SERVE_DRAFT_WINDOW),
+                DraftModel(f32, params, window=SERVE_SELF_DRAFT_WINDOW))
     regimes = {"dense": ({}, main, want),
                f"paged ({SERVE_PAGE} tokens a page)": ({"kv_page_tokens": SERVE_PAGE}, main, want),
                f"prefill_chunk {SERVE_CHUNK}": ({"prefill_chunk": SERVE_CHUNK}, main, want),
@@ -2490,12 +2506,19 @@ def check_serving(seed: int, card: str, trained: dict, gate: bool = True) -> dic
                    {"speculative_k": SERVE_SPEC_K,
                     "speculative_window": SERVE_SELF_DRAFT_WINDOW}, main, want)}
     bad = []
-    for name, (kw, sched, oracle) in regimes.items():
-        b = ContinuousBatcher(f32, params, max_batch=SERVE_SLOTS, **kw)
+    captured = {}
+
+    def batcher(name, kw, cache=None):
+        b = ContinuousBatcher(f32, params, max_batch=SERVE_SLOTS, aot_cache=cache, **kw)
+        draft, self_draft = drafts()
         if "Draft" in name:
             b.set_draft(draft)
         elif "self-draft" in name:
             b.set_draft(self_draft)
+        return b
+
+    for name, (kw, sched, oracle) in regimes.items():
+        b = batcher(name, kw)
         t0 = time.perf_counter()
         streams = drive_batcher(b, sched)
         wall = time.perf_counter() - t0
@@ -2517,6 +2540,26 @@ def check_serving(seed: int, card: str, trained: dict, gate: bool = True) -> dic
         if "self-draft" in name:      # the target agrees with itself everywhere
             ok &= 0 < b.spec_accepted == b.spec_proposed
         bad += [] if ok else [name]
+        # the same traffic with every site captured as a CUDA graph
+        cache = AOTExecutableCache(None, capture=capture)
+        cb = batcher(name, kw, cache)
+        t0 = time.perf_counter()
+        cstreams = drive_batcher(cb, sched)
+        cwall = time.perf_counter() - t0
+        sites = [x for x in (cb._step, cb._step_sample, *cb._prefill_jit.values(),
+                             *(cb._draft_model._propose.values() if cb._draft_model else ()))
+                 if x.calls]
+        same = sum(np.array_equal(g, w) for g, w in zip(cstreams, streams))
+        stats = cache.stats()
+        captured[name] = {"equal": same, "of": len(sched), "tok_s": sum(map(len, cstreams)) / cwall,
+                          "eager_tok_s": sum(map(len, streams)) / wall, **stats,
+                          "sites": len(sites)}
+        log(f"serving {name}, captured: {same}/{len(sched)} streams equal the eager batcher's; "
+            f"{captured[name]['tok_s']:.1f} tok/s (eager {captured[name]['eager_tok_s']:.1f}, "
+            f"first calls and captures included); {stats['compiles']} captures for "
+            f"{len(sites)} sites used, {stats['errors']} errors, {stats['loads']} loads")
+        if same != len(sched) or stats["errors"] or stats["compiles"] != len(sites):
+            bad.append(f"{name}, captured")
     # a sampled request: alone, and in the company of the main schedule
     sampled = (3, main[4][1], 24, SERVE_SAMPLED)
     s_alone, = drive_batcher(ContinuousBatcher(f32, params, max_batch=SERVE_SLOTS), [sampled])
@@ -2541,12 +2584,19 @@ def check_serving(seed: int, card: str, trained: dict, gate: bool = True) -> dic
             rows, [(s + 1) % b.max_batch if s < b.max_batch else s for s in slots])
         return b
 
+    def unrefilled_tokens(b):
+        b._step.refill = lambda leaves: None      # the token buffer keeps the capture's
+        return b
+
     faults = {"skipped rewind (planted fault)": skipped_rewind,
-              "scatter into a permuted slot (planted fault)": permuted_slot}
+              "scatter into a permuted slot (planted fault)": permuted_slot,
+              "captured, the step's token buffer not refilled (planted fault)":
+                  unrefilled_tokens}
     for name, plant in faults.items():
+        cache = AOTExecutableCache(None, capture=capture) if "captured" in name else None
         try:
-            streams = drive_batcher(plant(ContinuousBatcher(f32, params, max_batch=SERVE_SLOTS)),
-                                    main)
+            streams = drive_batcher(plant(ContinuousBatcher(f32, params, max_batch=SERVE_SLOTS,
+                                                            aot_cache=cache)), main)
         finally:
             serving.rewind_cache = gpt.rewind_cache
         same = sum(np.array_equal(g, w) for g, w in zip(streams, want))
@@ -2579,7 +2629,7 @@ def check_serving(seed: int, card: str, trained: dict, gate: bool = True) -> dic
         f"launches on the serving path {launches} (the cached decode is PyTorch)")
     if gate and bad:
         raise SystemExit(f"the serving engine's gate failed: {bad}")
-    return launches
+    return {**launches, "captured": captured}
 
 
 def run_cluster_serving(seed: int, card: str, wd: str, device: str = "cuda",
@@ -2589,10 +2639,9 @@ def run_cluster_serving(seed: int, card: str, wd: str, device: str = "cuda",
     ``ContinuousBatcher`` at GPT-124M-class width in float32, 32 requests,
     8 slots: every result back in order and equal to the driver's solo
     greedy oracle.  ``width`` and ``device="cpu"`` rehearse it at a tiny
-    size.  Returns the kernels' launches (none)."""
+    size.  Returns the kernels' launches in the worker (none): each
+    worker reports its process's counts, which start at 0."""
     from tensorflowonspark_tpu_torch.examples.gpt import cluster_serving as cs
-    from tensorflowonspark_tpu_torch.ops.flash_attention import (flash_attention,
-                                                                 flash_attention_bwd)
 
     c = CLUSTER_SERVING
     args = {"vocab": GPT_WIDTH["vocab"], "hidden": GPT_WIDTH["hidden"],
@@ -2601,7 +2650,6 @@ def run_cluster_serving(seed: int, card: str, wd: str, device: str = "cuda",
             "intermediate_size": 4 * GPT_WIDTH["hidden"], **(width or {}),
             "slots": c["slots"], "seed": seed, "bf16": False, "device": device}
     reqs = cs.make_requests(c["requests"], args["vocab"], seed, c["max_prompt"], c["max_new"])
-    zero_launch_counts()
     worker_env = {"OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""} if device == "cpu" \
         else None
     t0 = time.perf_counter()
@@ -2624,9 +2672,158 @@ def run_cluster_serving(seed: int, card: str, wd: str, device: str = "cuda",
         f"{st['device']}")
     if len(results) != len(reqs) or same != len(reqs):
         raise SystemExit("the cluster serving path lost, reordered or changed a request")
-    return {"flash_attention_fwd": flash_attention.launches,
-            "flash_attention_dq": flash_attention_bwd.launches_dq,
-            "flash_attention_dkv": flash_attention_bwd.launches_dkv}
+    return {k: sum(w["launches"][k] for w in stats) for k in KERNEL_NAMES}
+
+
+#: phase 21: the online tier on phase 13's weights — replicas, one warm
+#: standby, 24 requests from 4 concurrent clients with phase 19's prompt
+#: lengths (8-200 tokens) and budgets (8-48), replica 1 SIGKILLed at its
+#: decode step ``kill_at_step`` (``TFOS_CHAOS``).  The planted fault runs
+#: a smaller tier for time: one replica (killed at the same step), the
+#: standby, ``fault_requests`` of the requests (the second half after the
+#: promotion, so the standby serves them)
+SERVING_TIER = {"replicas": 2, "standbys": 1, "slots": 4, "clients": 4, "requests": 24,
+                "kill_at_step": 8, "fault_requests": 6}
+
+
+def tier_requests(seed: int, vocab: int, n: int) -> list:
+    """``n`` requests ``(prompt list, budget)``: phase 19's prompt lengths
+    in turn, random tokens and budgets 8-48 from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 21)
+    lengths = (8, 13, 30, 9, 100, 40, 150, 3 + 64, 200, 21, 70, 47)
+    return [(rng.integers(0, vocab, lengths[i % len(lengths)]).tolist(),
+             int(rng.integers(8, 49))) for i in range(n)]
+
+
+def tier_builder(args: dict):
+    """The tier's model in each worker: phase 13's configuration (float32)
+    and its trained weights, saved by :func:`run_serving_tier`."""
+    import torch
+
+    return args["tier_cfg"], torch.load(args["tier_weights"], map_location="cpu",
+                                        weights_only=True)
+
+
+def stale_capture_builder(args: dict):
+    """Phase 21's planted fault: :func:`tier_builder`, with the batcher's
+    ``load_params`` of the port before this slice (new tensors rebound in
+    the model), so a promoted standby's captured sites keep reading the
+    storage its unload zeroed."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import gpt, serving
+
+    def rebinding_load_params(self, params):
+        self._stale = self._bound_params()     # the storage the captures read stays
+        params = {n: torch.as_tensor(v).to(self.device) for n, v in params.items()}
+        gpt.bind(self.model, params)
+        self.params = params
+
+    serving.ContinuousBatcher.load_params = rebinding_load_params
+    return tier_builder(args)
+
+
+def run_serving_tier(seed: int, card: str, wd: str, trained: dict, device: str = "cuda",
+                     worker_env: dict | None = None) -> dict:
+    """Phase 21: ``ServingCluster.run`` (the port's ``examples/gpt/
+    online_serving.py``) with :data:`SERVING_TIER`'s replicas and warm
+    standby on the card, every site captured as a CUDA graph (the
+    standby's in its warm-up sweep), float32 with TF32 off, behind the TCP
+    frontend: every stream equal to a solo ``greedy_generate`` in this
+    process, a requeue, a standby promotion whose standby then served, no
+    failed capture on any replica, and every replica that served reporting
+    its kernel launches.  A promotion that rebinds the weights instead of copying them
+    into the captured storage (:func:`stale_capture_builder`) must change a
+    stream.  ``device="cpu"`` rehearses it (no captures there).  Returns
+    the kernels' launches on the sound run (none), summed over the
+    replicas' heartbeat-carried counts, and the tier's readings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.gpt import online_serving
+    from tensorflowonspark_tpu_torch.models.gpt import greedy_generate
+
+    c = SERVING_TIER
+    f32 = dataclasses.replace(trained["cfg"], dtype=torch.float32, attention_fn=None)
+    params = trained["params"]
+    path = os.path.join(wd, "tier_weights.pt")
+    torch.save({n: t.detach().cpu() for n, t in params.items()}, path)
+    args = {"tier_cfg": f32, "tier_weights": path}
+    reqs = tier_requests(seed, f32.vocab_size, c["requests"])
+    t0 = time.perf_counter()
+    want = [greedy_generate(f32, params, np.asarray([p]), n)[0, len(p):].tolist()
+            for p, n in reqs]
+    log(f"serving tier: {len(reqs)} requests (prompts {[len(p) for p, _ in reqs]}, budgets "
+        f"{[n for _, n in reqs]}); solo greedy oracles in {time.perf_counter() - t0:.1f} s")
+    readings, bad, launches = {}, [], None
+    for name, builder, n, replicas, kill_node in (
+            ("sound", tier_builder, c["requests"], c["replicas"], 1),
+            ("stale captures after a promotion (planted fault)", stale_capture_builder,
+             c["fault_requests"], 1, 0)):
+        zero_launch_counts()   # the driver's; each worker's start at 0 with its process
+        t0 = time.perf_counter()
+        out = online_serving.run(args, reqs[:n], replicas=replicas, slots=c["slots"],
+                                 clients=c["clients"], warm_standbys=c["standbys"],
+                                 kill_at_step=c["kill_at_step"], kill_node=kill_node,
+                                 graphs=device == "cuda", device=device, builder=builder,
+                                 worker_env=worker_env,
+                                 working_dir=os.path.join(wd, f"tier_{len(readings)}"))
+        secs = time.perf_counter() - t0
+        m = out["metrics"]
+        same = sum(out["results"].get(i) == want[i] for i in range(n))
+        aot = {eid: {k: online_serving.counter(node, "tfos_replica_aot_resolves_total",
+                                               outcome=k) for k in ("compile", "error", "load")}
+               for eid, node in out["nodes"].items()}
+        served = {eid: r["served"] for eid, r in m["replicas"].items()}
+        # the replicas' own kernel launches (heartbeat-carried); every
+        # replica that served must report them
+        counted = {eid: {k: online_serving.counter(node, "tfos_replica_kernel_launches_total",
+                                                   kernel=k) for k in KERNEL_NAMES}
+                   for eid, node in out["nodes"].items()
+                   if "tfos_replica_kernel_launches_total" in (node.get("metrics") or {})}
+        run_launches = {k: int(sum(c[k] for c in counted.values())) for k in KERNEL_NAMES}
+        ttft = sorted(out["ttft"].values())
+        e2e = sorted(out["e2e"].values())
+        tokens = sum(len(r) for r in out["results"].values())
+        readings[name] = {
+            "seconds": secs, "equal": same, "of": n, "requeued": m["requeued"],
+            "promotions": m.get("standby", {}).get("promotions", {}),
+            "heal_s": m.get("standby", {}).get("heal", {}).get("max_secs"), "aot": aot,
+            "served": served, "standby_served": sum(v for e, v in served.items()
+                                                    if int(e) >= replicas),
+            "launches": run_launches, "launches_from": sorted(counted),
+            "ttft_p50_s": ttft[len(ttft) // 2] if ttft else None,
+            "e2e_p50_s": e2e[len(e2e) // 2] if e2e else None,
+            "tok_s": tokens / out["wall"]}
+        log(f"serving tier, {name}, on {card}: {same}/{n} streams equal solo greedy in "
+            f"{secs:.1f} s (boot, warm-up, traffic, shutdown); traffic {out['wall']:.2f} s, "
+            f"{readings[name]['tok_s']:.1f} tok/s, TTFT p50 {readings[name]['ttft_p50_s']}, "
+            f"end to end p50 {readings[name]['e2e_p50_s']}; requeued {m['requeued']}, "
+            f"promotions {readings[name]['promotions']}, heal {readings[name]['heal_s']} s; "
+            f"served by replica {readings[name]['served']} (the promoted standby "
+            f"{readings[name]['standby_served']}); captures by replica {aot}; kernel launches "
+            f"{run_launches}, reported by replicas {sorted(counted)}")
+        if builder is tier_builder:
+            captured_ok = device != "cuda" or (
+                all(a["error"] == 0 for a in aot.values())
+                and all(aot.get(e, {}).get("compile", 0) > 0
+                        for e, r in m["replicas"].items() if r["alive"]))
+            launches = run_launches
+            reported = all(e in counted for e, v in served.items() if v)
+            if same != n or m["requeued"] < 1 or not readings[name]["promotions"] \
+                    or not readings[name]["standby_served"] or not captured_ok \
+                    or not reported:
+                bad.append(name)
+        elif device == "cuda" and same == n:
+            bad.append(name)
+    log(f"serving tier gate: {'passed' if not bad else 'FAILED: ' + ', '.join(bad)}")
+    if bad:
+        raise SystemExit(f"the serving tier's gate failed: {bad}")
+    return {**launches, "tier": readings}
 
 
 # ------------------------------------------------- the other models (slice 9)
@@ -3618,7 +3815,6 @@ def main() -> int:
 
         # 19. the serving engine on phase 13's weights: float32 exact, bf16 tie-aware
         serving = timed("19 serving engine", check_serving, args.seed, card, gpt_train)
-        del gpt_train["params"]
         torch.cuda.empty_cache()
 
         # 20. the cluster path: cluster.inference into a worker hosting the batcher
@@ -3628,6 +3824,12 @@ def main() -> int:
         t0 = time.perf_counter()
         print(json.dumps(bench_batcher.bench(seed=args.seed)), flush=True)
         phase_s["19-20 batcher bench"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        # 21. the online tier on phase 13's weights: replicas and a warm
+        # standby behind the TCP frontend, their sites captured, one killed
+        serving_tier = timed("21 serving tier", run_serving_tier, args.seed, card, wd, gpt_train)
+        del gpt_train["params"]
         torch.cuda.empty_cache()
 
     # 10. the bench
@@ -3655,6 +3857,7 @@ def main() -> int:
                                       "gpt_generation": generation[e["name"]],
                                       "serving_engine": serving[e["name"]],
                                       "cluster_serving": cluster_serving[e["name"]],
+                                      "serving_tier": serving_tier[e["name"]],
                                       "bert_cls_training":
                                           new_models["bert_cls"]["launches"][e["name"]]})
     log("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

@@ -21,8 +21,8 @@ and the chief writes a serving export with :func:`export_model` that
 (``TFEstimator(train_fn, args).fit(df)`` returns a :class:`TFModel` whose
 ``transform(df)`` serves the export), the ``model_dir`` trainer
 (:class:`Estimator` with :func:`train_and_evaluate`) and
-:func:`run_with_recovery`, which relaunches a job after a lost worker.
-The root exports the reference root's names for every module ported so
+:func:`run_with_recovery`, which relaunches a job after a lost worker,
+and the online tier (``serving.ServingCluster``).  The root exports the reference root's names for every module ported so
 far.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
@@ -49,4 +49,7 @@ from tensorflowonspark_tpu_torch.pipeline import (Namespace, Pipeline,  # noqa: 
                                                   ParamGridBuilder, TFEstimator,
                                                   TFModel, TrainValidationSplit,
                                                   CrossValidator)
-from tensorflowonspark_tpu_torch import gpu_info, metrics  # noqa: F401,E402
+from tensorflowonspark_tpu_torch import gpu_info, metrics, tracing  # noqa: F401,E402
+# the online serving tier over ContinuousBatcher replicas; the replicas'
+# model imports happen inside the worker map_fun, not at import time
+from tensorflowonspark_tpu_torch import serving  # noqa: F401,E402

@@ -1,6 +1,6 @@
 """Continuous batching against static batching, on one card.
 
-    python -m tensorflowonspark_tpu_torch.bench_batcher [--seed 0] [--profile]
+    python -m tensorflowonspark_tpu_torch.bench_batcher [--seed 0] [--profile] [--graphs]
 
 The port's counterpart of ``scripts/tpu_sweep.py::stage_serving`` at its
 full-size settings: GPT-124M-class width (vocab 32000, hidden 768, 12
@@ -21,11 +21,16 @@ back, so the card has finished):
 Per pattern: tokens/s, decode occupancy (useful decode slot-steps over
 decode steps x slots), the share of wall time spent admitting (prefill and
 row copies), and prefill and decode calls; for ``spec`` the tokens a
-verify call commits and the acceptance.  One short round warms up first
-(eager PyTorch builds nothing per batcher), then each pattern runs once,
-timed.  ``--profile`` also traces the
-batcher's decode step with all 4 slots live (``devtime.profile_calls``):
-device ms by kernel family and the idle share.
+verify call commits and the acceptance.  Each batcher first drains a
+short warm-up round (admission groups of 1, 2 and 4, with budgets that
+take decode blocks of 16, 8 and 4 steps), then each pattern runs once,
+timed.  ``--profile``
+also traces the batcher's decode step with all 4 slots live
+(``devtime.profile_calls``): device ms by kernel family and the idle
+share.  ``--graphs`` runs the whole bench twice in one call, eager and
+then with every batcher's sites captured as CUDA graphs
+(``serving/aot.py``; the warm-up rounds pay the captures), and adds the
+captured run's ``aot_stats`` and the card's reserved bytes after it.
 
 Prints one JSON line on stdout (logs go to stderr), with the card's name
 and power limit from ``nvidia-smi``.  Raises without a CUDA card.
@@ -49,10 +54,34 @@ def log(*a) -> None:
 
 def bench(seed: int = 0, cfg=None, device="cuda", n_req: int = N_REQ, prompt_len: int = PROMPT,
           lo: int = LO, hi: int = HI, slots: int = SLOTS, block: int = BLOCK,
-          spec_k: int = SPEC_K, profile: bool = False) -> dict:
-    """Run the measurements above; returns the JSON line's dict.  ``cfg``,
-    ``device`` and the sizes exist to rehearse the bench at a tiny size on
-    the CPU; the defaults are the measurement."""
+          spec_k: int = SPEC_K, profile: bool = False, graphs: bool = False,
+          capture=None) -> dict:
+    """Run the measurements above; returns the JSON line's dict (with
+    ``graphs``: ``{"eager": ..., "captured": ...}``).  ``cfg``, ``device``,
+    the sizes and ``capture`` (the cache's test seam) exist to rehearse the
+    bench at a tiny size on the CPU; the defaults are the measurement."""
+    kw = dict(seed=seed, cfg=cfg, device=device, n_req=n_req, prompt_len=prompt_len, lo=lo,
+              hi=hi, slots=slots, block=block, spec_k=spec_k, profile=profile)
+    if not graphs:
+        return _bench(**kw)
+    from tensorflowonspark_tpu_torch.serving.aot import AOTExecutableCache
+
+    eager = _bench(**kw)
+    cache = AOTExecutableCache(None, capture=capture)
+    captured = _bench(**kw, aot_cache=cache)
+    captured["aot_stats"] = cache.stats()
+    out = {"eager": eager, "captured": captured, "device": eager["device"],
+           "card": eager["card"]}
+    for k in ("steady_tps", "bursty_tps", "blocked_tps", "spec_tps", "nospec_tps_same_traffic"):
+        out[f"captured_over_eager_{k}"] = captured[k] / eager[k]
+    log(f"captured / eager tok/s: steady {out['captured_over_eager_steady_tps']:.3f}, bursty "
+        f"{out['captured_over_eager_bursty_tps']:.3f}, spec "
+        f"{out['captured_over_eager_spec_tps']:.3f}; aot {captured['aot_stats']}")
+    return out
+
+
+def _bench(seed, cfg, device, n_req, prompt_len, lo, hi, slots, block, spec_k, profile,
+           aot_cache=None) -> dict:
     import numpy as np
     import torch
 
@@ -71,6 +100,18 @@ def bench(seed: int = 0, cfg=None, device="cuda", n_req: int = N_REQ, prompt_len
         card = card_name_and_limit()
     log(f"card {card}; {n_req} requests, prompt {prompt_len}, budgets {lo}-{hi}, {slots} slots")
     params = {n: t.to(device) for n, t in init_params(cfg, seed).items()}
+
+    def batcher(**kw):
+        """A batcher warmed up on groups of 1, 2 and all slots, with budgets
+        that take decode blocks of ``block``, ``block // 2`` and ``block //
+        4`` steps (with ``aot_cache``: its sites captured)."""
+        b = ContinuousBatcher(cfg, params, max_batch=slots, aot_cache=aot_cache, **kw)
+        warm = [(0, (reqs[0][0], block + 3))]
+        warm += [(block + 4, (p, block // 2 + 1)) for p, _ in reqs[:2]]
+        warm += [(2 * block + 8, (p, block // 4 + 1)) for p, _ in reqs[:slots]]
+        drain(b, warm, sum(n for _, (_, n) in warm))
+        return b
+
     rng = np.random.default_rng(seed)
     # one shared prompt length: one prefill bucket; the budgets vary
     reqs = [(rng.integers(0, cfg.vocab_size, (prompt_len,)).astype(np.int32),
@@ -134,19 +175,17 @@ def bench(seed: int = 0, cfg=None, device="cuda", n_req: int = N_REQ, prompt_len
               "useful_tokens": total_tokens,
               "model": f"gpt {cfg.num_layers}x{cfg.hidden_size} vocab {cfg.vocab_size} "
                        f"{str(cfg.dtype).removeprefix('torch.')}",
+              "graphs": aot_cache is not None,
               "device": torch.cuda.get_device_name(device) if device.type == "cuda"
               else "cpu", "card": card}
-    b = ContinuousBatcher(cfg, params, max_batch=slots)
+    b = batcher()
     steady = [(0, r) for r in reqs]
-    # warm-up (cuBLAS's and the allocator's first calls): one short round of
-    # the first `slots` prompts
-    drain(b, [(0, (p, 8)) for p, _ in reqs[:slots]], 8 * min(slots, n_req))
     # waves of `slots` requests every (lo + hi) // 2 steps: past the shortest
     # budget, so short tenants have retired while long ones still decode
     bursty = [((lo + hi) // 2 * (i // slots), r) for i, r in enumerate(reqs)]
     result.update(measure(b, steady, "steady", reqs, total_tokens)[0])
     result.update(measure(b, bursty, "bursty", reqs, total_tokens)[0])
-    blocked = ContinuousBatcher(cfg, params, max_batch=slots, decode_block_steps=block)
+    blocked = batcher(decode_block_steps=block)
     result.update(measure(blocked, steady, "blocked", reqs, total_tokens)[0])
     result["blocked_steps_per_dispatch"] = \
         result["blocked_decode_steps"] / max(result["blocked_decode_dispatches"], 1)
@@ -159,11 +198,9 @@ def bench(seed: int = 0, cfg=None, device="cuda", n_req: int = N_REQ, prompt_len
            for _ in range(n_req)]
     rep_tokens = sum(n for _, n in rep)
     sched = [(0, r) for r in rep]
-    _, dt_spec, disp, acc, prop = measure(
-        ContinuousBatcher(cfg, params, max_batch=slots, speculative_k=spec_k), sched, "spec",
-        rep, rep_tokens)
-    _, dt_plain, _, _, _ = measure(ContinuousBatcher(cfg, params, max_batch=slots), sched,
-                                   "nospec", rep, rep_tokens)
+    _, dt_spec, disp, acc, prop = measure(batcher(speculative_k=spec_k), sched, "spec", rep,
+                                          rep_tokens)
+    _, dt_plain, _, _, _ = measure(batcher(), sched, "nospec", rep, rep_tokens)
     result.update({"spec_k": spec_k, "spec_tps": rep_tokens / dt_spec,
                    "nospec_tps_same_traffic": rep_tokens / dt_plain,
                    "spec_speedup": dt_plain / dt_spec,
@@ -204,13 +241,15 @@ def bench(seed: int = 0, cfg=None, device="cuda", n_req: int = N_REQ, prompt_len
 
         # every slot live for the warm-up, the timed and the traced steps
         budget = 2 * PROFILE_CALLS + 8
-        b = ContinuousBatcher(cfg, params, max_batch=slots)
+        b = batcher()
         for p, _ in reqs[:slots]:
             b.submit(p, budget)
         b.step()                                     # the admission
         result["decode_profile"] = devtime.profile_calls(b.step, PROFILE_CALLS, "decode step")
         log(f"decode step: {result['decode_profile']['wall_ms_unprofiled']:.3f} ms, idle share "
             f"{result['decode_profile']['idle_share_unprofiled']:.3f}")
+    if device.type == "cuda":
+        result["reserved_bytes"] = torch.cuda.memory_reserved(device)
     return result
 
 
@@ -219,8 +258,10 @@ def main() -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
                    help="also trace the decode step (device ms by family, idle share)")
+    p.add_argument("--graphs", action="store_true",
+                   help="run the bench eager and then with the sites captured as CUDA graphs")
     a = p.parse_args()
-    print(json.dumps(bench(seed=a.seed, profile=a.profile)))
+    print(json.dumps(bench(seed=a.seed, profile=a.profile, graphs=a.graphs)))
     return 0
 
 

@@ -19,9 +19,11 @@ before its ``map_fun`` first touches ``torch.cuda``.
 job after a worker failure; the user's ``map_fun`` resumes from its
 latest checkpoint.
 
-Not ported yet (ROADMAP queue A): live membership
-(``add_workers``/``retire_worker``), the agent backend, TensorBoard, the
-submit-time payload preflight and the ``/metrics`` HTTP endpoint.
+Live membership (``add_workers``/``retire_worker``, which the serving
+tier grows and shrinks by) and the ``/metrics`` HTTP endpoint
+(``metrics_text``/``serve_metrics``) are the JAX package's.  Not ported
+yet (ROADMAP A2r): the agent backend, TensorBoard and the submit-time
+payload preflight.
 """
 
 from __future__ import annotations
@@ -77,15 +79,33 @@ class LocalProcessBackend:
         self.procs: list[mp.Process] = []
 
     def start(self, num_workers: int, fn, tf_args, cluster_meta: dict, queues) -> None:
-        self.procs = []
-        ctx = mp.get_context("spawn")  # fork is unsafe once CUDA is initialised
+        self.procs = []  # restartable: a relaunch must not index old procs
         for i in range(num_workers):
-            p = ctx.Process(
-                target=_worker_entry,
-                args=(i, self.worker_env, fn, tf_args, cluster_meta, queues),
-                name=f"tfos-node-{i}", daemon=False)
-            p.start()
-            self.procs.append(p)
+            self._spawn(i, fn, tf_args, cluster_meta, queues)
+
+    def _spawn(self, executor_id: int, fn, tf_args, cluster_meta: dict,
+               queues) -> None:
+        ctx = mp.get_context("spawn")  # fork is unsafe once CUDA is initialised
+        p = ctx.Process(
+            target=_worker_entry,
+            args=(executor_id, self.worker_env, fn, tf_args, cluster_meta,
+                  queues),
+            name=f"tfos-node-{executor_id}", daemon=False)
+        p.start()
+        self.procs.append(p)
+
+    def add_workers(self, executor_ids, fn, tf_args, cluster_meta: dict,
+                    queues) -> None:
+        """Live membership expansion: spawn additional workers mid-flight
+        (``TPUCluster.add_workers``).  ``executor_ids`` must continue the
+        existing contiguous id range — ``alive()``/``exitcodes()`` index
+        by executor id, and retired workers keep their slot."""
+        for i in executor_ids:
+            if i != len(self.procs):
+                raise ValueError(
+                    f"non-contiguous executor id {i} (next slot is "
+                    f"{len(self.procs)})")
+            self._spawn(i, fn, tf_args, cluster_meta, queues)
 
     def alive(self) -> list[bool]:
         return [p.is_alive() for p in self.procs]
@@ -140,6 +160,13 @@ class TPUCluster:
         self._stop_feed = threading.Event()  # one-shot for the cluster's life
         self._active_feeders: set = set()
         self._monitor: "tpu_health.ClusterMonitor | None" = None
+        self._metrics_http = None
+        # elastic membership (docs/serving.md): the payload that booted the
+        # cluster, re-used by add_workers; retired ids are excluded from
+        # feeding/shutdown markers but keep their backend slot
+        self._payload: tuple | None = None  # (map_fun, tf_args)
+        self._retired: set[int] = set()
+        self._membership_lock = threading.Lock()
 
     @property
     def monitor(self):
@@ -161,6 +188,30 @@ class TPUCluster:
                  if self._monitor is not None else {})
         return {"driver": tpu_metrics.get_registry().snapshot(),
                 "nodes": nodes}
+
+    # ------------------------------------------------------------------ run
+    def metrics_text(self) -> str:
+        """The merged cluster view in Prometheus text exposition format
+        (driver samples labeled ``node="driver"``, worker samples by
+        executor id)."""
+        m = self.metrics()
+        return tpu_metrics.render_cluster_text(m["driver"], m["nodes"])
+
+    def serve_metrics(self, host: str = "127.0.0.1",
+                      port: int = 0) -> tuple[str, int]:
+        """Start (or return) this cluster's ``/metrics`` + ``/statusz``
+        HTTP endpoint — the standalone exposition server for
+        training-only jobs (the serving tier hangs its own off the
+        frontend).  Returns the bound ``(host, port)``."""
+        if self._metrics_http is None:
+            server = tpu_metrics.MetricsHTTPServer(
+                self.metrics_text, statusz=self.metrics,
+                host=host, port=port)
+            server.start()
+            # cache only a server that actually bound — a failed start
+            # (port taken) must stay retryable
+            self._metrics_http = server
+        return self._metrics_http.address
 
     # ------------------------------------------------------------------ run
     @classmethod
@@ -253,18 +304,123 @@ class TPUCluster:
         logger.info("all %d nodes registered", num_workers)
         cluster = cls(backend, server, cluster_info, cluster_meta, input_mode,
                       working_dir, queues)
+        cluster._payload = (map_fun, tf_args)
         if monitor:
             cluster._monitor = tpu_health.ClusterMonitor(
                 cluster, hang_timeout=hang_timeout, step_timeout=step_timeout)
             cluster._monitor.start()
         return cluster
 
+    # ----------------------------------------------------- live membership
+    def add_workers(self, n: int = 1, *, map_fun=None, tf_args=None,
+                    timeout: float | None = None) -> list[dict]:
+        """Grow a RUNNING cluster by ``n`` workers (elastic membership).
+
+        Re-opens the reservation path (the rendezvous server listens for
+        the cluster's whole life — :meth:`Server.open_for`), extends the
+        ``worker`` role in the cluster template, spawns the newcomers
+        through the backend, and blocks until each has registered.  The
+        new nodes run ``map_fun`` (default: the same payload the cluster
+        was booted with) and join ``cluster_info`` in place, so a live
+        :class:`~tensorflowonspark_tpu_torch.health.ClusterMonitor` starts
+        watching them as soon as they register.  Returns the new nodes'
+        info dicts.
+
+        Built for the serving tier (``ServingCluster.add_replicas``):
+        workers added here are pure queue-served roles — they are NOT
+        part of any ``torch.distributed`` process group the original
+        members may have formed (a late joiner cannot enter it).
+        """
+        if self._shutdown_done:
+            raise RuntimeError("cluster is shut down")
+        if n < 1:
+            raise ValueError("add_workers needs n >= 1")
+        spawn = getattr(self.backend, "add_workers", None)
+        if spawn is None:
+            raise RuntimeError(
+                f"backend {type(self.backend).__name__} does not support "
+                "live worker addition (no add_workers method)")
+        if map_fun is None or tf_args is None:
+            if self._payload is None:
+                raise RuntimeError("no stored payload to relaunch; pass "
+                                   "map_fun and tf_args explicitly")
+            map_fun = self._payload[0] if map_fun is None else map_fun
+            tf_args = self._payload[1] if tf_args is None else tf_args
+        timeout = (self.cluster_meta.get("reservation_timeout", 600.0)
+                   if timeout is None else float(timeout))
+        with self._membership_lock:
+            if self._shutdown_done:
+                # checked again under the lock: shutdown sends its
+                # end-of-feed markers under it, so a newcomer either
+                # registered before them or is never spawned
+                raise RuntimeError("cluster is shut down")
+            first = self.cluster_meta["num_workers"]
+            new_ids = list(range(first, first + n))
+            # template first: the newcomers' _role_for reads it from the
+            # pickled cluster_meta; reservation re-open before spawn so a
+            # fast-booting worker can never observe the stale required
+            # count
+            self.cluster_meta["cluster_template"].setdefault(
+                "worker", []).extend(new_ids)
+            self.cluster_meta["num_workers"] = first + n
+            self.server.open_for(n)
+            for i in new_ids:  # stale crash files from a reused dir
+                with contextlib.suppress(OSError):
+                    os.remove(os.path.join(self.working_dir, f"error.{i}"))
+            spawn(new_ids, map_fun, tf_args, self.cluster_meta, self.queues)
+            deadline = time.monotonic() + timeout
+            while True:
+                regs = {r["executor_id"]: r
+                        for r in self.server.reservations.get()}
+                if all(i in regs for i in new_ids):
+                    break
+                # fail fast on a newcomer that died during ITS bootstrap —
+                # previously-failed (e.g. preempted-and-replaced) workers
+                # must not be re-read as a fresh bootstrap failure
+                dead = [i for i in self.backend.failed() if i in new_ids]
+                if dead:
+                    # scope the crash-file read to the NEWCOMERS: a stale
+                    # error.{i} from a previously failed-over member must
+                    # not be re-raised over the real bootstrap failure
+                    _raise_worker_errors(self.working_dir,
+                                         self.cluster_meta["num_workers"],
+                                         ids=new_ids)
+                    raise RuntimeError(
+                        f"new worker(s) {dead} exited during bootstrap")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"timed out awaiting {n} new reservation(s); got "
+                        f"{sorted(i for i in new_ids if i in regs)}")
+                # membership mutation is one atomic section by design:
+                # scale/retire/heal must serialize behind the grow, and
+                # the poll is deadline-bounded a few lines up
+                time.sleep(0.1)  # tfos: ignore[blocking-under-lock]
+            added = [regs[i] for i in new_ids]
+            self.cluster_info.extend(added)
+        logger.info("cluster grew by %d worker(s): %s", n, new_ids)
+        return added
+
+    def retire_worker(self, executor_id: int) -> None:
+        """Record a clean, driver-initiated departure: the worker keeps
+        its backend slot (ids stay contiguous) but is excluded from
+        feeding and from shutdown's end-of-feed markers, and its cached
+        queue client is closed.  The caller is responsible for actually
+        stopping the worker (e.g. the serving tier's drain + EndOfFeed)."""
+        with self._membership_lock:
+            self._retired.add(int(executor_id))
+            cli = self._clients.pop(int(executor_id), None)
+        if cli is not None:
+            with contextlib.suppress(Exception):
+                cli.close()
+
     # ---------------------------------------------------------------- feed
     def _feedable_nodes(self) -> list[dict]:
         """Nodes that consume the input queue: workers/chief/master, not
-        ps/evaluator (reference: ``TFCluster.py::train`` targets workers)."""
+        ps/evaluator (reference: ``TFCluster.py::train`` targets workers)
+        or retired members."""
         feedable = [n for n in self.cluster_info
-                    if n["job_name"] in ("worker", "chief", "master")]
+                    if n["job_name"] in ("worker", "chief", "master")
+                    and n["executor_id"] not in self._retired]
         return sorted(feedable, key=lambda n: n["executor_id"])
 
     def _client_for(self, executor_id: int) -> QueueClient:
@@ -443,13 +599,17 @@ class TPUCluster:
         if grace_secs:
             time.sleep(grace_secs)
         if self.input_mode == InputMode.SPARK:
-            for n in self._feedable_nodes():
-                for qn in self._feed_qnames:
-                    try:
-                        self._client_for(n["executor_id"]).put(qn, EndOfFeed(), timeout=5)
-                    except Exception:
-                        logger.warning("could not send EndOfFeed('%s') to node %d",
-                                       qn, n["executor_id"])
+            # under the membership lock: a worker add_workers is spawning
+            # (a serving tier's standby backfill) registers first and gets
+            # its marker too, where it would otherwise wait forever
+            with self._membership_lock:
+                for n in self._feedable_nodes():
+                    for qn in self._feed_qnames:
+                        try:
+                            self._client_for(n["executor_id"]).put(qn, EndOfFeed(), timeout=5)
+                        except Exception:
+                            logger.warning("could not send EndOfFeed('%s') to node %d",
+                                           qn, n["executor_id"])
         finished = self.backend.join(timeout)
         monitor_failure = None
         if self._monitor is not None:
@@ -466,6 +626,10 @@ class TPUCluster:
         if not finished:
             logger.warning("workers still alive after %.0fs; terminating", timeout)
             self.backend.terminate()
+        if self._metrics_http is not None:
+            with contextlib.suppress(Exception):
+                self._metrics_http.stop()
+            self._metrics_http = None
         for c in self._clients.values():
             c.close()
         self.server.stop()
@@ -490,6 +654,10 @@ class TPUCluster:
         self._stop_feed.set()
         if self._monitor is not None:
             self._monitor.stop()  # no-op join when called from its thread
+        if self._metrics_http is not None:
+            with contextlib.suppress(Exception):
+                self._metrics_http.stop()
+            self._metrics_http = None
         with contextlib.suppress(Exception):
             self.backend.terminate()
         for c in self._clients.values():
@@ -800,16 +968,18 @@ def _watch_for_crashes(backend, server: Server, status: dict) -> None:
         time.sleep(0.25)
 
 
-def _raise_worker_errors(working_dir: str, num_workers: int) -> None:
+def _raise_worker_errors(working_dir: str, num_workers: int,
+                         ids=None) -> None:
     """Re-raise worker tracebacks found in crash files — ALL of them.
 
     Reference: ``TFCluster.py::shutdown`` re-raising errors drained from the
     per-node ``'error'`` queues.  Every crashed worker's traceback is
     aggregated into the one ``RuntimeError``, so a multi-worker failure is
-    diagnosed in one read.
+    diagnosed in one read.  ``ids`` restricts the sweep (``add_workers``
+    scopes it to the newcomers).
     """
     found: list[tuple[int, str]] = []
-    for i in range(num_workers):
+    for i in (range(num_workers) if ids is None else ids):
         crash = os.path.join(working_dir, f"error.{i}")
         if os.path.exists(crash):
             with open(crash) as f:

@@ -65,6 +65,7 @@ def map_fun(args: dict, ctx) -> None:
 
     import torch
 
+    from tensorflowonspark_tpu_torch.bert_train import kernel_launches
     from tensorflowonspark_tpu_torch.models import ContinuousBatcher
     from tensorflowonspark_tpu_torch.util import resolve_device, strict_matmul_precision
 
@@ -105,7 +106,8 @@ def map_fun(args: dict, ctx) -> None:
         while order and order[0] in finished:
             feed.batch_results([finished.pop(order.popleft()).tolist()])
             emitted += 1
-    stats = {"served": emitted, "prefill_dispatches": batcher.prefill_dispatches,
+    stats = {"served": emitted, "launches": kernel_launches(),
+             "prefill_dispatches": batcher.prefill_dispatches,
              "decode_dispatches": batcher.decode_dispatches,
              "decode_steps": batcher.decode_steps, "shm_conns": ctx.mgr.shm_conns,
              "serve_s": time.perf_counter() - t_first if t_first else 0.0,

@@ -116,7 +116,7 @@ class HeartbeatReporter:
     driver sees step progress with sub-interval latency.
 
     The reporter is also the mount point for chaos injection
-    (the JAX package's ``chaos`` module; not yet ported): step- and time-triggered faults
+    (:mod:`~tensorflowonspark_tpu_torch.chaos`): step- and time-triggered faults
     piggyback on ``report_step`` / the beat thread, and the ``stall``
     fault suppresses publishing to simulate a wedged process whose OS
     process is still alive.

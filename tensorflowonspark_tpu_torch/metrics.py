@@ -1,8 +1,7 @@
-"""Cluster-wide metrics plane: the registry.
+"""Cluster-wide metrics plane: registry, exposition, aggregation.
 
-Port of the registry half of ``tensorflowonspark_tpu/metrics.py`` (the
-Prometheus exposition, snapshot merging and the ``/metrics`` HTTP server
-are not ported yet).
+Port of ``tensorflowonspark_tpu/metrics.py``: a copy, the exposition,
+aggregation and HTTP endpoint included.
 
 The reference's observability story is "spawn TensorBoard and read the
 Spark UI" (SURVEY.md §5); this rebuild's subsystems each grew their own
@@ -22,8 +21,15 @@ into:
   (:class:`~tensorflowonspark_tpu_torch.health.HeartbeatReporter` attaches
   :func:`snapshot`; the driver's
   :class:`~tensorflowonspark_tpu_torch.health.ClusterMonitor` keeps the last
-  snapshot per node) — a live cluster view with zero new sockets, read
-  by ``TPUCluster.metrics()``.
+  snapshot per node) — a live cluster view with zero new sockets.
+  :func:`merge_snapshots` stamps each node's samples with a ``node``
+  label so one exposition page shows the whole cluster.
+- **Exposition**: :func:`render_prometheus` renders any snapshot in the
+  Prometheus text format (0.0.4: ``# HELP``/``# TYPE``, escaped labels,
+  cumulative histogram buckets with ``+Inf``/``_sum``/``_count``);
+  :class:`MetricsHTTPServer` hangs ``/metrics`` (text) and ``/statusz``
+  (JSON) off a stdlib HTTP server — the serving tier starts one next to
+  its frontend, training-only jobs via ``TPUCluster.serve_metrics()``.
 
 Naming is enforced (here at registration, statically by tfos-check's
 ``metric-naming`` rule): ``^[a-z][a-z0-9_]*$`` with a ``tfos_`` prefix
@@ -40,6 +46,7 @@ from __future__ import annotations
 
 import bisect
 import collections
+import json
 import logging
 import os
 import re
@@ -359,6 +366,9 @@ class MetricsRegistry:
                 logger.exception("metrics collect hook failed")
         return {m.name: m.snapshot_entry() for m in metrics}
 
+    def render(self) -> str:
+        return render_prometheus(self.snapshot())
+
 
 # -- process default registry ----------------------------------------------
 
@@ -374,3 +384,166 @@ def get_registry() -> MetricsRegistry:
         if _default_registry is None:
             _default_registry = MetricsRegistry(enabled=telemetry_enabled())
         return _default_registry
+
+
+# -- aggregation -----------------------------------------------------------
+
+def merge_snapshots(by_node: dict, label: str = "node") -> dict:
+    """Merge per-node snapshots into one, stamping each sample with
+    ``label=<node key>``.  Same-name families must agree on type; a
+    conflicting node's family is dropped with a warning (a half-upgraded
+    cluster must not poison the whole page)."""
+    merged: dict = {}
+    for node_key, snap in sorted(by_node.items(), key=lambda kv: str(kv[0])):
+        for name, entry in (snap or {}).items():
+            tgt = merged.get(name)
+            if tgt is None:
+                tgt = merged[name] = {
+                    "type": entry.get("type"), "help": entry.get("help", ""),
+                    "labelnames": [label] + list(entry.get("labelnames", [])),
+                    "samples": []}
+            elif tgt["type"] != entry.get("type"):
+                logger.warning(
+                    "metric %r: node %r reports type %r but %r was merged "
+                    "first; dropping the conflicting family", name, node_key,
+                    entry.get("type"), tgt["type"])
+                continue
+            for labels, value in entry.get("samples", []):
+                tgt["samples"].append(
+                    [{label: str(node_key), **labels}, value])
+    return merged
+
+
+def render_cluster_text(driver_snapshot: dict, node_metrics: dict) -> str:
+    """One Prometheus page for a whole cluster: the driver's registry
+    snapshot (labeled ``node="driver"``) merged with each worker's
+    heartbeat-carried snapshot from ``ClusterMonitor.node_metrics()``
+    (labeled by executor id) — the shared backend of
+    ``TPUCluster.metrics_text`` and ``ServingCluster.metrics_text``."""
+    by_node = {"driver": driver_snapshot}
+    for eid, node in node_metrics.items():
+        by_node[str(eid)] = (node or {}).get("metrics") or {}
+    return render_prometheus(merge_snapshots(by_node))
+
+
+# -- Prometheus text exposition --------------------------------------------
+
+def _escape_help(s: str) -> str:
+    return s.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _escape_label_value(s: str) -> str:
+    return (s.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _fmt_labels(labels: dict) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label_value(str(v))}"'
+                     for k, v in labels.items())
+    return "{" + inner + "}"
+
+
+def _fmt_value(v: float) -> str:
+    f = float(v)
+    return repr(int(f)) if f == int(f) else repr(f)
+
+
+def render_prometheus(snapshot: dict) -> str:
+    """Render a snapshot (one registry's, or a :func:`merge_snapshots`
+    result) in the Prometheus text exposition format 0.0.4."""
+    out: list[str] = []
+    for name in sorted(snapshot):
+        entry = snapshot[name]
+        kind = entry.get("type", "untyped")
+        if entry.get("help"):
+            out.append(f"# HELP {name} {_escape_help(entry['help'])}")
+        out.append(f"# TYPE {name} {kind}")
+        for labels, value in entry.get("samples", []):
+            if kind == "histogram":
+                cum = 0
+                for le, c in zip(value["le"] + [float("inf")],
+                                 value["counts"]):
+                    cum += c
+                    le_s = "+Inf" if le == float("inf") else _fmt_value(le)
+                    out.append(f"{name}_bucket"
+                               f"{_fmt_labels({**labels, 'le': le_s})} {cum}")
+                out.append(f"{name}_sum{_fmt_labels(labels)} "
+                           f"{_fmt_value(value['sum'])}")
+                out.append(f"{name}_count{_fmt_labels(labels)} "
+                           f"{value['count']}")
+            else:
+                out.append(f"{name}{_fmt_labels(labels)} {_fmt_value(value)}")
+    return "\n".join(out) + ("\n" if out else "")
+
+
+# -- HTTP exposition -------------------------------------------------------
+
+class MetricsHTTPServer:
+    """``/metrics`` (Prometheus text) + ``/statusz`` (JSON) on a stdlib
+    threading HTTP server.
+
+    ``render`` returns the exposition text; ``statusz`` (optional)
+    returns a JSON-able dict.  Both run per request, so the page is
+    always live.  Serving tier: hung off the frontend by
+    ``ServingCluster.run``; training jobs: ``TPUCluster.serve_metrics``.
+    """
+
+    def __init__(self, render, statusz=None, host: str = "127.0.0.1",
+                 port: int = 0):
+        self._render = render
+        self._statusz = statusz
+        self._host = host
+        self._port = port
+        self._httpd = None
+        self.address: tuple[str, int] | None = None
+
+    def start(self) -> tuple[str, int]:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        render, statusz = self._render, self._statusz
+
+        class _Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):   # no stderr chatter
+                logger.debug("metrics http: " + fmt, *args)
+
+            def do_GET(self):
+                try:
+                    path = self.path.split("?", 1)[0]
+                    if path == "/metrics":
+                        body = render().encode()
+                        ctype = "text/plain; version=0.0.4; charset=utf-8"
+                    elif path == "/statusz" and statusz is not None:
+                        body = json.dumps(statusz(), indent=1,
+                                          default=str).encode()
+                        ctype = "application/json"
+                    else:
+                        self.send_error(404)
+                        return
+                # tfos: ignore[broad-except] — a scrape handler bug must
+                # surface as a 500 to the scraper, never kill the server
+                except Exception:
+                    logger.exception("metrics endpoint render failed")
+                    self.send_error(500)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self._httpd = ThreadingHTTPServer((self._host, self._port), _Handler)
+        self._httpd.daemon_threads = True
+        self.address = self._httpd.server_address[:2]
+        threading.Thread(target=self._httpd.serve_forever,
+                         name="metrics-http", daemon=True).start()
+        logger.info("metrics endpoint at http://%s:%d/metrics",
+                    *self.address)
+        return self.address
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None

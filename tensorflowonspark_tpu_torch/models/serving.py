@@ -23,9 +23,11 @@ registry under the same keys (``_prefill_jit``): one decode step for the
 lifetime, one prefill per (power-of-two prompt BUCKET, power-of-two
 admission GROUP), one chunk step, one K-step decode block per power of
 two taken.  The shapes stay static (prompts right-padded, groups padded
-to a power of two), so a later CUDA graph can capture each site once.  A
-pad row's prefill never lands: the host knows the slot list and copies
-only the real rows (the JAX package drops an out-of-bounds scatter).
+to a power of two, side caches kept one per group size), so with
+``aot_cache=`` (``serving/aot.py``) each site is captured once as a CUDA
+graph and replayed.  A pad row's prefill never lands: the host knows the
+slot list and copies only the real rows (the JAX package drops an
+out-of-bounds scatter).
 
 With ``kv_page_tokens`` the cache goes PAGED: per-layer K/V pools behind
 per-row block tables (``models/gpt.py``), host-side page accounting with a
@@ -140,6 +142,24 @@ def _copy_rows(cache: dict, rows: dict, src: torch.Tensor, dst: torch.Tensor) ->
             leaf.index_copy_(0, dst, rc[name].index_select(0, src))
 
 
+def _zero_cache(cache: dict) -> dict:
+    """``cache`` back to :func:`init_cache`'s state, in place (a dense
+    cache: every leaf starts at zero)."""
+    for leaf in _leaves(cache):
+        leaf.zero_()
+    return cache
+
+
+def _copy_cache(dst: dict, src: dict) -> None:
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        d.copy_(s)
+
+
+def _leaves(cache: dict) -> list:
+    out = [leaf for name, leaf in cache.items() if name != "layers"]
+    return out + [leaf for lc in cache["layers"] for leaf in lc.values()]
+
+
 def _counters(cache: dict) -> list:
     """Every position counter of a cache: each layer's ``index`` and the
     learned-position ``pos``."""
@@ -163,6 +183,50 @@ def _host_dtype(dtype: torch.dtype) -> str:
 def _device_array(a, dtype: torch.dtype, device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return t.view(dtype) if dtype == torch.bfloat16 else t
+
+
+def _storage(params: dict) -> list[torch.Tensor]:
+    """Every tensor a state dict holds, a quantized leaf's ``q`` and
+    ``scale`` included, in name order."""
+    out = []
+    for n in sorted(params):
+        v = params[n]
+        out += [v.q, v.scale] if isinstance(v, _QuantArray) else [v]
+    return out
+
+
+def _copy_leaf(v):
+    if isinstance(v, _QuantArray):
+        return v._replace(v.q.clone(), v.scale.clone())
+    return v.detach().clone()
+
+
+def _meta_leaf(v):
+    """A leaf's shape and dtype without its storage."""
+    if isinstance(v, _QuantArray):
+        return v._replace(v.q.to("meta"), v.scale.to("meta"))
+    return v.detach().to("meta")
+
+
+def _as_device_leaf(v, like, device):
+    """One incoming ``load_params`` leaf on ``device``: a quantized leaf
+    with its tensors moved, anything else as a tensor — int16 bits where
+    the built leaf ``like`` is bf16 are read back as bf16."""
+    if isinstance(v, _QuantArray):
+        return v._replace(torch.as_tensor(v.q).to(device), torch.as_tensor(v.scale).to(device))
+    t = torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v)
+    if like is not None and getattr(like, "dtype", None) == torch.bfloat16 \
+            and t.dtype == torch.int16:
+        t = t.view(torch.bfloat16)
+    return t.to(device)
+
+
+def host_params(params: dict) -> dict:
+    """A state dict as host arrays to cross a process boundary: tensors as
+    numpy (bf16 as its int16 bits, which ``load_params`` reads back),
+    quantized leaves with their tensors on the CPU."""
+    return {n: v._replace(v.q.cpu(), v.scale.cpu()) if isinstance(v, _QuantArray)
+            else _host(v) for n, v in params.items()}
 
 
 # --------------------------------------------------------------- draft model
@@ -192,6 +256,17 @@ class DraftModel:
         self.model = _gpt._model(cfg, params)    # full forward — no decode cache
         self.device = _gpt._device_of(params)
         self.dispatches = 0
+        self._aot = None               # set by ContinuousBatcher.set_draft
+        #: the propose callable per (rows, buffer length, k)
+        self._propose: dict = {}
+
+    def _propose_jit(self, B: int, L: int, k: int):
+        key = ("propose", B, L, k)
+        if key not in self._propose:
+            fn = functools.partial(self._propose_fn, k)
+            self._propose[key] = fn if self._aot is None else \
+                self._aot.wrap(key, fn, device=self.device)
+        return self._propose[key]
 
     @torch.no_grad()
     def propose(self, buf: np.ndarray, lens: np.ndarray, k: int) -> np.ndarray:
@@ -202,16 +277,19 @@ class DraftModel:
         self.dispatches += 1
         buf = torch.from_numpy(np.asarray(buf)).to(self.device, torch.long)
         lens = torch.from_numpy(np.asarray(lens)).to(self.device, torch.long)
-        rows = torch.arange(buf.shape[0], device=self.device)
+        return self._propose_jit(*buf.shape, int(k))(buf, lens).cpu().numpy()   # [B, k]
+
+    def _propose_fn(self, k: int, buf, lens):
+        rows = torch.arange(buf.shape[0], device=buf.device)
         table = self.model._table().float()
         out = []
-        for _ in range(int(k)):
+        for _ in range(k):
             h = self.model.hidden(buf)[rows, lens - 1]                 # [B, H]
             nxt = torch.argmax(h.float() @ table.T, dim=-1)
             buf[rows, lens] = nxt                    # lens <= window + k - 1 < L
             lens = lens + 1
             out.append(nxt)
-        return torch.stack(out, dim=1).cpu().numpy()                   # [B, k]
+        return torch.stack(out, dim=1)
 
 
 # ------------------------------------------------------------------- batcher
@@ -222,6 +300,15 @@ class ContinuousBatcher:
     ``temperature``/``top_p``/``seed`` (deterministic per request,
     independent of batch company).  Runs on the device of ``params`` (a
     ``GPT`` state dict: tensors, or ``ops.quant`` arrays).
+
+    ``aot_cache`` (a :class:`~tensorflowonspark_tpu_torch.serving.aot.
+    AOTExecutableCache`) captures each call site of the registry — the
+    decode step, the prefill buckets, chunks, scatters, verify and decode
+    blocks — as one CUDA graph at its first call and replays it after
+    (:meth:`aot_stats`); the tokens are the eager batcher's.  A graph
+    reads the storage it was captured over, so a batcher with an
+    ``aot_cache`` keeps its own copy of the weights (one more model's
+    worth of device memory); without one it reads the caller's tensors.
 
     Usage::
 
@@ -245,7 +332,8 @@ class ContinuousBatcher:
                  kv_page_tokens: int | None = None,
                  kv_pool_pages: int | None = None,
                  prefix_cache: bool = True,
-                 prefill_only: bool = False):
+                 prefill_only: bool = False,
+                 aot_cache=None):
         if cfg.rolling_kv_cache:
             raise ValueError("ContinuousBatcher requires a full-length "
                              "cache (rolling_kv_cache=False)")
@@ -320,6 +408,11 @@ class ContinuousBatcher:
                 raise ValueError("kv_pool_pages needs kv_page_tokens")
             self._pages = None
             self.cfg = dataclasses.replace(cfg, per_row_positions=True)
+        if aot_cache is not None:
+            #: with captured sites, the batcher's own copy of the weights:
+            #: the storage its graphs read, which ``load_params`` overwrites
+            #: and ``unload_params`` zeroes.  Without, the caller's tensors
+            params = {n: _copy_leaf(v) for n, v in params.items()}
         self.params = params
         #: names, shapes and dtypes of the state dict the callables were
         #: built over; ``load_params`` holds every later one to it
@@ -364,29 +457,48 @@ class ContinuousBatcher:
         self._on_token: dict[int, object] = {}
         #: prompt per live request (drafting and session export read it)
         self._prompts: dict[int, np.ndarray] = {}
-        #: the call registry, keyed as the JAX package's compile sites:
-        #:   ("final", pow2_bucket, pow2_rows), ("chunk", C), ("zeros", rows),
-        #:   ("scatter", rows), ("pfinal", bucket, rows), ("pchunk", C),
-        #:   ("park",), "verify", ("block", K, sampled), ("pexport", n),
-        #:   ("padopt", n)
+        #: the call registry, keyed as the JAX package's compile sites that
+        #: capture: ("final", pow2_bucket, pow2_rows), ("chunk", C),
+        #: ("scatter", rows), ("pfinal", bucket, rows), ("pchunk", C),
+        #: "verify", ("block", K, sampled)
         self._prefill_jit: dict = {}
         #: how many times each site's callable was registered (each exactly once)
         self._built: dict = {}
+        #: the capture cache (``serving/aot.py``), or None: plain calls
+        self._aot = aot_cache
+        #: the prefill side caches, one per admission-group size, zeroed in
+        #: place for each group: a captured site reads and writes the same
+        #: storage on every call.  A chunked admission streams into its own
+        #: (``_chunk_cache``) and is copied into the 1-row one for its final
+        self._side: dict[int, dict] = {}
+        self._chunk_cache: dict | None = None
         # two callables so all-greedy traffic never pays the sampler
-        self._step = self._jit(("step",), functools.partial(_decode_one_greedy, self.model))
+        self._step = self._jit(("step",), functools.partial(_decode_one_greedy, self.model),
+                               donate_argnums=(0,))
         self._step_sample = self._jit(("step_sample",),
-                                      functools.partial(_decode_one_sampled, self.model))
+                                      functools.partial(_decode_one_sampled, self.model),
+                                      donate_argnums=(0,))
 
-    def _jit(self, site, fn):
+    def _jit(self, site, fn, donate_argnums=()):
         """THE call-site chokepoint (the JAX package's compile sites): every
-        device callable is registered here once per key, and counted."""
+        device callable is registered here once per key, and counted; with
+        an ``aot_cache`` it is the site's capture.  ``donate_argnums``: the
+        arguments the site writes in place (the caches), passed as the same
+        tensors on every call."""
         self._built[site] = self._built.get(site, 0) + 1
-        return fn
+        if self._aot is None:
+            return fn
+        return self._aot.wrap(site, fn, donate_argnums=donate_argnums, device=self.device)
 
-    def _site(self, key, fn):
+    def aot_stats(self) -> dict | None:
+        """The capture cache's ``{dir, loads, compiles, errors}``, or None
+        when the batcher runs without one."""
+        return None if self._aot is None else self._aot.stats()
+
+    def _site(self, key, fn, donate_argnums=()):
         """The callable registered under ``key`` (``fn``, at its first use)."""
         if key not in self._prefill_jit:
-            self._prefill_jit[key] = self._jit(key, fn)
+            self._prefill_jit[key] = self._jit(key, fn, donate_argnums)
         return self._prefill_jit[key]
 
     def _tensor(self, values, dtype=torch.long) -> torch.Tensor:
@@ -397,10 +509,12 @@ class ContinuousBatcher:
         ``slot_idx`` — one indexed copy a leaf however many rows were
         admitted.  Pad rows (a group padded to a power of two) carry slot
         ``max_batch``: the host leaves them out, so their prefill never
-        lands."""
+        lands; the index lists keep the group's length by repeating the
+        first real pair (the same row copied twice)."""
         real = [(j, s) for j, s in enumerate(slot_idx) if 0 <= s < self.max_batch]
         if real:
-            self._site(("scatter", len(slot_idx)), _copy_rows)(
+            real += real[:1] * (len(slot_idx) - len(real))
+            self._site(("scatter", len(slot_idx)), _copy_rows, donate_argnums=(0, 1))(
                 self.cache, row_cache, self._tensor([j for j, _ in real]),
                 self._tensor([s for _, s in real]))
 
@@ -419,11 +533,26 @@ class ContinuousBatcher:
     # -- warm-standby parameter swap --------------------------------------
     def unload_params(self) -> None:
         """Drop the weights while KEEPING every built callable and the cache
-        (the warm-standby posture).  Refuses while any request is live;
-        ``submit`` raises until :meth:`load_params` re-arms it."""
-        if self.load()["total"] or self._reserved:
-            raise RuntimeError(f"cannot unload params with live requests (load={self.load()})")
+        (the warm-standby posture).  Without an ``aot_cache`` the model
+        lets go of them (it keeps their names, shapes and dtypes only);
+        with one, their storage stays — the captured sites read it — and
+        is zeroed, and :meth:`load_params` copies the next weights into
+        it.  Refuses while any request is live; ``submit`` raises until
+        :meth:`load_params` re-arms it."""
+        self._check_idle("unload params")
+        if self.params is not None:
+            if self._aot is None:
+                _gpt.bind(self.model, {n: _meta_leaf(v)
+                                       for n, v in self._bound_params().items()})
+            else:
+                with torch.no_grad():
+                    for t in _storage(self.params):
+                        t.zero_()
         self.params = None
+
+    def _check_idle(self, what: str) -> None:
+        if self.load()["total"] or self._reserved:
+            raise RuntimeError(f"cannot {what} with live requests (load={self.load()})")
 
     @staticmethod
     def _struct_of(params) -> tuple:
@@ -436,13 +565,18 @@ class ContinuousBatcher:
     def load_params(self, params) -> None:
         """(Re)arm the batcher with a state dict of the SAME names, shapes
         and dtypes (a cloned, restored or hot-swapped version; numpy arrays
-        are moved to the batcher's device).  Anything else raises
-        ``ValueError``.  The paged pool's PREFIX INDEX is rebuilt empty:
-        cached pages hold K/V of the OLD weights."""
+        are moved to the batcher's device, bf16 leaves may come as their
+        int16 bits).  Anything else raises ``ValueError`` before a weight
+        changes.  With an ``aot_cache`` the values are COPIED into the
+        storage the batcher was built over, so every captured site sees
+        them; without, the model is bound to them.  The paged pool's
+        PREFIX INDEX is rebuilt empty: cached pages hold K/V of the OLD
+        weights.  Refuses while a request is live."""
         if params is None:
             raise ValueError("load_params needs a parameter tree")
-        params = {n: v if isinstance(v, _QuantArray) else
-                  torch.as_tensor(v).to(self.device) for n, v in params.items()}
+        self._check_idle("load params")
+        bound = self._bound_params()
+        params = {n: _as_device_leaf(v, bound.get(n), self.device) for n, v in params.items()}
         names, leaves = self._struct_of(params)
         want_names, want_leaves = self._params_struct
         if names != want_names:
@@ -456,13 +590,32 @@ class ContinuousBatcher:
                 f"tree (first: {names[bad[0]]} got {leaves[bad[0]]}, want "
                 f"{want_leaves[bad[0]]}) — an incompatible model version cannot reuse "
                 "this batcher")
+        pairs = [(_storage({n: bound[n]}), _storage({n: params[n]})) for n in names]
+        if any([t.shape for t in a] != [t.shape for t in b] for a, b in pairs):
+            raise ValueError("load_params: a quantized leaf's storage differs in shape from "
+                             "the built tree — an incompatible model version cannot reuse "
+                             "this batcher")
         if self._pages is not None:
-            # idle by the unload_params contract: a fresh pool of the same
-            # geometry drops the stale index (idle rows are parked)
+            # idle (checked above): a fresh host-side pool of the same
+            # geometry drops the stale index (idle rows are parked; the
+            # device block tables are rewritten at each admission)
             self._pages = KVPagePool(self._pages.total_pages, self._pages.page_tokens,
                                      prefix_cache=self._pages.prefix_cache)
-        _gpt.bind(self.model, params)
-        self.params = params
+        if self._aot is None:
+            _gpt.bind(self.model, params)
+            self.params = params
+            return
+        with torch.no_grad():
+            for dst, src in pairs:
+                for d, s in zip(dst, src):
+                    d.copy_(s)
+        self.params = bound
+
+    def _bound_params(self) -> dict:
+        """The state dict the model reads: the storage every site uses."""
+        return {f"{owner}.{attr}" if owner else attr: value
+                for owner, module in self.model.named_modules()
+                for attr, value in module._parameters.items()}
 
     def set_role(self, role: str | None) -> None:
         """Specialize an idle batcher for a disaggregated pool role:
@@ -511,6 +664,10 @@ class ContinuousBatcher:
                 f"draft window {draft.window} + speculative_k {self.spec_k} exceeds the "
                 f"draft's max_position_embeddings ({draft.cfg.max_position_embeddings}) "
                 "— shrink the window or use a longer-context draft")
+        if self._aot is not None and draft._aot is None:
+            # the draft's propose sites capture into the target's cache
+            # (one pool, one set of counters)
+            draft._aot = self._aot
         self._draft_model = draft
 
     def take_spec_accept_lens(self) -> list[int]:
@@ -578,11 +735,8 @@ class ContinuousBatcher:
         n = len(page_ids)
         if n == 0:
             return []
-        got = self._site(("pexport", _next_pow2(n)), self._export_fn)(self._tensor(page_ids))
-        return [_host(a) for a in got]
-
-    def _export_fn(self, ids: torch.Tensor) -> list[torch.Tensor]:
-        return [self._pool_view(leaf).index_select(0, ids) for leaf in self._pool_leaves()]
+        ids = self._tensor(page_ids)
+        return [_host(self._pool_view(leaf).index_select(0, ids)) for leaf in self._pool_leaves()]
 
     @torch.no_grad()
     def _seat_pages_device(self, slot: int, row_pages: list[int], import_ids: list[int],
@@ -595,19 +749,17 @@ class ContinuousBatcher:
         npg = self.cfg.max_position_embeddings // self.cfg.kv_page_tokens
         row_bt = np.full((npg,), P, np.int64)
         row_bt[:len(row_pages)] = row_pages
-        self._site(("padopt", _next_pow2(max(1, len(import_ids)))), self._seat_fn)(
-            self._tensor(list(import_ids)), kv_sel, int(slot), self._tensor(row_bt), int(counter))
-
-    def _seat_fn(self, ids, kv, slot_i: int, row_bt, true_tot: int) -> None:
-        if ids.numel():
-            for leaf, blk in zip(self._pool_leaves(), kv):
+        if import_ids:
+            ids = self._tensor(list(import_ids))
+            for leaf, blk in zip(self._pool_leaves(), kv_sel):
                 self._pool_view(leaf).index_copy_(0, ids,
                                                   _device_array(blk, leaf.dtype, leaf.device))
-        if slot_i < self.max_batch:
+        if slot < self.max_batch:
+            row_bt = self._tensor(row_bt)
             for lc in self.cache["layers"]:
-                lc["block_table"][slot_i] = row_bt
+                lc["block_table"][slot] = row_bt
             for c in _counters(self.cache):
-                c[slot_i] = true_tot
+                c[slot] = int(counter)
 
     def _export_session(self, s: _Slot) -> dict:
         """The handoff descriptor of one just-prefilled request: prompt,
@@ -838,20 +990,28 @@ class ContinuousBatcher:
             self._prompts[rid] = prompt
         return rid
 
-    def _fresh_rows_cache(self, rows: int):
-        """A zeroed ``rows``-row side cache."""
-        return self._site(("zeros", rows), self._zeros)(rows)
+    def _fresh_rows_cache(self, rows: int) -> dict:
+        """The ``rows``-row side cache, zeroed in place (allocated at its
+        first use)."""
+        if rows not in self._side:
+            self._side[rows] = self._zeros(rows)
+        return _zero_cache(self._side[rows])
 
     def _zeros(self, rows: int) -> dict:
         # init_cache reads only the device off its parameters
         return init_cache(self.cfg, {"device": torch.empty(0, device=self.device)}, rows)
 
-    def _chunk_jit(self):
-        return self._site(("chunk", self.prefill_chunk), self._chunk_fn)
+    def _fresh_chunk_cache(self) -> dict:
+        """The chunked admission's own 1-row cache, zeroed in place."""
+        if self._chunk_cache is None:
+            self._chunk_cache = self._zeros(1)
+        return _zero_cache(self._chunk_cache)
 
-    def _chunk_fn(self, cache: dict, tokens_row: torch.Tensor) -> dict:
+    def _chunk_jit(self):
+        return self._site(("chunk", self.prefill_chunk), self._chunk_fn, donate_argnums=(0,))
+
+    def _chunk_fn(self, cache: dict, tokens_row: torch.Tensor) -> None:
         self.model.hidden(tokens_row, cache=cache)       # K/V only: no LM head
-        return cache
 
     def _advance_inflight(self) -> list[int]:
         """Advance the in-flight chunked admission by ONE chunk, or finish
@@ -863,12 +1023,15 @@ class ContinuousBatcher:
         n_full = (prompt.size - 1) // C   # >= 1 token left for the final
         i = inf["done_chunks"]
         if i < n_full:
-            inf["cache"] = self._chunk_jit()(
-                inf["cache"], self._tensor(prompt[None, i * C:(i + 1) * C]))
+            self._chunk_jit()(inf["cache"], self._tensor(prompt[None, i * C:(i + 1) * C]))
             inf["done_chunks"] += 1
             return []
-        first, row_cache = self._prefill_final(
-            inf["cache"], [prompt[n_full * C:]], [prompt.size], [temp], [top_p], [seed])
+        # the final call runs over the 1-row group cache (the sites' own
+        # storage): the streamed chunks are copied into it first
+        row_cache = self._fresh_rows_cache(1)
+        _copy_cache(row_cache, inf["cache"])
+        first = self._prefill_final(
+            row_cache, [prompt[n_full * C:]], [prompt.size], [temp], [top_p], [seed])
         slot = inf["slot"]
         self._reserved.discard(slot)
         self._scatter_rows(row_cache, [slot])
@@ -888,8 +1051,8 @@ class ContinuousBatcher:
         """THE bucketed prefill call — a whole-prompt admission GROUP
         (fresh ``len(rests)``-row side cache, padded to a power of two) and
         the last chunk of a chunked prefill (1-row cache) both end here.
-        Returns ``(first_tokens, row_cache)`` on the device; entries past
-        ``len(rests)`` are padding.
+        Prefills ``cache`` in place and returns the first tokens on the
+        device; entries past ``len(rests)`` are padding.
 
         Why the right-padding is exact: prefill attention is causal, so pad
         tokens never reach a true last position's logits (taken per row at
@@ -915,7 +1078,7 @@ class ContinuousBatcher:
         top_a = np.ones((rp,), np.float32)
         top_a[:R] = top_ps
         self.prefill_dispatches += 1
-        return self._site(("final", Tp, rp), self._final_fn)(
+        return self._site(("final", Tp, rp), self._final_fn, donate_argnums=(0,))(
             cache, self._tensor(padded), self._tensor(true_len), self._tensor(tot),
             self._tensor(seed_a), self._tensor(temp_a, torch.float32),
             self._tensor(top_a, torch.float32))
@@ -924,7 +1087,8 @@ class ContinuousBatcher:
         logits = self.model(tokens, cache=cache)
         last = logits[torch.arange(tokens.shape[0], device=tokens.device), true_len - 1]
         first = _select_tokens(last, seeds, torch.zeros_like(true_len), temps, top_ps)
-        return first, rewind_cache(cache, true_tot)
+        rewind_cache(cache, true_tot)
+        return first
 
     def _admit(self) -> list[int]:
         """Fill free slots from the pending queue; returns the ids of
@@ -958,7 +1122,7 @@ class ContinuousBatcher:
                     slot = free.pop()        # reserve from the tail
                     self._reserved.add(slot)
                     self._inflight = {"req": req, "slot": slot,
-                                      "cache": self._fresh_rows_cache(1), "done_chunks": 0}
+                                      "cache": self._fresh_chunk_cache(), "done_chunks": 0}
                     taken_idx.append(j)
                     # first slice: a chunked prompt has >= 1 full chunk before
                     # the final call, so it cannot finish on this slice
@@ -978,8 +1142,9 @@ class ContinuousBatcher:
             seated = []   # (slots, reqs, first tokens on the device)
             for reqs in groups.values():
                 rp = _next_pow2(len(reqs))
-                firsts, rows = self._prefill_final(
-                    self._fresh_rows_cache(rp), [r[1] for r in reqs],
+                rows = self._fresh_rows_cache(rp)
+                firsts = self._prefill_final(
+                    rows, [r[1] for r in reqs],
                     [r[1].size for r in reqs], [r[3] for r in reqs], [r[4] for r in reqs],
                     [r[5] for r in reqs])
                 slots = [next(free_iter) for _ in reqs]
@@ -1204,11 +1369,8 @@ class ContinuousBatcher:
         max_len so its writes go to the scratch row instead of pages now
         owned by someone else (the block-table row is replaced at the
         slot's next admission)."""
-        self._site(("park",), self._park_fn)(i)
-
-    def _park_fn(self, slot: int) -> None:
         for c in _counters(self.cache):
-            c[slot] = self.cfg.max_position_embeddings
+            c[i] = self.cfg.max_position_embeddings
 
     def _finish(self, i: int, s: _Slot) -> None:
         self._results[s.request_id] = np.asarray(s.tokens, np.int32)

@@ -20,8 +20,9 @@ every worker process.  It
 ``map_fun`` runs in the worker process itself, one process per card: the
 driver feeds over TCP/shm directly, so no second process per executor is
 needed.  A latched SIGTERM (``preemption.py``) flips the heartbeat's phase
-to ``preempted``, as in the JAX package's harness.  Its chaos and
-TensorBoard hooks are not ported yet (ROADMAP queue A).
+to ``preempted``, as in the JAX package's harness, and a ``TFOS_CHAOS``
+plan (``chaos.py``) mounts on the heartbeat reporter.  Its TensorBoard
+hook is not ported yet (ROADMAP A2r).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import logging
 import os
 import traceback
 
+from tensorflowonspark_tpu_torch import chaos as chaos_mod
 from tensorflowonspark_tpu_torch import preemption, util
 from tensorflowonspark_tpu_torch.datafeed import DataFeed
 from tensorflowonspark_tpu_torch.health import HeartbeatReporter
@@ -240,6 +242,13 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
             # signal handler and must not touch the kv lock (health.py)
             on_preempt = reporter.note_preempted
             preemption.on_preempted(on_preempt)
+            # chaos self-injection (TFOS_CHAOS): deterministic kill/stall/
+            # drop faults ride the heartbeat/report_step hooks (chaos.py)
+            chaos_agent = chaos_mod.from_env(
+                executor_id, state_dir=cluster_meta.get("working_dir"),
+                node_ctx=ctx)
+            if chaos_agent is not None:
+                reporter.attach_chaos(chaos_agent)
             env = ctx.distributed_env()
             os.environ["TFOS_COORDINATOR"] = env["coordinator_address"]
             os.environ["TFOS_NUM_PROCESSES"] = str(env["num_processes"])

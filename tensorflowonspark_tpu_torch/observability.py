@@ -5,14 +5,16 @@ node harness, the health monitor and the estimator use: :class:`EventLog`
 (the JSONL stream of cluster lifecycle/health events),
 :class:`SummaryWriter` (TensorBoard event files, with
 :func:`read_scalars` to read them back) and :class:`GoodputRecorder`
-(wall time split into productive step time vs init/data/idle).
-TensorBoard spawning, the latency histogram and the profiler helpers are
-not ported yet (ROADMAP A2r).
+(wall time split into productive step time vs init/data/idle), and
+:class:`LatencyHistogram` (the serving tier's TTFT/end-to-end
+percentiles).  TensorBoard spawning and the profiler helpers are not
+ported yet (ROADMAP A2r).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import logging
 import os
@@ -105,6 +107,110 @@ class EventLog:
                     "skipping malformed event at %s:%d (truncated by a "
                     "mid-write death?): %.80r", path, lineno, raw)
         return out
+
+
+# ------------------------------------------------------ latency histogram
+
+class LatencyHistogram:
+    """Latency percentile accumulator (p50/p95/p99) with a lock-free
+    hot path and a **bounded** sample reservoir.
+
+    ``record`` costs one ``itertools.count`` tick plus one list
+    append/assign — all GIL-atomic, no lock — so request threads never
+    contend to record a sample (the serving frontend records TTFT/e2e
+    from many connection threads at once).  The reservoir is a ring of
+    the most recent ``cap`` samples (default 4096): a long-lived serving
+    frontend at millions-of-users scale must not grow a sample list
+    forever, and recency is the window an operator actually wants
+    percentiles over.  Readers take a snapshot copy (GIL-atomic slice)
+    and sort it; percentile reads are O(cap log cap) off the hot path.
+    Percentiles use the nearest-rank method on the retained window, so
+    every reported value is a latency that actually occurred;
+    ``summary()['count']`` stays the TOTAL recorded count.
+    """
+
+    DEFAULT_CAP = 4096
+
+    def __init__(self, cap: int = DEFAULT_CAP):
+        self._cap = max(1, int(cap))
+        self._samples: list[float] = []
+        self._ids = itertools.count()   # thread-safe total-count source
+        self._count = 0
+
+    def record(self, secs: float) -> None:
+        i = next(self._ids)
+        if i >= self._count:            # monotonic, benign-race update
+            self._count = i + 1
+        v = float(secs)
+        s = self._samples
+        n = len(s)
+        if n >= self._cap:
+            # the list never shrinks, so i % n is always in range even
+            # if a fill-phase straggler appends concurrently; indexing
+            # by the ACTUAL length keeps every slot reachable
+            s[i % n] = v
+        else:
+            # fill phase: racing threads may overshoot cap by at most
+            # one slot each (bounded, and still part of the ring above)
+            s.append(v)
+
+    def __len__(self) -> int:
+        """Total samples recorded (retained window is ``min(len, cap)``)."""
+        return max(len(self._samples), self._count)
+
+    @staticmethod
+    def _rank(snap: list, q: float):
+        """Nearest-rank pick from a sorted snapshot (``ceil(q/100*n)``-th
+        sample, 1-based, clamped)."""
+        n = len(snap)
+        return snap[min(n, int(max(1, -(-n * q // 100)))) - 1]
+
+    def percentile(self, q: float) -> float | None:
+        """Nearest-rank percentile ``q`` in [0, 100]; None when empty."""
+        snap = sorted(self._samples)
+        return self._rank(snap, q) if snap else None
+
+    def window_summary(self, since_count: int) -> dict:
+        """:meth:`summary` restricted to the samples recorded AFTER the
+        first ``since_count`` — the canary-gate window: a baseline
+        snapshot's total ``count`` feeds back in, so the gate compares
+        bake-window latencies and is never biased by history the other
+        side doesn't share (warm-up compiles in the incumbent's
+        cumulative percentiles were exactly that bias).  Exact while
+        the reservoir has not wrapped (total <= cap — the gate-scale
+        case); after a wrap the retained recent ring is the best
+        available approximation of the window."""
+        total = len(self)
+        n = max(0, total - max(0, int(since_count)))
+        snap = list(self._samples)
+        if n and total <= len(snap):
+            # no wrap yet: the list is still in append order
+            snap = snap[total - n:]
+        if n == 0 or not snap:
+            return {"count": 0, "mean_secs": None, "p50_secs": None,
+                    "p95_secs": None, "p99_secs": None, "max_secs": None}
+        snap.sort()
+        return {"count": n,
+                "mean_secs": sum(snap) / len(snap),
+                "p50_secs": self._rank(snap, 50),
+                "p95_secs": self._rank(snap, 95),
+                "p99_secs": self._rank(snap, 99),
+                "max_secs": snap[-1]}
+
+    def summary(self) -> dict:
+        """``{count, mean_secs, p50_secs, p95_secs, p99_secs, max_secs}``
+        (None-valued stats when no sample was recorded).  ``count`` is
+        the total ever recorded; the other stats cover the retained
+        window (the most recent ``cap`` samples)."""
+        snap = sorted(self._samples)
+        n = len(snap)
+        if not n:
+            return {"count": 0, "mean_secs": None, "p50_secs": None,
+                    "p95_secs": None, "p99_secs": None, "max_secs": None}
+        return {"count": len(self), "mean_secs": sum(snap) / n,
+                "p50_secs": self._rank(snap, 50),
+                "p95_secs": self._rank(snap, 95),
+                "p99_secs": self._rank(snap, 99), "max_secs": snap[-1]}
 
 
 # ------------------------------------------------------- summary writing

@@ -86,3 +86,26 @@ def test_bf16_streams_diverge_only_at_near_ties(kw):
             with torch.no_grad():
                 top = torch.topk(model32(ids[None])[0, -1], 2).values
             assert (top[0] - top[1]).item() <= TIE, (j, top)
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_page_tokens": 16}, {"decode_block_steps": 8},
+                                {"speculative_k": 4}, {"prefill_chunk": 32}],
+                         ids=["dense", "paged", "block", "speculative", "chunked"])
+def test_captured_sites_replay_the_eager_tokens(kw):
+    """Every site captured as a CUDA graph (``serving/aot.py``): float32
+    streams equal the eager batcher's, no capture fails, one capture a
+    site used, and the registry holds capture sites only."""
+    from tensorflowonspark_tpu_torch.serving.aot import AOTExecutableCache
+
+    cfg, params, reqs = _setup(torch.float32)
+    eager = _serve(cfg, params, reqs, **kw)
+    cache = AOTExecutableCache(None)
+    b = ContinuousBatcher(cfg, params, max_batch=4, aot_cache=cache, **kw)
+    rids = [b.submit(p, n) for p, n in reqs]
+    res = b.run()
+    for rid, want in zip(rids, eager):
+        np.testing.assert_array_equal(res[rid], want)
+    used = [s for s in (b._step, b._step_sample, *b._prefill_jit.values()) if s.calls]
+    assert cache.stats() == {"dir": None, "loads": 0, "compiles": len(used), "errors": 0}
+    assert {k if isinstance(k, str) else k[0] for k in b._prefill_jit} \
+        <= {"final", "chunk", "scatter", "pfinal", "pchunk", "verify", "block"}

@@ -7,9 +7,9 @@ rejection), and the serving tier's hooks (session handoff and adoption,
 parameter unload/load, ``set_role``, prefix-cache export and import).
 
 Every greedy request equals its solo ``greedy_generate``; sampled ones are
-held to the plain batcher's tokens.  The JAX package's AOT executable cache
-has no counterpart yet (eager PyTorch compiles nothing to serialize), and
-its tp-sharded cases wait for the port's mesh.
+held to the plain batcher's tokens.  The compile-site cache (CUDA graphs)
+is held in ``tests/test_torch_serving_aot.py``; the tp-sharded cases wait
+for the port's mesh.
 """
 
 import numpy as np
