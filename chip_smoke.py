@@ -189,7 +189,25 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    at GPT-124M-class width in float32, 32 requests, 8 slots: every result
    back in order and equal to the driver's solo greedy; rows/s and
    tokens/s; then ``bench_batcher``'s JSON line (steady, bursty, blocked,
-   speculative and static tok/s, occupancy, calls).
+   speculative and static tok/s, occupancy, calls);
+21. the online tier on phase 13's weights (float32): ``ServingCluster.run``
+   with 2 replicas and a warm standby, every site captured, 24 requests
+   from 4 clients, replica 1 killed: every stream equal to solo greedy, a
+   requeue, the standby promoted and serving (a promotion that rebinds the
+   weights instead of copying them must change a stream);
+22. the rest of the tier on the same weights: tier A, a ``ModelRegistry``
+   (v1, and v2 = v1 plus a seeded adapter delta), one captured replica and
+   the autoscaler (min 1, max 2): a burst must scale it up, ``rollout("gpt",
+   "v2")`` under traffic must promote (streams before it equal v1's solo
+   greedy, during it v1's or v2's, after it v2's), then the driver is
+   crashed mid-stream and ``resume_driver`` rebinds its port (the
+   ``failover_wait`` clients' streams exact, the journal owing nothing, the
+   heal seconds printed), where a swap whose payload drops the delta must
+   change a stream and a resume that requeues nothing must lose a request;
+   tier B, ``disagg={"prefill": 1, "decode": 1}`` with paged KV on 12
+   requests: every stream exact, a handoff a request, no prefill on the
+   decode replica, where a session seated one position off (a prefill and a
+   decode batcher in this process) must change a stream.
 
 ``python3 chip_smoke.py --calibrate-slice9`` only logs phases 15-18's gate
 readings at three seeds (the examples and the bench at the first);
@@ -199,7 +217,7 @@ phase 19's readings on each.
 Each phase's seconds are printed.  The ResNet, MNIST, Wide&Deep,
 Inception-v3 and U-Net paths run none of the repo's hand-written kernels
 (their convolutions and GEMMs are cuDNN's and cuBLAS's), nor do the serving
-paths of phases 19-20 (cached decode is PyTorch's); the summary's
+paths of phases 19-22 (cached decode is PyTorch's); the summary's
 ``launches_by_path`` shows each kernel's launches on every path, and
 ``launches`` is phase 18's (this slice's path through the kernels).  The
 summary's times, bound and yardsticks are at phase 18's shape ([32, 128,
@@ -2823,7 +2841,508 @@ def run_serving_tier(seed: int, card: str, wd: str, trained: dict, device: str =
     log(f"serving tier gate: {'passed' if not bad else 'FAILED: ' + ', '.join(bad)}")
     if bad:
         raise SystemExit(f"the serving tier's gate failed: {bad}")
-    return {**launches, "tier": readings}
+    return {**launches, "tier": readings, "requests": reqs, "solo": want}
+
+
+# ---------------------------- phase 22: the rest of the tier (slice 12)
+
+#: phase 22, tier A: one replica of phase 13's weights (v1) with the
+#: autoscaler at min 1 and max 2, a burst that scales it up, a canary
+#: rollout to v2 (v1 plus a seeded adapter delta) with traffic flowing,
+#: then the driver crashed mid-stream and resumed from its journal on the
+#: same port.  ``pool`` requests (phase 19's prompt lengths, budgets 16-32)
+#: feed the burst (all at once: more than one replica's slots and
+#: overcommit hold, so the queue grows) and the traffic;
+#: ``crash_requests`` of ``crash_budget`` tokens stream through the crash
+ROLLOUT_TIER = {"slots": 4, "pool": 8, "burst": 16, "clients": 4,
+                "crash_requests": 4, "crash_budget": 96, "failover_wait": 60.0,
+                "autoscale": {"min_replicas": 1, "max_replicas": 2, "interval": 0.05,
+                              "up_queue_per_replica": 2.0, "up_consecutive": 1,
+                              "up_cooldown": 0.0, "down_consecutive": 10 ** 6,
+                              "down_cooldown": 3600.0},
+                "policy": {"steps": (50, 100), "bake_secs": 2.0, "min_samples": 2,
+                           "max_e2e_ratio": None}}
+#: phase 22, tier B: a disaggregated tier of one prefill and one decode
+#: replica (paged KV) serving phase 21's first ``requests`` requests
+DISAGG_TIER = {"disagg": {"prefill": 1, "decode": 1}, "page_tokens": 16, "requests": 12,
+               "slots": 4, "clients": 4}
+
+
+def rollout_delta(cfg, seed: int) -> dict:
+    """v2's adapter delta over v1 (state-dict names): a seeded shift of the
+    final norm's bias and a small one of the last layer's query weights —
+    enough to change most greedy streams."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 22)
+    h, last = cfg.hidden_size, cfg.num_layers - 1
+    return {"ln_f.bias": (0.5 * rng.standard_normal(h)).astype(np.float32),
+            f"layers.{last}.attn.query.weight":
+                (0.02 * rng.standard_normal((h, h))).astype(np.float32)}
+
+
+def rollout_registry(delta: dict):
+    """The tier's catalog: ``gpt@v1`` (:func:`tier_builder`) and ``gpt@v2``,
+    an adapter version over it with ``delta``, its offline eval passed.  A
+    resumed driver registers the same builders again."""
+    from tensorflowonspark_tpu_torch.serving import ModelRegistry
+
+    reg = ModelRegistry()
+    reg.register("gpt", "v1", tier_builder)
+    reg.register("gpt", "v2", base=("gpt", "v1"), adapter=delta)
+    reg.record_eval("gpt", "v2", {"planted": True}, passed=True)
+    return reg
+
+
+def stream_clients(address, authkey, jobs: list, clients: int, timeout: float,
+                   failover_wait: float = 0.0, stop=None) -> tuple[list, list]:
+    """Stream ``jobs`` (``(index, prompt, budget)``) through ``clients``
+    threads, each with its own ``ServeClient``; with ``stop`` (an Event) the
+    clients loop over their jobs until it is set.  Returns the threads
+    (started) and the record list they append to as each request starts:
+    ``{"i", "tokens", "t0", "t1", "deltas": [(epoch, n)], "error"}``, filled
+    as its stream arrives (``t1`` None until it ends)."""
+    import threading
+
+    from tensorflowonspark_tpu_torch.serving import ServeClient
+
+    out: list = []
+
+    def client(cid):
+        try:
+            with ServeClient(address, authkey, timeout=timeout,
+                             failover_wait=failover_wait) as c:
+                while True:
+                    for i, prompt, budget in jobs[cid::clients]:
+                        rec = {"i": i, "tokens": [], "deltas": [], "error": None,
+                               "t0": time.time(), "t1": None}
+                        out.append(rec)
+                        try:
+                            for d in c.generate_stream(prompt, budget, timeout=timeout):
+                                rec["deltas"].append((time.time(), len(d)))
+                                rec["tokens"].extend(d)
+                        except Exception as e:  # a lost request is a reading, not a crash
+                            rec["error"] = f"{type(e).__name__}: {e}"
+                        rec["t1"] = time.time()
+                        if stop is not None and stop.is_set():
+                            return
+                    if stop is None:
+                        return
+        except Exception as e:
+            out.append({"i": None, "error": f"{type(e).__name__}: {e}", "tokens": [],
+                        "deltas": [], "t0": time.time(), "t1": time.time()})
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(clients)]
+    for t in threads:
+        t.start()
+    return threads, out
+
+
+def skipping_adopt(self, state):
+    """Phase 22's planted resume fault: ``ReplicaScheduler.adopt`` over a
+    journal whose accepted-but-uncommitted requests are left out, so the
+    resumed driver requeues nothing."""
+    import copy
+
+    from tensorflowonspark_tpu_torch.serving.scheduler import ReplicaScheduler
+
+    st = copy.copy(state)
+    st.admitted = {r: a for r, a in state.admitted.items() if r in state.committed}
+    return ReplicaScheduler._sound_adopt(self, st)
+
+
+def crash_and_resume(serving, jobs, want, c: dict, registry, timeout: float):
+    """Stream ``jobs`` with ``failover_wait`` clients, crash the driver once
+    every client holds a token, and resume it from the journal on the same
+    port.  Returns the resumed tier and the readings: streams equal to
+    ``want``, errors, the heal seconds (the crash to the first token a
+    client reads after ``resume_driver`` returned: frames the dead driver
+    sent before the crash may still sit in a client's socket, so an earlier
+    token proves nothing), ``resume_driver``'s own seconds, and the
+    journal's unfinished count."""
+    from tensorflowonspark_tpu_torch.serving import ControlPlaneJournal, resume_driver
+
+    jpath = serving.journal.path
+    threads, out = stream_clients(serving.address, serving.authkey, jobs, len(jobs), timeout,
+                                  failover_wait=c["failover_wait"])
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and not (
+            len(out) == len(jobs) and all(r["tokens"] for r in out)):
+        time.sleep(0.002)
+    t_crash = time.time()
+    held = sorted(len(r["tokens"]) for r in out)
+    serving.crash()
+    resumed = resume_driver(serving.cluster, journal_path=jpath, address=serving.address,
+                            max_batch=c["slots"], model=("gpt", "v2"), registry=registry,
+                            crashed_at=t_crash, client_timeout=timeout)
+    t_resumed = time.time()
+    resume_s = t_resumed - t_crash
+    for t in threads:
+        t.join(timeout)
+    # the dead driver's requests still decode on the replicas (their
+    # messages miss the new scheduler and drop): wait for the replicas to
+    # report an empty batcher, so nothing stale streams into a shutdown
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and any(
+            rep["alive"] and rep["reported_load"]
+            for rep in resumed.scheduler.metrics()["replicas"].values()):
+        time.sleep(0.05)
+    first_after = min((t for r in out for t, _ in r["deltas"] if t > t_resumed), default=None)
+    # a commit is journaled before its DONE reaches the client: the joined
+    # clients' commits are on disk
+    return resumed, {
+        "held_at_crash": held, "resume_s": resume_s,
+        "heal_s": None if first_after is None else first_after - t_crash,
+        "equal": sum(r["error"] is None and r["tokens"] == want[r["i"]] for r in out),
+        "of": len(jobs), "errors": [r["error"] for r in out if r["error"]],
+        "unfinished": len(ControlPlaneJournal.replay(jpath).unfinished),
+        "requeued": len(resumed.resume_state.unfinished)}
+
+
+def tier_launches(nodes: dict) -> tuple[dict, list]:
+    """The kernels' launches summed over the replicas' heartbeat-carried
+    counts, and the replicas that reported them."""
+    from tensorflowonspark_tpu_torch.examples.gpt import online_serving
+
+    counted = {eid: {k: online_serving.counter(node, "tfos_replica_kernel_launches_total",
+                                               kernel=k) for k in KERNEL_NAMES}
+               for eid, node in nodes.items()
+               if "tfos_replica_kernel_launches_total" in (node.get("metrics") or {})}
+    return ({k: int(sum(c[k] for c in counted.values())) for k in KERNEL_NAMES},
+            sorted(counted))
+
+
+def run_rollout_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
+                     device: str = "cuda", worker_env: dict | None = None,
+                     timeout: float = 300.0) -> dict:
+    """Phase 22, tier A (:data:`ROLLOUT_TIER`): ``ServingCluster.run`` with a
+    ``ModelRegistry`` (``gpt@v1`` phase 13's weights, ``gpt@v2`` v1 plus
+    :func:`rollout_delta`), one captured replica and the autoscaler; a burst
+    must scale it up (a ``scale_up`` event); ``rollout("gpt", "v2")`` under
+    traffic must promote, every stream done before it started equal to solo
+    greedy under v1, every one during it to v1's or v2's, every one after
+    it to v2's; then the driver is crashed mid-stream and
+    ``resume_driver`` rebinds its port: the ``failover_wait`` clients ride
+    through, every stream equal to v2's, the journal holds no accepted
+    request without a commit.  Planted faults on the resumed tier: a hot
+    swap whose payload drops the adapter delta (v1 under v2's label) must
+    change a stream; a resume that requeues nothing must lose a request."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.models.gpt import greedy_generate
+    from tensorflowonspark_tpu_torch.observability import EventLog
+    from tensorflowonspark_tpu_torch.serving import (ControlPlaneJournal, RolloutPolicy,
+                                                     ServingCluster, apply_adapter,
+                                                     rollout as rollout_mod, scheduler)
+
+    c = ROLLOUT_TIER
+    f32 = dataclasses.replace(trained["cfg"], dtype=torch.float32, attention_fn=None)
+    v1 = trained["params"]
+    delta = rollout_delta(f32, seed)
+    v2 = apply_adapter(v1, delta)
+    rng = np.random.default_rng(seed + 220)
+    pool = [(p, int(rng.integers(16, 33))) for p, _ in tier["requests"][:c["pool"]]]
+    crash = [(p, c["crash_budget"]) for p, _ in tier["requests"][c["pool"]:][:c["crash_requests"]]]
+    t0 = time.perf_counter()
+    solo = {v: [greedy_generate(f32, w, np.asarray([p]), n)[0, len(p):].tolist()
+                for p, n in pool] for v, w in (("v1", v1), ("v2", v2))}
+    solo_crash = [greedy_generate(f32, v2, np.asarray([p]), n)[0, len(p):].tolist()
+                  for p, n in crash]
+    del v2
+    differ = sum(a != b for a, b in zip(solo["v1"], solo["v2"]))
+    log(f"rollout tier: {len(pool)} pooled requests, v2 changes {differ} of their greedy "
+        f"streams; {len(crash)} crash requests of {c['crash_budget']} tokens; solo greedy "
+        f"oracles in {time.perf_counter() - t0:.1f} s")
+    if not differ:
+        raise SystemExit("rollout tier: the v2 delta changes no greedy stream")
+    path = os.path.join(wd, "tier_weights.pt")
+    args = {"tier_cfg": f32, "tier_weights": path}
+    twd = os.path.join(wd, "rollout_tier")
+    r, bad = {}, []
+    t_boot = time.perf_counter()
+    serving = ServingCluster.run(
+        None, 1, max_batch=c["slots"], replica_args=args, model=("gpt", "v1"),
+        registry=rollout_registry(delta), autoscale=dict(c["autoscale"]),
+        aot_cache=device == "cuda", device=device, worker_env=worker_env, working_dir=twd,
+        reservation_timeout=timeout, client_timeout=timeout)
+    live = serving      # the tier in charge: each resume replaces it
+    try:
+        r["boot_s"] = time.perf_counter() - t_boot
+        jobs = [(i % len(pool), *pool[i % len(pool)]) for i in range(c["burst"])]
+        t0 = time.perf_counter()
+        threads, burst = stream_clients(serving.address, serving.authkey, jobs,
+                                        len(jobs), timeout)
+        for t in threads:
+            t.join(timeout)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and (
+                len(serving.scheduler.alive_replicas()) < 2
+                or serving.autoscaler.scale_ups < 1):
+            time.sleep(0.1)
+        # until the scaled-up replica has served, keep the pool's requests flowing
+        pre = list(burst)
+        while time.monotonic() < deadline and not all(
+                rep["served"] for rep in serving.scheduler.metrics()["replicas"].values()):
+            threads, more = stream_clients(serving.address, serving.authkey,
+                                           [(i, *pool[i]) for i in range(len(pool))],
+                                           c["clients"], timeout)
+            for t in threads:
+                t.join(timeout)
+            pre += more
+        r["scale_up_s"] = time.perf_counter() - t0
+        events = EventLog.read(os.path.join(twd, "serving_events.jsonl"))
+        r["scale_up_events"] = [e.get("reason") for e in events if e["kind"] == "scale_up"]
+        r["pre_equal"] = sum(x["error"] is None and x["tokens"] == solo["v1"][x["i"]]
+                             for x in pre)
+        r["pre_of"] = len(pre)
+        # the rollout, traffic flowing
+        import threading
+
+        stop = threading.Event()
+        t_start = time.time()
+        threads, during = stream_clients(serving.address, serving.authkey,
+                                         [(i, *pool[i]) for i in range(len(pool))],
+                                         c["clients"], timeout, stop=stop)
+        ctl = serving.rollout("gpt", "v2", policy=RolloutPolicy(**c["policy"]))
+        t_promoted = time.time()
+        stop.set()
+        for t in threads:
+            t.join(timeout)
+        r["rollout_s"] = t_promoted - t_start
+        r["rollout_state"] = ctl.state
+        r["rollout_steps"] = [(s["percent"], s["ok"], s.get("reason"),
+                               (s.get("canary") or {}).get("completed")) for s in ctl.steps_taken]
+        r["during_v1_or_v2"] = sum(x["error"] is None and x["tokens"] in
+                                   (solo["v1"][x["i"]], solo["v2"][x["i"]]) for x in during)
+        r["during_of"] = len(during)
+        r["during_v2"] = sum(x["tokens"] == solo["v2"][x["i"]] != solo["v1"][x["i"]]
+                             for x in during)
+        threads, post = stream_clients(serving.address, serving.authkey,
+                                       [(i, *pool[i]) for i in range(len(pool))],
+                                       c["clients"], timeout)
+        for t in threads:
+            t.join(timeout)
+        r["post_equal"] = sum(x["error"] is None and x["tokens"] == solo["v2"][x["i"]]
+                              for x in post)
+        r["post_of"] = len(post)
+        r["versions"] = serving.scheduler.model_versions("gpt")
+        # the driver crashed mid-stream, resumed from its journal on the same port
+        jobs = [(i, *crash[i]) for i in range(len(crash))]
+        resumed, r["crash"] = crash_and_resume(serving, jobs, solo_crash, c,
+                                               rollout_registry(delta), timeout)
+        live = resumed
+        # planted fault 1: the hot swap's payload drops the adapter delta
+        sound_payload = rollout_mod.ModelVersion.swap_payload
+
+        def dropping_payload(self):
+            p = sound_payload(self)
+            p.pop("adapter", None)
+            return p
+
+        rollout_mod.ModelVersion.swap_payload = dropping_payload
+        try:
+            resumed.swap_replica_model(0, "gpt", "v2")
+        finally:
+            rollout_mod.ModelVersion.swap_payload = sound_payload
+        resumed.scheduler.mark_draining(1, reason="planted fault: route to replica 0")
+        threads, fault = stream_clients(resumed.address, resumed.authkey,
+                                        [(i, *pool[i]) for i in range(len(pool))],
+                                        c["clients"], timeout)
+        for t in threads:
+            t.join(timeout)
+        r["fault_dropped_delta"] = {"equal": sum(x["tokens"] == solo["v2"][x["i"]]
+                                                 for x in fault), "of": len(fault)}
+        # planted fault 2: a resume that requeues nothing
+        scheduler.ReplicaScheduler._sound_adopt = scheduler.ReplicaScheduler.adopt
+        scheduler.ReplicaScheduler.adopt = skipping_adopt
+        try:
+            live, r["fault_no_requeue"] = crash_and_resume(
+                resumed, jobs, solo_crash, c, rollout_registry(delta), timeout)
+        finally:
+            scheduler.ReplicaScheduler.adopt = scheduler.ReplicaScheduler._sound_adopt
+            del scheduler.ReplicaScheduler._sound_adopt
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and len(
+                tier_launches(live.metrics()["nodes"])[1]) < 2:
+            time.sleep(0.2)
+        r["launches"], r["launches_from"] = tier_launches(live.metrics()["nodes"])
+    finally:
+        if live._shutdown_done:     # crashed, and no resume took over
+            live.cluster.shutdown(timeout=timeout)
+        else:
+            live.shutdown(timeout=timeout)
+    r["journal_records"] = len(ControlPlaneJournal.read_records(
+        os.path.join(twd, "control_plane.jsonl")))
+    cr = r["crash"]
+    ok = {"scale_up": bool(r["scale_up_events"]),
+          "pre": r["pre_equal"] == r["pre_of"],
+          "promoted": r["rollout_state"] == "promoted",
+          "during": r["during_v1_or_v2"] == r["during_of"],
+          "post": r["post_equal"] == r["post_of"] and r["versions"] == {"v2": [0, 1]},
+          "crash": cr["equal"] == cr["of"] and not cr["errors"] and cr["unfinished"] == 0
+                   and cr["requeued"] >= 1 and min(cr["held_at_crash"]) < c["crash_budget"],
+          "launches": not any(r["launches"].values()) and r["launches_from"] == [0, 1]}
+    faults = {"dropped delta changes a stream":
+                  r["fault_dropped_delta"]["equal"] < r["fault_dropped_delta"]["of"],
+              "no requeue loses a request": r["fault_no_requeue"]["unfinished"] > 0}
+    log(f"rollout tier on {card}: boot {r['boot_s']:.1f} s; burst of {c['burst']} -> scale_up "
+        f"in {r['scale_up_s']:.1f} s ({r['scale_up_events']}); before the rollout "
+        f"{r['pre_equal']}/{r['pre_of']} streams equal v1's solo greedy; rollout "
+        f"{r['rollout_state']} in {r['rollout_s']:.1f} s, steps {r['rollout_steps']}, "
+        f"{r['during_v1_or_v2']}/{r['during_of']} streams during it equal v1's or v2's "
+        f"({r['during_v2']} v2's); after it {r['post_equal']}/{r['post_of']} equal v2's, "
+        f"versions {r['versions']}; driver crash with streams holding {cr['held_at_crash']} "
+        f"tokens: resume_driver {cr['resume_s']:.2f} s, heal (the crash to the first token "
+        f"after the resume) {cr['heal_s']} s, requeued {cr['requeued']}, {cr['equal']}/{cr['of']} streams "
+        f"exact, errors {cr['errors']}, unfinished in the journal {cr['unfinished']} "
+        f"({r['journal_records']} records); kernel launches {r['launches']} from replicas "
+        f"{r['launches_from']}")
+    log(f"rollout tier planted faults: a swap dropping the delta: "
+        f"{r['fault_dropped_delta']['equal']}/{r['fault_dropped_delta']['of']} equal v2's; "
+        f"a resume that requeues nothing: unfinished {r['fault_no_requeue']['unfinished']}, "
+        f"client errors {len(r['fault_no_requeue']['errors'])}")
+    bad = [k for k, v in ok.items() if not v] + [k for k, v in faults.items() if not v]
+    log(f"rollout tier gate: {'passed' if not bad else 'FAILED: ' + ', '.join(bad)}")
+    if bad:
+        raise SystemExit(f"the rollout tier's gate failed: {bad}")
+    return r
+
+
+def check_handoff_in_process(trained: dict, tier: dict, page_tokens: int, n: int) -> dict:
+    """Phase 22's smallest disaggregated tier, in this process on the card:
+    a prefill-only batcher hands ``n`` of phase 21's requests to a decode
+    batcher (paged KV, eager), once as the port seats them and once with
+    the session seated one position off (planted fault).  Returns the
+    streams equal to solo greedy in each."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher
+
+    f32 = dataclasses.replace(trained["cfg"], dtype=torch.float32, attention_fn=None)
+    reqs = list(zip(tier["requests"], tier["solo"]))[:n]
+    out = {}
+    for name, shift in (("sound", 0), ("seated one position off", 1)):
+        pre = ContinuousBatcher(f32, trained["params"], max_batch=4,
+                                kv_page_tokens=page_tokens, prefill_only=True)
+        dec = ContinuousBatcher(f32, trained["params"], max_batch=4,
+                                kv_page_tokens=page_tokens)
+        if shift:
+            seat = dec._seat_pages_device
+            dec._seat_pages_device = (lambda slot, rows, ids, kv, counter:
+                                      seat(slot, rows, ids, kv, counter + shift))
+        order = {pre.submit(np.asarray(p), budget): k
+                 for k, ((p, budget), _) in enumerate(reqs)}
+        adopted = {}
+        while len(adopted) < len(reqs):
+            pre.step()
+            for brid, session in pre.take_sessions():
+                adopted[dec.adopt_session(session)] = order[brid]
+        results = dec.run()
+        out[name] = sum([int(t) for t in results[d]] == reqs[k][1]
+                        for d, k in adopted.items())
+        del pre, dec
+    return out
+
+
+def run_disagg_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
+                    device: str = "cuda", worker_env: dict | None = None,
+                    timeout: float = 300.0) -> dict:
+    """Phase 22, tier B (:data:`DISAGG_TIER`): ``ServingCluster.run(disagg=
+    {"prefill": 1, "decode": 1})``, paged KV, both replicas captured, phase
+    21's first requests from 4 clients: every stream equal to solo greedy,
+    one handoff a request, the decode replica with 0 prefill dispatches and
+    a session adopted a request (no prompt position computed again), no
+    kernel launch.  The planted fault (a session seated one position off)
+    runs in :func:`check_handoff_in_process`, the smallest tier that shows
+    it, and must change a stream."""
+    import dataclasses
+
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.gpt import online_serving
+    from tensorflowonspark_tpu_torch.serving import ServingCluster
+
+    c = DISAGG_TIER
+    f32 = dataclasses.replace(trained["cfg"], dtype=torch.float32, attention_fn=None)
+    args = {"tier_cfg": f32, "tier_weights": os.path.join(wd, "tier_weights.pt")}
+    reqs, want = tier["requests"][:c["requests"]], tier["solo"][:c["requests"]]
+    t0 = time.perf_counter()
+    serving = ServingCluster.run(
+        tier_builder, 2, max_batch=c["slots"], replica_args=args, disagg=dict(c["disagg"]),
+        batcher_kwargs={"kv_page_tokens": c["page_tokens"]}, aot_cache=device == "cuda",
+        device=device, worker_env=worker_env, working_dir=os.path.join(wd, "disagg_tier"),
+        reservation_timeout=timeout, client_timeout=timeout)
+    try:
+        boot = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        threads, out = stream_clients(serving.address, serving.authkey,
+                                      [(i, *reqs[i]) for i in range(len(reqs))],
+                                      c["clients"], timeout)
+        for t in threads:
+            t.join(timeout)
+        wall = time.perf_counter() - t1
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            nodes = serving.metrics()["nodes"]
+            if online_serving.counter(nodes.get(1, {}), "tfos_replica_sessions_total",
+                                      direction="adopted") >= len(reqs) \
+                    and online_serving.counter(nodes.get(0, {}), "tfos_replica_sessions_total",
+                                               direction="exported") >= len(reqs):
+                break
+            time.sleep(0.2)
+        m = serving.metrics()
+    finally:
+        serving.shutdown(timeout=timeout)
+    nodes = m["nodes"]
+    cnt = online_serving.counter
+    launches, reported = tier_launches(nodes)
+    r = {"boot_s": boot, "traffic_s": wall, "equal": sum(
+             x["error"] is None and x["tokens"] == want[x["i"]] for x in out), "of": len(reqs),
+         "handoffs": m["handoffs"], "roles": {e: rep["role"] for e, rep in m["replicas"].items()},
+         "decode_prefill_dispatches": cnt(nodes.get(1, {}),
+                                          "tfos_replica_prefill_dispatches_total"),
+         "adopted": cnt(nodes.get(1, {}), "tfos_replica_sessions_total", direction="adopted"),
+         "exported": cnt(nodes.get(0, {}), "tfos_replica_sessions_total", direction="exported"),
+         "aot_errors": sum(cnt(n, "tfos_replica_aot_resolves_total", outcome="error")
+                           for n in nodes.values()),
+         "launches": launches, "launches_from": reported,
+         "ttft": sorted(x["deltas"][0][0] - x["t0"] for x in out if x["deltas"])}
+    t0 = time.perf_counter()
+    r["in_process"] = check_handoff_in_process(trained, tier, c["page_tokens"], 4)
+    r["in_process_s"] = time.perf_counter() - t0
+    log(f"disagg tier on {card}: boot {boot:.1f} s; {r['equal']}/{r['of']} streams equal solo "
+        f"greedy in {wall:.2f} s of traffic; handoffs {r['handoffs']}, sessions exported "
+        f"{r['exported']} / adopted {r['adopted']}, prefill dispatches on the decode replica "
+        f"{r['decode_prefill_dispatches']}, roles {r['roles']}, capture errors "
+        f"{r['aot_errors']}; TTFT p50 {r['ttft'][len(r['ttft']) // 2]:.4f} s; kernel launches "
+        f"{launches} from replicas {reported}; in this process (4 requests, eager): "
+        f"{r['in_process']} streams equal solo greedy, {r['in_process_s']:.1f} s")
+    ok = (r["equal"] == r["of"] and r["handoffs"] == r["of"] and r["adopted"] == r["of"]
+          and r["exported"] == r["of"] and r["decode_prefill_dispatches"] == 0
+          and r["aot_errors"] == 0 and not any(launches.values()) and reported == [0, 1]
+          and r["in_process"]["sound"] == 4)
+    fault_caught = r["in_process"]["seated one position off"] < 4
+    log(f"disagg tier gate: {'passed' if ok else 'FAILED'}; planted fault (a session seated "
+        f"one position off) {'changed a stream' if fault_caught else 'NOT CAUGHT'}")
+    if not ok or not fault_caught:
+        raise SystemExit("the disaggregated tier's gate failed")
+    return r
+
+
+def run_rest_of_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
+                     device: str = "cuda", worker_env: dict | None = None) -> dict:
+    """Phase 22: tier A (:func:`run_rollout_tier`) then tier B
+    (:func:`run_disagg_tier`); the launches of both, summed."""
+    a = run_rollout_tier(seed, card, wd, trained, tier, device, worker_env)
+    b = run_disagg_tier(seed, card, wd, trained, tier, device, worker_env)
+    return {**{k: a["launches"][k] + b["launches"][k] for k in KERNEL_NAMES},
+            "rollout": a, "disagg": b}
 
 
 # ------------------------------------------------- the other models (slice 9)
@@ -3829,6 +4348,12 @@ def main() -> int:
         # 21. the online tier on phase 13's weights: replicas and a warm
         # standby behind the TCP frontend, their sites captured, one killed
         serving_tier = timed("21 serving tier", run_serving_tier, args.seed, card, wd, gpt_train)
+
+        # 22. the rest of the tier on phase 13's weights: the registry, a
+        # canary rollout, the autoscaler, a driver crash resumed from the
+        # journal (tier A); disaggregated prefill/decode pools (tier B)
+        rest_of_tier = timed("22 rollout and disagg tiers", run_rest_of_tier, args.seed, card,
+                             wd, gpt_train, serving_tier)
         del gpt_train["params"]
         torch.cuda.empty_cache()
 
@@ -3858,6 +4383,7 @@ def main() -> int:
                                       "serving_engine": serving[e["name"]],
                                       "cluster_serving": cluster_serving[e["name"]],
                                       "serving_tier": serving_tier[e["name"]],
+                                      "rollout_and_disagg_tiers": rest_of_tier[e["name"]],
                                       "bert_cls_training":
                                           new_models["bert_cls"]["launches"][e["name"]]})
     log("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

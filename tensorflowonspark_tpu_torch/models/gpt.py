@@ -510,6 +510,50 @@ def params_from_flax(flax_params, cfg: GPTConfig) -> dict[str, torch.Tensor]:
     return sd
 
 
+#: flax path -> state-dict name, at the top level and inside a layer
+_FLAX_TOP = {"tok_emb/embedding": "tok_emb.weight", "pos_emb": "pos_emb",
+             "ln_f/scale": "ln_f.weight", "ln_f/bias": "ln_f.bias"}
+_FLAX_LAYER = {f"{m}/{p}": f"{m.replace('/', '.')}.{'bias' if p == 'bias' else 'weight'}"
+               for m, ps in [("ln1", ("scale", "bias")), ("ln2", ("scale", "bias"))]
+               + [(n, ("kernel", "bias")) for n in ("attn/query", "attn/key", "attn/value",
+                                                     "attn/out", "mlp_gate", "mlp_up",
+                                                     "mlp_down")]
+               for p in ps}
+
+
+def adapter_from_flax(delta: dict, cfg: GPTConfig) -> dict[str, np.ndarray]:
+    """An adapter delta written for the JAX package — keyed by ``"/"``-joined
+    flax paths as its ``serving.rollout.apply_adapter`` names them
+    (``"layer_0/attn/query/kernel"``, a boxed leaf's ``"/.value"`` suffix
+    optional) — as a delta over this module's ``state_dict``, with the
+    transposes and per-layer splits of :func:`params_from_flax`: a dense
+    kernel ``[in, out]`` becomes ``[out, in]``, a ``scan_layers`` path
+    (``"layers/..."``, leading layer axis) one entry per layer.  An unknown
+    path raises ``ValueError`` naming it."""
+    out: dict[str, np.ndarray] = {}
+    for path, value in dict(delta).items():
+        arr = np.asarray(_leaf(value))
+        key = path.removesuffix("/.value")
+        head, _, rest = key.partition("/")
+        if key in _FLAX_TOP:
+            out[_FLAX_TOP[key]] = np.ascontiguousarray(arr)
+            continue
+        if rest not in _FLAX_LAYER:
+            raise ValueError(f"adapter delta names unknown flax parameter path {path!r}")
+        if head == "layers" and arr.shape[:1] == (cfg.num_layers,):   # scan_layers
+            per_layer = list(enumerate(arr))
+        elif head.removeprefix("layer_").isdigit() \
+                and int(head.removeprefix("layer_")) < cfg.num_layers:
+            per_layer = [(int(head.removeprefix("layer_")), arr)]
+        else:
+            raise ValueError(f"adapter delta names unknown flax parameter path {path!r} "
+                             f"(shape {arr.shape}, {cfg.num_layers} layers)")
+        for i, a in per_layer:
+            out[f"layers.{i}.{_FLAX_LAYER[rest]}"] = np.ascontiguousarray(
+                a.T if rest.endswith("/kernel") else a)
+    return out
+
+
 def init_params(cfg: GPTConfig, seed: int) -> dict[str, torch.Tensor]:
     """Random ``GPT`` weights drawn with numpy from ``seed`` as the flax
     module initialises them: normal(0, 0.02) kernels and tables, zero

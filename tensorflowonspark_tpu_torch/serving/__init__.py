@@ -14,24 +14,44 @@ on its card behind the node's queue/shm data plane.
     serving.shutdown()
 
 Layout: ``scheduler`` (tenant-aware admission/routing/failover, typed
-errors, elastic membership), ``replica`` (the worker map_fun; drains
-under preemption, serves peer weight clones), ``standby`` (warm standbys:
-spare replicas with their serve steps already run — captured, with the
-capture cache — that heal paths promote instead of cold-spawning),
-``frontend`` (the TCP edge and ``ServingCluster``: add/retire/scale-up,
-drain-and-replace), ``client`` (``ServeClient``) and ``aot``
+errors, elastic membership, model labels and traffic splits, role-aware
+disaggregated routing), ``replica`` (the worker map_fun; drains under
+preemption, serves peer weight clones, hot-swaps model versions,
+specializes on ``serve_role``), ``disagg`` (disaggregated prefill/decode
+pools: role arithmetic and the pool map_fun; sessions move as KV-page
+transfers), ``standby`` (warm standbys: spare replicas with their serve
+steps already run — captured, with the capture cache — that heal paths
+promote instead of cold-spawning, re-armed per role or model version at
+promotion), ``rollout`` (``ModelRegistry`` with its offline-eval gate and
+``RolloutController``: canary traffic shifting with metrics-gated
+auto-rollback), ``frontend`` (the TCP edge and ``ServingCluster``:
+add/retire/scale-up, deploy/swap/rollout, drain-and-replace, per-pool
+autoscaling, the driver crash), ``autoscaler`` (metrics-driven
+membership, promotes standbys first), ``client`` (``ServeClient``;
+``failover_wait=`` rides through driver failovers), ``aot``
 (``AOTExecutableCache``: each serve-step site of the batcher captured
-once as a CUDA graph).  Not ported yet: ``autoscaler``, ``disagg``,
-``rollout``, ``journal`` and ``failover`` (ROADMAP A8c), ``sharded``
-(A6).
+once as a CUDA graph), ``journal`` (the write-ahead control-plane
+journal) and ``failover`` (``resume_driver``/``resume_rollouts``).  Not
+ported yet: ``sharded`` (ROADMAP A6).
 """
 
 from tensorflowonspark_tpu_torch.serving.aot import AOTExecutableCache  # noqa: F401
+from tensorflowonspark_tpu_torch.serving.autoscaler import (Autoscaler,  # noqa: F401
+                                                            AutoscalerConfig)
 from tensorflowonspark_tpu_torch.serving.client import (FrontendUnavailable,  # noqa: F401
                                                         ServeClient)
+from tensorflowonspark_tpu_torch.serving.disagg import serve_disagg_replica  # noqa: F401
+from tensorflowonspark_tpu_torch.serving.failover import (resume_driver,  # noqa: F401
+                                                          resume_rollouts)
 from tensorflowonspark_tpu_torch.serving.frontend import (ServeFrontend,  # noqa: F401
                                                           ServingCluster)
+from tensorflowonspark_tpu_torch.serving.journal import (ControlPlaneJournal,  # noqa: F401
+                                                         JournalState)
 from tensorflowonspark_tpu_torch.serving.replica import serve_replica  # noqa: F401
+from tensorflowonspark_tpu_torch.serving.rollout import (ModelRegistry,  # noqa: F401
+                                                         ModelVersion, RolloutController,
+                                                         RolloutError, RolloutPolicy,
+                                                         apply_adapter)
 from tensorflowonspark_tpu_torch.serving.scheduler import (PRIORITIES,  # noqa: F401
                                                            DeadlineExceeded, ReplicaFailed,
                                                            ReplicaScheduler, RequestRejected,

@@ -39,7 +39,12 @@ while the standby driver replays the journal and rebinds the port —
 and sends a ``resume`` op naming the trace and how many tokens it
 already holds; the resumed frontend replays exactly the missing tail.
 :class:`FrontendUnavailable` is the typed exhaustion error (no frontend
-came back within the window).
+came back within the window).  The resumed driver is
+:func:`~tensorflowonspark_tpu_torch.serving.failover.resume_driver`'s: it
+requeues every request the journal holds accepted and uncommitted, and
+answers a ``resume`` for any other trace with ``unknown_request`` — on
+which a client that holds no token yet re-submits its request, and one
+that holds some raises ``ReplicaFailed`` (a replay would repeat them).
 """
 
 from __future__ import annotations

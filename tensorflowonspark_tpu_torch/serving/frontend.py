@@ -1,12 +1,13 @@
 """Online serving frontend: the TCP edge + the cluster composition.
 
 Port of ``tensorflowonspark_tpu/serving/frontend.py``.  The tier, its
-edge, membership, warm standbys and drain-and-replace are the JAX
+edge, membership, warm standbys, drain-and-replace, the autoscaler, the
+model registry with hot swaps and rollouts, disaggregated prefill/decode
+pools, the control-plane journal and the driver crash are the JAX
 package's; the replicas' batchers run on the card (``run(device=None)``)
-or, when asked, on the CPU.  The options that need modules not ported
-yet raise ``NotImplementedError`` naming their ROADMAP item: the
-autoscaler, the model registry and rollout, disaggregated pools and the
-control-plane journal (A8c), mesh-sharded gangs (A6).
+or, when asked, on the CPU.  Mesh-sharded gangs (``mesh``, ``gang_size``,
+``shard_params``) raise ``NotImplementedError``: they wait for the port's
+mesh (ROADMAP A6).
 
 :class:`ServeFrontend` is the process boundary of the serving tier: it
 listens on a TCP port, authenticates clients with the same mutual-HMAC
@@ -48,7 +49,10 @@ Wiring (docs/serving.md has the picture):
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import errno
 import logging
+import os
 import queue
 import socket
 import threading
@@ -85,10 +89,11 @@ class ServeFrontend(MessageSocket):
       ``("ERR", reason, message)``;
     - ``{"op": "stats"}`` → ``("OK", metrics_dict)``;
     - ``{"op": "ping"}`` → ``"OK"``;
-    - ``{"op": "resume", ...}`` → ``("ERR", "unknown_request", ...)``:
-      no frontend of the port replays a stream after a driver failover
-      (the journal waits for ROADMAP A8c), so a client armed with
-      ``failover_wait`` falls back to re-submitting its request.
+    - ``{"op": "resume", "trace", "received", "stream", "timeout"}`` →
+      the tail of a replayed stream after a DRIVER failover
+      (docs/robustness.md "Control-plane failover"): the client names
+      the trace it was streaming and how many tokens it already holds,
+      and the resumed frontend replays the rest exactly.
     """
 
     def __init__(self, scheduler: ReplicaScheduler, authkey: bytes,
@@ -104,6 +109,13 @@ class ServeFrontend(MessageSocket):
         self._conns: set[socket.socket] = set()
         self._conns_lock = threading.Lock()
         self.connections = 0
+        #: trace -> replayed ServeRequest a driver failover re-queued
+        #: (``serving.failover.resume_driver`` wires these); claimed
+        #: one-shot by the first resume naming the trace
+        self.resumed: dict = {}
+        #: trace -> token count of requests whose commit landed just
+        #: before the crash — the client may only be missing DONE
+        self.resumed_done: dict = {}
         self._m_ops = tpu_metrics.get_registry().counter(
             "tfos_frontend_requests_total",
             "Frontend operations received, by op.", labelnames=("op",))
@@ -113,7 +125,22 @@ class ServeFrontend(MessageSocket):
         host = "127.0.0.1" if self.mode == "local" else "0.0.0.0"
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._listener.bind((host, self._port))
+        # port != 0: a RESUMED driver rebinds the crashed frontend's
+        # address so riding-through clients reconnect where they were.
+        # SO_REUSEADDR only exempts TIME_WAIT — the crashed frontend's
+        # accepted conns linger in FIN_WAIT/CLOSE_WAIT for a moment, so
+        # the rebind retries while they drain (clients are in their own
+        # failover_wait backoff anyway)
+        deadline = time.monotonic() + 15.0
+        while True:
+            try:
+                self._listener.bind((host, self._port))
+                break
+            except OSError as e:
+                if (self._port == 0 or e.errno != errno.EADDRINUSE
+                        or time.monotonic() > deadline):
+                    raise
+                time.sleep(0.2)
         self._listener.listen(128)
         self.port = self._listener.getsockname()[1]
         threading.Thread(target=self._accept_loop, name="serve-frontend",
@@ -128,6 +155,12 @@ class ServeFrontend(MessageSocket):
     def stop(self) -> None:
         self.done.set()
         if self._listener is not None:
+            # shut the listener down before closing it: a close alone does
+            # not wake the accept thread blocked on it, and the socket then
+            # stays LISTENing — a resumed driver could not rebind its port
+            # until some client happened to connect
+            with contextlib.suppress(OSError):
+                self._listener.shutdown(socket.SHUT_RDWR)
             with contextlib.suppress(OSError):
                 self._listener.close()
         # close established connections too: their threads block in
@@ -168,9 +201,7 @@ class ServeFrontend(MessageSocket):
                 if op == "generate":
                     self._handle_generate(conn, msg)
                 elif op == "resume":
-                    self.send(conn, ("ERR", "unknown_request",
-                                     "no replayed request: driver failover "
-                                     "waits for ROADMAP A8c"))
+                    self._handle_resume(conn, msg)
                 elif op == "stats":
                     self.send(conn, ("OK", self.scheduler.metrics()))
                 elif op == "ping":
@@ -216,8 +247,16 @@ class ServeFrontend(MessageSocket):
             return
         self._pump_request(conn, req, stream)
 
-    def _pump_request(self, conn: socket.socket, req, stream: bool) -> None:
-        """Drain ``req``'s event queue onto ``conn`` until terminal."""
+    def _pump_request(self, conn: socket.socket, req, stream: bool,
+                      skip: int = 0) -> None:
+        """Drain ``req``'s event queue onto ``conn`` until terminal.
+
+        ``skip`` suppresses the first N generated tokens — the RESUME
+        path's dedup cut: a replayed request's queue carries the whole
+        stream from token 0, and the reconnecting client already holds
+        ``skip`` of them.  The cut lives here, frontend-side, so the
+        scheduler's replay never races who reconnects when.
+        """
         try:
             while True:
                 remaining = (None if req.deadline is None
@@ -232,8 +271,13 @@ class ServeFrontend(MessageSocket):
                 except queue.Empty:
                     continue        # loop re-checks remaining (<= 0 now)
                 if ev[0] == "tok":
-                    if stream and ev[1]:
-                        self.send(conn, ("TOK", ev[1]))
+                    toks = ev[1]
+                    if skip:
+                        cut = min(skip, len(toks))
+                        skip -= cut
+                        toks = toks[cut:]
+                    if stream and toks:
+                        self.send(conn, ("TOK", toks))
                 elif ev[0] == "done":
                     self.send(conn, ("DONE",
                                      ev[1] if stream
@@ -247,6 +291,38 @@ class ServeFrontend(MessageSocket):
             # output for it is dropped instead of queuing forever
             self.scheduler.abandon(req, reason="disconnect")
             raise
+
+    def _handle_resume(self, conn: socket.socket, msg: dict) -> None:
+        """Re-attach a client that lost its stream to a driver crash
+        (docs/robustness.md "Control-plane failover").  The client names
+        its trace plus how many tokens it already holds; a replayed
+        request's queue carries the WHOLE stream from token 0, so the
+        dedup cut happens here in :meth:`_pump_request`."""
+        trace = msg.get("trace")
+        received = max(0, int(msg.get("received") or 0))
+        stream = bool(msg.get("stream"))
+        req = self.resumed.pop(trace, None) if trace else None
+        if req is None:
+            done = self.resumed_done.get(trace) if trace else None
+            if done is not None and stream and received >= int(done):
+                # the commit landed just before the kill: the client
+                # already holds every token, only DONE was lost
+                self.send(conn, ("DONE", int(done)))
+                return
+            # non-stream clients (received == 0) land here too even when
+            # committed: the journal holds token COUNTS, not values —
+            # the client's resume fallback re-submits the original
+            # generate, and determinism recomputes the same stream
+            self.send(conn, ("ERR", "unknown_request",
+                             f"no replayed request for trace {trace!r}"))
+            return
+        timeout = msg.get("timeout")
+        if timeout is None:
+            timeout = self.default_timeout
+        # the journal carries no wall-clock deadlines (they died with the
+        # old driver): re-bound the wait from re-attach time
+        req.deadline = time.monotonic() + float(timeout)
+        self._pump_request(conn, req, stream, skip=received)
 
 
 class ServingCluster:
@@ -264,6 +340,25 @@ class ServingCluster:
         self.metrics_http = None
         #: ``(host, port)`` of the /metrics + /statusz endpoint, or None
         self.metrics_address: tuple[str, int] | None = None
+        #: the running :class:`~tensorflowonspark_tpu_torch.serving.autoscaler.
+        #: Autoscaler`, when ``run(autoscale=...)`` asked for one
+        self.autoscaler = None
+        #: per-pool autoscalers of a disaggregated tier (one per role,
+        #: independent signals/bounds/cooldowns); empty otherwise
+        self.autoscalers: list = []
+        #: the :class:`~tensorflowonspark_tpu_torch.serving.rollout.
+        #: ModelRegistry` of a multi-model tier (``run(registry=)``),
+        #: else None — ``deploy_model``/``swap_replica_model``/
+        #: ``rollout`` resolve version payloads through it
+        self.registry = None
+        #: the founding ``(model_id, version)`` label (``run(model=)``):
+        #: model-less spawns on a multi-model tier (the autoscaler's
+        #: ``scale_up(n)``) inherit it — an UNLABELED replica would
+        #: match every model's routing while serving only these weights
+        self._default_model: tuple | None = None
+        #: the normalized ``disagg=`` spec when this tier runs
+        #: specialized prefill/decode pools, else None
+        self.disagg = None
         self._shutdown_done = False
         self._replace_preempted = True
         self._drain_timeout = 60.0
@@ -273,6 +368,16 @@ class ServingCluster:
         #: the warm-standby pool (:class:`~tensorflowonspark_tpu_torch.serving.
         #: standby.StandbyPool`) when ``run(warm_standbys=N)``, else None
         self.standbys = None
+        #: the tier's write-ahead :class:`~tensorflowonspark_tpu_torch.serving.
+        #: journal.ControlPlaneJournal` when the cluster has a
+        #: working_dir (``<working_dir>/control_plane.jsonl``), else None
+        self.journal = None
+        #: armed driver-scope chaos (``TFOS_CHAOS="kill driver ..."``)
+        self._driver_chaos = None
+        #: the folded :class:`~tensorflowonspark_tpu_torch.serving.journal.
+        #: JournalState` a resumed tier was rebuilt from
+        #: (``serving.failover.resume_driver``), else None
+        self.resume_state = None
         self._serve_args: dict = {}       # standbys re-use the args
         self._standby_clone = True
         self._replace_failed = False
@@ -331,23 +436,46 @@ class ServingCluster:
 
         ``tenants`` configures per-tenant admission (token buckets +
         priority classes — see :class:`~tensorflowonspark_tpu_torch.serving.
-        scheduler.ReplicaScheduler`).  With ``replace_preempted``
-        (default), a replica whose host is reclaimed (SIGTERM / heartbeat
-        phase ``preempted``) is drained and REPLACED instead of counting
-        as a failure.
+        scheduler.ReplicaScheduler`); ``autoscale`` (a dict of
+        :class:`~tensorflowonspark_tpu_torch.serving.autoscaler.
+        AutoscalerConfig` knobs, or a config instance) starts a
+        metrics-driven autoscaler over the tier.  With
+        ``replace_preempted`` (default), a replica whose host is
+        reclaimed (SIGTERM / heartbeat phase ``preempted``) is drained
+        and REPLACED instead of counting as a failure.
 
-        Not ported yet, each raising ``NotImplementedError`` with its
-        ROADMAP item: ``autoscale`` (the autoscaler), ``disagg``
-        (disaggregated prefill/decode pools), ``model``/``registry`` and a
-        ``(model_id, version)`` ``draft_model`` (multi-model hosting and
-        rollout) — all A8c — and ``mesh``/``gang_size``/``shard_params``
-        (mesh-sharded gangs, A6).
+        ``mesh``/``gang_size``/``shard_params`` (mesh-sharded gangs)
+        raise ``NotImplementedError``: they wait for the port's mesh
+        (ROADMAP A6).
+
+        ``disagg`` specializes the tier into DISAGGREGATED PREFILL/
+        DECODE POOLS (docs/serving.md "Disaggregated prefill/decode"):
+        ``{"prefill": P, "decode": D}`` boots P prefill gangs (compute
+        the prompt KV once, never decode-step) and D decode gangs (only
+        ever step), with each session handed off as a verified KV-page
+        transfer on the queue/shm plane.  ``num_replicas`` must equal
+        ``P + D``; ``batcher_kwargs`` must set ``kv_page_tokens`` (the
+        handoff is page-granular); optional ``"prefill_kwargs"`` /
+        ``"decode_kwargs"`` entries overlay per-pool batcher knobs
+        (e.g. ``prefill_chunk`` for the prefill pool's streaming
+        admission).  With ``autoscale={"prefill": {...}, "decode":
+        {...}}`` each pool gets its own independent autoscaler —
+        TTFT-p95/queue pressure drives prefill, handoff-queue depth
+        drives decode.  Composes with ``aot_cache`` (a captured decode
+        batcher seats an adopted session's pages in its pool in place)
+        and with ``warm_standbys``: standbys are built
+        ROLE-LESS (one spare fleet backs both specializations) and
+        specialize at promotion — the promote control message carries
+        the target pool's role, the standby flips its engine
+        (``ContinuousBatcher.set_role``) and registers into that pool
+        (promote-with-role).
 
         ``warm_standbys`` keeps N fully-initialized spare replicas
-        (process up, serve steps run — captured, with ``aot_cache`` — params UNLOADED,
+        (process up, serve steps run — captured, with ``aot_cache`` —
+        params UNLOADED,
         heartbeat phase ``standby``) that heal paths PROMOTE instead of
         cold-spawning — replica deaths, preemption drain-and-replace,
-        and scale-ups all consume the pool first, and the
+        and autoscaler scale-ups all consume the pool first, and the
         pool backfills itself in the background (docs/robustness.md
         "Warm standbys").  ``standby_clone`` (default) lets a promoted
         standby pull weights from a live peer replica over the queue/shm
@@ -364,40 +492,36 @@ class ServingCluster:
         each serve-step site as a CUDA graph at its first call (a warm
         standby in its warm-up sweep, ahead of traffic) and replays it
         after (``True``; nothing is written to disk: a graph cannot be
-        serialized).
+        serialized).  A hot swap copies the new version's weights into
+        the storage the graphs read (``ContinuousBatcher.load_params``).
 
         ``device`` is where the replicas' batchers run: None means the
         card (a worker without one raises), ``"cpu"`` the CPU.
 
         ``draft_model`` arms DRAFT-MODEL SPECULATIVE DECODING on every
-        replica: a picklable ``builder(args) -> (cfg, params)`` for the
-        small draft.  Each decode step then runs one draft forward
+        decode-capable replica: a picklable ``builder(args) -> (cfg,
+        params)`` for the small draft, or a registered ``(model_id,
+        version)`` tuple (needs ``registry=``; adapter-or-full, like any
+        version).  Each decode step then runs one draft forward
         proposing ``serve_draft_k`` (replica_args; default 4) tokens per
-        eligible greedy row and one verify call on the target —
-        output-exact by construction (the verify only commits tokens the
-        target's own argmax agrees with; sampled rows keep the
+        eligible greedy row and one verify call on the target
+        — output-exact by construction (the verify only commits tokens
+        the target's own argmax agrees with; sampled rows keep the
         single-token path).  Tune via ``replica_args``:
         ``serve_draft_window`` (draft context, default 64),
         ``serve_draft_k``.  The draft vocab must match the target's
-        (validated at boot, typed).
+        (validated at boot, typed).  Hot swaps re-resolve the draft from
+        the incoming version's ``serve_args`` — a version without draft
+        keys clears it.
         """
         from tensorflowonspark_tpu_torch.serving.replica import serve_replica
 
-        for name, value, item in (("autoscale", autoscale, "A8c: autoscaler"),
-                                  ("disagg", disagg, "A8c: disagg"),
-                                  ("model", model, "A8c: rollout"),
-                                  ("registry", registry, "A8c: rollout"),
-                                  ("mesh", mesh, "A6: sharded"),
-                                  ("gang_size", gang_size, "A6: sharded"),
-                                  ("shard_params", shard_params, "A6: sharded")):
+        for name, value in (("mesh", mesh), ("gang_size", gang_size),
+                            ("shard_params", shard_params)):
             if value is not None:
                 raise NotImplementedError(
                     f"ServingCluster.run({name}=...) needs a module not ported yet "
-                    f"(ROADMAP {item})")
-        if isinstance(draft_model, tuple):
-            raise NotImplementedError(
-                "draft_model=(model_id, version) needs the model registry, not ported "
-                "yet (ROADMAP A8c: rollout) — pass the draft's builder callable")
+                    "(ROADMAP A6: sharded)")
         if compile_cache is not None:
             raise ValueError(
                 "compile_cache has no counterpart in the port: eager PyTorch compiles "
@@ -410,30 +534,113 @@ class ServingCluster:
             "serve_batcher_kwargs": dict(batcher_kwargs or {}),
             "serve_device": None if device is None else str(device),
         })
+        if model is not None:
+            # multi-model tier (docs/serving.md "Multi-model serving &
+            # live rollout"): the founding replicas are labeled with the
+            # (model_id, version) they serve; with a registry the
+            # version's registered builder + serve_args overlay applies
+            # (an explicit model_builder wins), and the incumbent needs
+            # no eval gate — it IS the baseline later versions gate
+            # against
+            model = (str(model[0]), str(model[1]))
+            if registry is not None:
+                if model_builder is not None:
+                    # ONE source of truth: every later payload path
+                    # (deploy/heal/promote/swap) ships the REGISTRY
+                    # entry's builder — a second, different founding
+                    # builder here would resurface on the first heal or
+                    # rollback as silently different weights under the
+                    # same label
+                    raise ValueError(
+                        "ambiguous founding builder: the registered "
+                        f"{model[0]}@{model[1]} entry is the builder of "
+                        "record — pass model_builder=None (register "
+                        "your builder in the entry instead)")
+                args.update(registry.version(*model).serve_args())
         if args.get("serve_model_builder") is None:
-            raise ValueError("no model builder: pass model_builder=")
+            raise ValueError(
+                "no model builder: pass model_builder=, or registry= + "
+                "model= naming a registered version")
         if aot_cache:
             args["serve_aot_cache"] = True
         if draft_model is not None:
-            if not callable(draft_model):
+            if isinstance(draft_model, tuple):
+                if registry is None:
+                    raise ValueError(
+                        "draft_model=(model_id, version) needs registry= "
+                        "— or pass the draft's builder callable directly")
+                from tensorflowonspark_tpu_torch.serving.rollout import \
+                    draft_overlay
+
+                args.update(draft_overlay(registry.version(*draft_model)))
+            elif callable(draft_model):
+                args["serve_draft_builder"] = draft_model
+            else:
                 raise ValueError(
-                    "draft_model must be a builder callable, got "
+                    "draft_model must be a builder callable or a "
+                    "registered (model_id, version) tuple, got "
                     f"{type(draft_model).__name__}")
-            args["serve_draft_builder"] = draft_model
         if warm_standbys < 0:
             raise ValueError(f"warm_standbys must be >= 0, "
                              f"got {warm_standbys}")
+        map_fun, num_workers = serve_replica, num_replicas
+        roles = None
+        if disagg is not None:
+            from tensorflowonspark_tpu_torch.serving.disagg import (
+                boot_roles, serve_disagg_replica, validate_disagg)
+
+            disagg = validate_disagg(disagg)
+            if num_replicas != disagg["prefill"] + disagg["decode"]:
+                raise ValueError(
+                    f"disagg pools sum to "
+                    f"{disagg['prefill'] + disagg['decode']} gangs but "
+                    f"num_replicas={num_replicas} — pass their sum")
+            if (batcher_kwargs or {}).get("kv_page_tokens") is None:
+                raise ValueError(
+                    "disagg needs paged KV: set batcher_kwargs="
+                    "{'kv_page_tokens': ...} — the prefill→decode "
+                    "handoff is a KV-page transfer")
+            if warm_standbys:
+                # a standby's engine is built from the BASE kwargs and
+                # must be able to set_role() into EITHER pool at
+                # promotion; decode-only knobs in the base would make
+                # every prefill promotion crash the standby AFTER the
+                # driver registered it — fail here, at boot, instead
+                bad = [k for k in ("speculative_k", "decode_block_steps")
+                       if (batcher_kwargs or {}).get(k) is not None]
+                if bad:
+                    raise ValueError(
+                        f"disagg with warm_standbys: {bad} must live in "
+                        "disagg['decode_kwargs'], not the base "
+                        "batcher_kwargs — a role-less standby built "
+                        "with them cannot specialize into a prefill "
+                        "pool at promotion")
+            args["serve_disagg"] = disagg
+            roles = boot_roles(disagg)
+            map_fun = serve_disagg_replica
         # monitor=False: the training monitor's fail-fast abort is the
         # wrong policy here — a serving-mode monitor is attached below
-        cluster = TPUCluster.run(serve_replica, args, num_replicas,
+        cluster = TPUCluster.run(map_fun, args, num_workers,
                                  input_mode=InputMode.SPARK, monitor=False,
                                  **cluster_kwargs)
-        scheduler = mon = frontend = tier = None
+        scheduler = mon = frontend = tier = journal = None
         try:
+            wd = getattr(cluster, "working_dir", None)
+            if wd:
+                # the write-ahead control-plane journal: every accept/
+                # route/commit/membership/rollout transition fsync'd
+                # before it takes effect, so a driver death replays to
+                # a zero-loss resume (docs/robustness.md "Control-plane
+                # failover"); no working_dir = nowhere durable to put it
+                from tensorflowonspark_tpu_torch.serving.journal import \
+                    ControlPlaneJournal
+
+                journal = ControlPlaneJournal(
+                    os.path.join(wd, "control_plane.jsonl"))
             scheduler = ReplicaScheduler(
                 cluster, slots_per_replica=max_batch, overcommit=overcommit,
                 max_queue_depth=max_queue_depth, requeue_limit=requeue_limit,
-                tenants=tenants)
+                tenants=tenants, roles=roles, model=model, journal=journal)
             if monitor:
                 mon = ClusterMonitor(
                     cluster, hang_timeout=hang_timeout,
@@ -447,12 +654,23 @@ class ServingCluster:
                 mode=frontend_mode, default_timeout=client_timeout)
             address = frontend.start()
             tier = cls(cluster, scheduler, mon, frontend, address)
+            tier.disagg = disagg
+            tier.registry = registry
+            tier.journal = journal
+            tier._default_model = model
+            if registry is not None and journal is not None:
+                # bind BEFORE the founding mark: the journal snapshot
+                # of pre-boot registrations/evals plus every later
+                # mutation is what a resumed driver re-folds
+                registry.bind_journal(journal)
+            if registry is not None and model is not None:
+                registry.mark(*model, "serving")
             tier._replace_preempted = bool(replace_preempted)
             tier._replace_failed = bool(replace_failed)
             if warm_standbys or replace_failed or replace_preempted:
-                # this tier HEALS lost replicas: when the last one dies,
-                # dispatch holds its requeued work briefly (until the
-                # heal's expect_replica announcement, or this bound)
+                # this tier HEALS lost gangs: when a pool's last acceptor
+                # dies, dispatch holds its requeued work briefly (until
+                # the heal's expect_replica announcement, or this bound)
                 # instead of shedding it sub-second as no_replica
                 scheduler.heal_grace = 30.0
             tier._drain_timeout = float(drain_timeout)
@@ -470,8 +688,36 @@ class ServingCluster:
                 from tensorflowonspark_tpu_torch.serving.standby import \
                     StandbyPool
 
+                # pool before the autoscaler: its first scale-up must
+                # already see promotable standbys
                 tier.standbys = StandbyPool(tier, int(warm_standbys))
                 tier.standbys.fill()
+            if autoscale is not None:
+                from tensorflowonspark_tpu_torch.serving.autoscaler import (
+                    Autoscaler, AutoscalerConfig)
+
+                if disagg is not None:
+                    # one independent controller per pool: prefill
+                    # scales on prompt-queue/TTFT pressure, decode on
+                    # handoff-queue/outstanding pressure
+                    if not (isinstance(autoscale, dict)
+                            and set(autoscale) <= {"prefill", "decode"}
+                            and autoscale):
+                        raise ValueError(
+                            "a disagg tier autoscales per pool: pass "
+                            "autoscale={'prefill': {...}, 'decode': "
+                            "{...}} (either subset)")
+                    for role, spec in autoscale.items():
+                        cfg = (spec if isinstance(spec, AutoscalerConfig)
+                               else AutoscalerConfig(**dict(spec)))
+                        cfg = dataclasses.replace(cfg, role=role)
+                        tier.autoscalers.append(
+                            Autoscaler(tier, cfg).start())
+                else:
+                    cfg = (autoscale
+                           if isinstance(autoscale, AutoscalerConfig)
+                           else AutoscalerConfig(**dict(autoscale)))
+                    tier.autoscaler = Autoscaler(tier, cfg).start()
             if metrics_port is not None:
                 tier.metrics_http = tpu_metrics.MetricsHTTPServer(
                     tier.metrics_text, statusz=tier.metrics,
@@ -483,16 +729,33 @@ class ServingCluster:
                 tier.metrics_address = (
                     (address[0], bound[1]) if bound[0] == "0.0.0.0"
                     else bound)
+            # driver-scope chaos (TFOS_CHAOS="kill driver after_secs=F"):
+            # armed LAST, once the tier is fully live — firing calls
+            # tier.crash(), the in-process equivalent of SIGKILLing a
+            # standalone driver (docs/robustness.md)
+            from tensorflowonspark_tpu_torch import chaos as tfos_chaos
+
+            tier._driver_chaos = tfos_chaos.driver_from_env(
+                on_fire=lambda action: tier.crash(), state_dir=wd)
+            if tier._driver_chaos is not None:
+                tier._driver_chaos.start()
         except Exception:
             # a late failure (e.g. the metrics port is taken) must tear
-            # down everything already live: the frontend's accept thread
-            # and bound port, the scheduler's threads AND its registry
-            # collect hook (scheduler.stop unhooks it), the monitor
+            # down everything already live: the autoscaler's control
+            # thread, the frontend's accept thread and bound port, the
+            # scheduler's threads AND its registry collect hook
+            # (scheduler.stop unhooks it), the monitor
+            autoscaler = tier.autoscaler if tier is not None else None
+            autoscalers = tier.autoscalers if tier is not None else []
             standbys = tier.standbys if tier is not None else None
-            for part in (standbys, frontend, scheduler, mon):
+            for part in (autoscaler, *autoscalers, standbys, frontend,
+                         scheduler, mon):
                 if part is not None:
                     with contextlib.suppress(Exception):
                         part.stop()
+            if journal is not None:
+                with contextlib.suppress(Exception):
+                    journal.close()
             cluster._abort()
             raise
         return tier
@@ -510,58 +773,164 @@ class ServingCluster:
         return ServeClient(self.address, self.authkey, **kwargs)
 
     # ----------------------------------------------------- live membership
-    def add_replicas(self, n: int = 1, timeout: float | None = None) -> list[int]:
+    def add_replicas(self, n: int = 1, timeout: float | None = None,
+                     role: str | None = None,
+                     model: tuple | None = None) -> list[int]:
         """Grow the tier by ``n`` replicas, live: the cluster re-opens
         its reservation path and spawns fresh serving workers (same
         model builder/args the tier booted with), the scheduler
         registers each as it reserves, and queued requests start
-        dispatching to the newcomers immediately.  Returns the new
-        replicas' executor ids."""
+        dispatching to the newcomers immediately.  A disaggregated tier grows
+        one POOL at a time: ``role`` ("prefill" | "decode") pins the
+        newcomers' specialization (mandatory — eid arithmetic cannot
+        classify late joiners).  ``model`` spawns the newcomers with
+        that registered ``(model_id, version)``'s builder/args and
+        labels them for model-routed dispatch (multi-model tiers;
+        re-armed heals pass the dead replica's own model).  Returns the
+        new replicas' executor ids."""
         if self._shutdown_done:
             raise RuntimeError("serving tier is shut down")
+        if (role is not None) != (self.disagg is not None):
+            raise ValueError(
+                "add_replicas(role=) and a disagg tier go together: "
+                f"role={role!r} on a tier with disagg={self.disagg!r}")
+        if model is None:
+            # a model-less spawn on a labeled tier (the autoscaler's
+            # scale path) serves the FOUNDING builder — label it so, or
+            # the unlabeled newcomer would match EVERY model's routing
+            # while holding only the founding weights
+            model = self._default_model
+        tf_args = None
+        if model is not None:
+            model = (str(model[0]), str(model[1]))
+            if model != self._default_model:
+                if self.registry is None:
+                    # no registry = no builder for another model: the
+                    # newcomer would carry the FOUNDING weights under
+                    # this label and serve the wrong model silently
+                    raise ValueError(
+                        f"add_replicas(model={model!r}) needs a "
+                        "ModelRegistry (ServingCluster.run(registry=)) "
+                        "— without one the spawn would serve the "
+                        "founding weights under this label")
+                tf_args = dict(self._serve_args)
+                tf_args.update(
+                    self.registry.version(*model).serve_args())
+            # founding version: the stored boot payload IS its builder/
+            # args (run()'s explicit model_builder wins over a registry
+            # entry there, and must keep winning on heals/scale-ups)
+        spawn_kwargs = {}
+        if role is not None:
+            from tensorflowonspark_tpu_torch.serving.disagg import \
+                serve_disagg_replica
+
+            spawn_kwargs = {"map_fun": serve_disagg_replica,
+                            "tf_args": dict(tf_args or self._serve_args,
+                                            serve_role=role)}
+        elif tf_args is not None:
+            spawn_kwargs = {"tf_args": tf_args}
         with self._membership_lock:
-            added = self.cluster.add_workers(n, timeout=timeout)
+            added = self.cluster.add_workers(n, timeout=timeout,
+                                             **spawn_kwargs)
+            leaders = []
             for info in added:
-                self.scheduler.add_replica(info)
-        eids = [int(info["executor_id"]) for info in added]
-        logger.info("serving tier grew by %d replica(s): %s", n, eids)
-        return eids
+                self.scheduler.add_replica(info, role=role, model=model)
+                leaders.append(int(info["executor_id"]))
+        if role == "decode":
+            # prefix-page donation (docs/serving.md): a fresh decode
+            # replica starts with an EMPTY prefix index — pre-warm it
+            # from a prefill pool's cache so its first adopts hit instead
+            # of importing page data the fleet already holds
+            for eid in leaders:
+                threading.Thread(target=self.donate_prefix_pages,
+                                 args=(eid,),
+                                 name=f"prefix-donate-{eid}",
+                                 daemon=True).start()
+        logger.info("serving tier grew by %d replica(s): %s%s%s", n,
+                    leaders, f" (role {role})" if role else "",
+                    f" (model {model[0]}@{model[1]})" if model else "")
+        return leaders
 
     def scale_up(self, n: int = 1, timeout: float | None = None,
-                 source: str = "scale_up") -> list[int]:
+                 source: str = "scale_up",
+                 role: str | None = None,
+                 model: tuple | None = None) -> list[int]:
         """Grow the tier by ``n`` replicas, consuming the warm-standby
         pool FIRST (promotion: control message + weight clone, capacity
         restored in well under a cold boot) and cold-spawning only the
-        remainder through :meth:`add_replicas`.  Returns the new
+        remainder through :meth:`add_replicas`.  The autoscaler's
+        scale-up path calls this.  On a disaggregated tier ``role``
+        (mandatory there) is carried in the promote message — the
+        standby specializes its engine at promotion and registers into
+        the named pool (promote-with-role; standbys are built role-less
+        so ONE pool backs both specializations).  Returns the new
         replicas' executor ids."""
         added: list[int] = []
         for _ in range(int(n)):
-            eid = self.promote_standby(source)
+            eid = self.promote_standby(source, role=role, model=model)
             if eid is None:
                 break
             added.append(eid)
         remaining = int(n) - len(added)
         if remaining:
-            added.extend(self.add_replicas(remaining, timeout=timeout))
+            added.extend(self.add_replicas(remaining, timeout=timeout,
+                                           role=role, model=model))
         return added
 
-    def promote_standby(self, source: str = "scale_up") -> int | None:
+    def promote_standby(self, source: str = "scale_up",
+                        role: str | None = None,
+                        model: tuple | None = None) -> int | None:
         """Promote one warm standby into a routable replica: pop it from
         the pool (atomic — a concurrent failure + scale decision can
         never double-promote the same standby), send it the promote
         control message naming a live CLONE PEER (or None → it restores
         through the model builder), register it with the scheduler, and
-        backfill the pool in the background.  Returns the promoted
-        standby's executor id, or None when the pool is empty/absent
-        (callers fall back to a cold spawn)."""
+        backfill the pool in the background.  On a disaggregated tier
+        ``role`` is mandatory (per-role pool accounting: the scheduler
+        registers the newcomer into the named prefill/decode pool, and
+        the promote message tells the standby which specialization to
+        arm).  On a multi-model tier ``model`` RE-ARMS the standby for
+        that ``(model_id, version)``: one shared spare pool backs every
+        hosted model, the promote message carries the version's builder
+        payload, and the clone peer is restricted to replicas serving
+        that exact version.  Returns the promoted standby's executor id,
+        or None when the pool is empty/absent (callers fall back to a
+        cold spawn)."""
         pool = self.standbys
         if pool is None or self._shutdown_done:
             return None
+        if (role is not None) != (self.disagg is not None):
+            # mismatched call (role on a unified tier / no role on a
+            # disagg tier): fall back to the cold path, whose
+            # add_replicas raises the explicit error for real misuse —
+            # a heal thread must never die on this
+            logger.warning("promote_standby(role=%r) on a tier with "
+                           "disagg=%r: skipping warm pool", role,
+                           self.disagg)
+            return None
+        if model is None:
+            # like add_replicas: a model-less promotion on a labeled
+            # tier re-arms the FOUNDING version (the promoted standby
+            # restores through the founding builder)
+            model = self._default_model
+        payload: dict = {}
+        adapter_payload = False
+        if model is not None:
+            model = (str(model[0]), str(model[1]))
+            payload = {"model": model[0], "version": model[1]}
+            if self.registry is not None:
+                payload.update(self.registry.version(*model).swap_payload())
+                adapter_payload = payload.get("base_builder") is not None
         got = pool.acquire()
         if got is None:
             return None
         eid, info = got
-        peer = self.scheduler.peer_replica_info() if self._standby_clone else None
+        # adapter versions promote DELTA-ONLY: the payload already
+        # carries the small delta and the standby rebuilds base+delta
+        # locally — naming a clone peer would ship the full base over
+        # the wire for nothing
+        peer = (self.scheduler.peer_replica_info(model=model)
+                if self._standby_clone and not adapter_payload else None)
         ready = threading.Event()
         with self._promotions_lock:
             self._promotions[eid] = (time.monotonic(), source, ready)
@@ -570,7 +939,7 @@ class ServingCluster:
         # serve unregistered forever (early-routed requests just queue
         # on its plane until the post-promote serve loop drains them)
         try:
-            self.scheduler.add_replica(info)
+            self.scheduler.add_replica(info, role=role, model=model)
         except Exception:
             # scheduler stopping / registration guard: the caller
             # cold-spawns instead; the pool backfills
@@ -579,14 +948,14 @@ class ServingCluster:
             with self._promotions_lock:
                 self._promotions.pop(eid, None)
             self.scheduler.emit_event("promote_failed", replica=eid,
-                                      source=source)
+                                      source=source, role=role)
             pool.backfill_async()
             return None
         try:
             self.cluster._client_for(eid).put(
                 REQUEST_QUEUE,
                 {"op": "standby", "event": "promote", "source": source,
-                 "peer": peer}, timeout=10)
+                 "peer": peer, "role": role, **payload}, timeout=10)
         except Exception:
             # the standby died under us: roll the registration back as
             # a planned departure (anything already routed re-queues
@@ -601,13 +970,33 @@ class ServingCluster:
             return None
         with self._promotions_lock:
             self._promoted[source] = self._promoted.get(source, 0) + 1
+            if role is not None:
+                key = f"role:{role}"      # per-role pool accounting
+                self._promoted[key] = self._promoted.get(key, 0) + 1
+            if model is not None:
+                key = f"model:{model[0]}"  # per-model pool accounting:
+                # the shared spare fleet's re-arm ledger
+                self._promoted[key] = self._promoted.get(key, 0) + 1
         self._m_promotions.inc(source=source)
         self.scheduler.emit_event(
-            "standby_promoted", replica=eid, source=source,
+            "standby_promoted", replica=eid, source=source, role=role,
+            model=None if model is None else model[0],
+            version=None if model is None else model[1],
             peer=None if peer is None else int(peer["executor_id"]))
-        logger.info("promoted warm standby %d (source=%s, clone peer %s)",
-                    eid, source,
+        logger.info("promoted warm standby %d (source=%s%s%s, "
+                    "clone peer %s)",
+                    eid, source, "" if role is None else f", role={role}",
+                    "" if model is None
+                    else f", model={model[0]}@{model[1]}",
                     "none" if peer is None else peer["executor_id"])
+        if role == "decode":
+            # prefix-page donation: pre-warm the promoted decode replica's
+            # prefix index from a prefill pool (the peer clone may have
+            # shipped a unified peer's pages; a prefill pool holds the
+            # hottest prompt prefixes)
+            threading.Thread(target=self.donate_prefix_pages, args=(eid,),
+                             name=f"prefix-donate-{eid}",
+                             daemon=True).start()
 
         def _backfill_after_ready():
             # restock AFTER the promotion restores capacity (or a grace
@@ -622,7 +1011,7 @@ class ServingCluster:
         return eid
 
     def wait_standbys(self, timeout: float = 120.0) -> bool:
-        """Block until every pooled standby is WARM (serve step
+        """Block until every pooled standby is WARM (serve steps
         run, params unloaded, heartbeating phase ``standby``) —
         what a bench/test gates on before injecting the failure it wants
         healed warm.  False on timeout or when no pool/monitor exists."""
@@ -650,8 +1039,8 @@ class ServingCluster:
         wait out its in-flight requests (``drain_timeout``, default the
         tier's), remove it from the scheduler as a CLEAN departure (it
         never shows in ``dead_replicas``), then stop the worker with an
-        ``EndOfFeed``.  Returns True when the drain emptied within the
-        timeout; on False the leftovers were re-queued to the survivors
+        ``EndOfFeed``.  Returns True when the drain emptied within the timeout;
+        on False the leftovers were re-queued to the survivors
         (exactness preserved by the failover skip-dedup), so zero
         accepted requests are lost either way."""
         eid = int(executor_id)
@@ -681,23 +1070,183 @@ class ServingCluster:
                                               EndOfFeed(), timeout=5)
         self.cluster.retire_worker(eid)
 
-    # ------------------- multi-model hosting & live rollout, cross-pool
-    # prefix donation: the JAX package's, waiting for the registry,
-    # rollout and disagg modules (ROADMAP A8c)
-    def deploy_model(self, model_id: str, version: str, **kwargs) -> list[int]:
-        raise NotImplementedError("deploy_model needs the model registry (ROADMAP A8c: rollout)")
+    # ------------------- multi-model hosting & live rollout (docs/
+    # serving.md "Multi-model serving & live rollout")
+    def deploy_model(self, model_id: str, version: str, *,
+                     replicas: int = 1, role: str | None = None,
+                     require_eval: bool = True,
+                     timeout: float | None = None) -> list[int]:
+        """Host an additional registered model on this live tier: spawn
+        ``replicas`` fresh gangs built from the version's registry args
+        and route ``model=model_id`` traffic to them.  ``require_eval``
+        (default) enforces the offline-eval gate
+        (:meth:`~tensorflowonspark_tpu_torch.serving.rollout.ModelRegistry.
+        promotable`) — a version that never passed its GridSearch eval
+        does not reach traffic."""
+        if self.registry is None:
+            raise RuntimeError("deploy_model needs a ModelRegistry "
+                               "(ServingCluster.run(registry=))")
+        if self._default_model is None:
+            # an UNLABELED founding fleet matches every model's routing
+            # (accepts_model), so hosting a second model beside it would
+            # let the founding weights serve the new model's traffic
+            raise RuntimeError(
+                "deploy_model needs a model-labeled tier: boot with "
+                "ServingCluster.run(model=(id, version), registry=...) "
+                "so the founding gangs are labeled too")
+        entry = self.registry.version(model_id, version)
+        if require_eval and not self.registry.promotable(model_id,
+                                                         version):
+            raise RuntimeError(
+                f"{model_id}@{version} has not passed its offline eval "
+                "(ModelRegistry.evaluate_grid) — deploy_model("
+                "require_eval=False) overrides")
+        leaders = self.add_replicas(replicas, timeout=timeout, role=role,
+                                    model=entry.key)
+        self.registry.mark(model_id, version, "serving")
+        self.scheduler.emit_event("model_deployed", model=str(model_id),
+                                  version=str(version), replicas=leaders)
+        return leaders
 
-    def swap_replica_model(self, executor_id: int, model_id: str, version: str,
+    def swap_replica_model(self, executor_id: int, model_id: str,
+                           version: str,
                            timeout: float | None = None) -> None:
-        raise NotImplementedError(
-            "swap_replica_model needs the model registry (ROADMAP A8c: rollout)")
+        """HOT-SWAP one replica to another registered version via the
+        drain verbs — zero requests lost: stop routing to the replica
+        (``mark_draining``), wait out its in-flight streams, ship the
+        version payload over the queue/bulk plane (builder/adapter, or
+        a peer clone when another replica already serves the version),
+        let the replica copy the params into its already-built batcher
+        (``ContinuousBatcher.load_params``: a captured batcher's graphs
+        read the same storage, so no site is captured again),
+        then resume routing under the new ``(model_id, version)`` label.
+        Raises on drain timeout, swap failure, or a death mid-swap; a
+        failed swap leaves the replica serving its OLD version.  On an
+        ACK TIMEOUT a best-effort cancel drops a swap the replica has
+        not yet applied; one already applied acks late, and the
+        scheduler relabels on that ack — the routing label always
+        tracks the version actually served."""
+        if self.registry is None:
+            raise RuntimeError("swap_replica_model needs a ModelRegistry "
+                               "(ServingCluster.run(registry=))")
+        if self._default_model is None:
+            # same hole deploy_model guards: relabeling one gang beside
+            # an UNLABELED founding fleet would let the founding weights
+            # serve the new model's traffic (unlabeled matches anything)
+            raise RuntimeError(
+                "swap_replica_model needs a model-labeled tier: boot "
+                "with ServingCluster.run(model=(id, version), "
+                "registry=...) so the founding gangs are labeled too")
+        entry = self.registry.version(model_id, version)
+        eid = int(executor_id)
+        dt = self._drain_timeout if timeout is None else float(timeout)
+        if not self.scheduler.mark_draining(eid, reason="model_swap"):
+            raise RuntimeError(f"replica {eid} is not routable "
+                               "(unknown/dead/already draining)")
+        ok, err = False, ""
+        try:
+            if not self.scheduler.drain_replica(eid, timeout=dt):
+                err = f"replica {eid} did not drain within {dt:.0f}s"
+            else:
+                token = f"swap-{eid}-{time.monotonic_ns()}"
+                waiter = self.scheduler.expect_swap(eid, token=token)
+                # adapter versions swap DELTA-ONLY: the payload carries
+                # the small delta and the worker re-applies it over its
+                # pristine-base cache; a clone peer would ship full
+                # params over the wire for nothing
+                peer = (None if entry.base_builder is not None
+                        else self.scheduler.peer_replica_info(
+                            exclude={eid}, model=entry.key))
+                # the registry entry is the builder of record for
+                # EVERY version (run() rejects a conflicting explicit
+                # model_builder), so the payload always carries it —
+                # no worker-args fallback guessing
+                payload = entry.swap_payload()
+                self.cluster._client_for(eid).put(
+                    REQUEST_QUEUE,
+                    {"op": "model", "event": "swap",
+                     "model": str(model_id), "version": str(version),
+                     "peer": peer, "swap_token": token,
+                     **payload}, timeout=10)
+                # the swap builds/clones + loads a parameter tree: allow
+                # it a model-build's worth of time on top of the drain
+                ok, err = self.scheduler.wait_swap(waiter, dt + 120.0)
+        finally:
+            if not ok:
+                # best-effort cancel: a swap the replica has not applied
+                # yet is dropped; an applied one acks late and the
+                # scheduler relabels (see the worker's cancel handler)
+                with contextlib.suppress(Exception):
+                    self.cluster._client_for(eid).put(
+                        REQUEST_QUEUE,
+                        {"op": "model", "event": "cancel"}, timeout=5)
+                # the replica still serves its old version (or died, in
+                # which case resume is a no-op and death handling owns
+                # the gang)
+                self.scheduler.resume_replica(eid)
+        if not ok:
+            raise RuntimeError(f"model swap of replica {eid} to "
+                               f"{model_id}@{version} failed: {err}")
+        self.registry.mark(model_id, version, "serving")
 
-    def rollout(self, model_id: str, version: str, policy=None, block: bool = True):
-        raise NotImplementedError("rollout needs the rollout module (ROADMAP A8c)")
+    def rollout(self, model_id: str, version: str, policy=None,
+                block: bool = True):
+        """Run a live canary rollout of ``model_id`` to ``version``
+        (docs/serving.md): canary one gang, shift traffic by the
+        policy's percent steps, auto-roll back on a metrics regression.
+        ``block=True`` runs synchronously and returns the terminal
+        :class:`~tensorflowonspark_tpu_torch.serving.rollout.
+        RolloutController` (``.state`` is ``promoted`` /
+        ``rolled_back``); ``block=False`` starts it on a background
+        thread (``.wait()`` joins)."""
+        from tensorflowonspark_tpu_torch.serving.rollout import RolloutController
 
-    def donate_prefix_pages(self, to_replica: int, from_replica: int | None = None) -> bool:
-        raise NotImplementedError(
-            "prefix-page donation is a disaggregated tier's (ROADMAP A8c: disagg)")
+        ctl = RolloutController(self, model_id, version, policy=policy)
+        if block:
+            ctl.run()
+            return ctl
+        return ctl.start()
+
+    def donate_prefix_pages(self, to_replica: int,
+                            from_replica: int | None = None) -> bool:
+        """Prefix-page donation across pools (docs/serving.md): ask a
+        prefill gang to ship its shared prefix-cache pages
+        (``ContinuousBatcher.export_prefix_cache``, content-hashed)
+        straight to ``to_replica``'s queue plane, where the decode
+        gang imports them (``import_prefix_cache``) — so a decode-side
+        prefix miss consults what a prefill pool already computed
+        instead of importing page data the fleet already holds.  The
+        donor defaults to the least-loaded prefill gang serving the
+        SAME (model, version).  Returns False when no eligible donor
+        exists."""
+        if self._shutdown_done:
+            return False
+        eid = int(to_replica)
+        info = self.scheduler.replica_info(eid)
+        if info is None:
+            return False
+        donor = from_replica
+        if donor is None:
+            donor = self.scheduler.prefix_donor(
+                exclude={eid},
+                model=self.scheduler.replica_model_version(eid))
+        if donor is None:
+            return False
+        try:
+            self.cluster._client_for(int(donor)).put(
+                REQUEST_QUEUE,
+                {"op": "prefix", "event": "export",
+                 "reply_addr": tuple(info["addr"]),
+                 "reply_authkey": info["authkey"]}, timeout=10)
+        except Exception:  # tfos: ignore[broad-except] — a donation is
+            # an optimization; a dead/unreachable donor must not fail
+            # the membership path that triggered it
+            logger.exception("prefix-page donation %s -> %s failed",
+                             donor, eid)
+            return False
+        self.scheduler.emit_event("prefix_donation", donor=int(donor),
+                                  to=eid)
+        return True
 
     # ------------------------------------------------ preemption handling
     def _on_phase(self, eid: int, phase: str) -> None:
@@ -711,31 +1260,31 @@ class ServingCluster:
         """Monitor ``on_failure`` hook: absorb UNPROMOTED-standby deaths
         into the pool (shrink + backfill — the scheduler never knew
         them), then always fail over via the scheduler, requeueing the
-        dead replicas' in-flight work once.  A PREEMPTION-classified
-        exit (the replica died before or during its grace drain)
-        additionally spawns a replacement; with a warm pool (or
-        ``replace_failed``), CRASH/HANG deaths heal the same way —
-        membership flexes, the tier never shrinks."""
+        dead replicas' in-flight work once.  A PREEMPTION-classified exit
+        (the replica died before
+        or during its grace drain) additionally spawns a replacement;
+        with a warm pool (or ``replace_failed``), CRASH/HANG deaths heal
+        the same way — membership flexes, the tier never shrinks."""
         failed = [int(e) for e in getattr(failure, "failed_workers", ())]
         standby_owned: set[int] = set()
         if self.standbys is not None and not self._shutdown_done:
             standby_owned = self.standbys.handle_failure(failed)
         self.scheduler.on_cluster_failure(failure)
-        failed = [e for e in failed if e not in standby_owned]
+        leaders = [e for e in failed if e not in standby_owned]
         if self._shutdown_done:
             return
         kind = getattr(failure, "kind", None)
         if self._replace_preempted and kind == PREEMPTION:
-            for eid in failed:
-                self._spawn_replacement(eid, source="exit")
+            for leader in leaders:
+                self._spawn_replacement(leader, source="exit")
         elif kind != PREEMPTION and (self.standbys is not None
                                      or self._replace_failed):
             # crash/hang heal: only replicas the scheduler actually lost
             # (a failure naming an unknown worker must not grow the tier)
             dead = self.scheduler.dead_replicas()
-            for eid in failed:
-                if eid in dead:
-                    self._spawn_replacement(eid, source="failure",
+            for leader in leaders:
+                if leader in dead:
+                    self._spawn_replacement(leader, source="failure",
                                             promote_source="failure")
 
     def _handle_preempted(self, eid: int) -> None:
@@ -771,32 +1320,49 @@ class ServingCluster:
         # work — bench_serving's heal-time rows measure from this event
         self.scheduler.emit_event("heal_started", replica=eid,
                                   source=source)
-        # the expectation makes dispatch QUEUE the work for the heal
-        # window — when the dead replica was the LAST, its requeued
-        # prompts must wait for the replacement, not shed as no_replica
-        self.scheduler.expect_replica()
+        # capture the lost replica's pool NOW: the replacement must
+        # re-arm the SAME specialization (a decode replica replaced by a
+        # prefill one would starve the other pool).  The expectation
+        # makes dispatch QUEUE that pool's work for the heal window —
+        # when the dead gang was a pool's LAST, its requeued handoffs/
+        # prompts must wait for the replacement, not shed as no_replica.
+        role = self.scheduler.replica_role(eid)
+        # ... and its MODEL: on a multi-model tier the replacement must
+        # serve the dead gang's own (model_id, version) — a shared spare
+        # fleet re-armed per model at promotion, a cold spawn built from
+        # the version's registry args
+        model = self.scheduler.replica_model_version(eid)
+        self.scheduler.expect_replica(role)
 
         def _go():
             try:
                 if self._shutdown_done:
                     return
-                promoted = self.promote_standby(promote_source)
+                # promote-with-role: a lost prefill/decode gang heals
+                # from the (role-less) warm pool too — the promote
+                # message carries the dead gang's role and the standby
+                # specializes on arrival
+                promoted = self.promote_standby(promote_source, role=role,
+                                                model=model)
                 if promoted is not None:
                     self.scheduler.emit_event(
                         "replica_replaced", replica=eid,
-                        replacement=promoted, source=source, mode="warm")
+                        replacement=promoted, source=source, mode="warm",
+                        role=role,
+                        model=None if model is None else model[0])
                     return
-                new = self.add_replicas(1)
+                new = self.add_replicas(1, role=role, model=model)
                 self.scheduler.emit_event(
                     "replica_replaced", replica=eid, replacement=new[0],
-                    source=source, mode="cold")
+                    source=source, mode="cold", role=role,
+                    model=None if model is None else model[0])
             except Exception:
                 logger.exception("replacement for lost replica %d "
                                  "failed", eid)
                 self.scheduler.emit_event("replace_failed", replica=eid,
                                           source=source)
             finally:
-                self.scheduler.expect_done()
+                self.scheduler.expect_done(role)
 
         threading.Thread(target=_go, name=f"serve-replace-{eid}",
                          daemon=True).start()
@@ -808,12 +1374,22 @@ class ServingCluster:
         m = self.scheduler.metrics()
         m["nodes"] = (self.monitor.node_metrics()
                       if self.monitor is not None else {})
+        if self.autoscaler is not None:
+            m["autoscaler"] = {"scale_ups": self.autoscaler.scale_ups,
+                               "scale_downs": self.autoscaler.scale_downs}
+        if self.autoscalers:
+            m["autoscalers"] = {
+                s.cfg.role: {"scale_ups": s.scale_ups,
+                             "scale_downs": s.scale_downs}
+                for s in self.autoscalers}
         if self.standbys is not None:
             with self._promotions_lock:
                 promotions = dict(self._promoted)
             m["standby"] = {**self.standbys.stats(),
                             "promotions": promotions,
                             "heal": self.heal.summary()}
+        if self.registry is not None:
+            m["registry"] = self.registry.summary()
         return m
 
     def metrics_text(self) -> str:
@@ -827,6 +1403,48 @@ class ServingCluster:
             self.monitor.node_metrics() if self.monitor is not None else {})
 
     # ------------------------------------------------------------- shutdown
+    def crash(self) -> None:
+        """Hard-kill the DRIVER half of the tier in place — the
+        in-process equivalent of SIGKILLing a standalone driver process
+        (the ``TFOS_CHAOS="kill driver ..."`` verb fires this).
+
+        No drain, no requeue, no typed shutdown errors, nothing further
+        journaled: frontend sockets drop mid-stream, scheduler threads
+        stop with pending/outstanding work left exactly where it was.
+        Workers, their queue servers, and everything in flight on them
+        keep running — the obligations live in the fsync'd journal, and
+        :func:`~tensorflowonspark_tpu_torch.serving.failover.resume_driver`
+        rebuilds a control plane over the surviving data plane from it.
+        """
+        if self._shutdown_done:
+            return
+        self._shutdown_done = True        # membership paths stand down
+        jnl, self.journal = self.journal, None
+        logger.warning(
+            "driver CRASH: dropping the control plane in place (journal "
+            "%s survives)", "<none>" if jnl is None else jnl.path)
+        if self._driver_chaos is not None:
+            with contextlib.suppress(Exception):
+                self._driver_chaos.stop()
+        # driver-side control threads only — a dead process would take
+        # these with it, and none of them messages a worker
+        for scaler in ([self.autoscaler] if self.autoscaler is not None
+                       else []) + list(self.autoscalers):
+            with contextlib.suppress(Exception):
+                scaler.stop()
+        if self.metrics_http is not None:
+            with contextlib.suppress(Exception):
+                self.metrics_http.stop()
+            self.metrics_http = None
+        self.frontend.stop()
+        self.scheduler.crash()
+        if self.monitor is not None:
+            with contextlib.suppress(Exception):
+                self.monitor.stop()
+        if jnl is not None:
+            jnl.close()       # every record is already fsync'd; the fd
+            # just dies with the "process", like a real SIGKILL
+
     def shutdown(self, timeout: float = 600.0,
                  drain_timeout: float = 60.0) -> None:
         """Drain in-flight requests, stop the tier, shut the cluster down.
@@ -845,6 +1463,11 @@ class ServingCluster:
             # exit on the cluster shutdown's EndOfFeed like replicas
             with contextlib.suppress(Exception):
                 self.standbys.stop()
+        for scaler in ([self.autoscaler] if self.autoscaler is not None
+                       else []) + list(self.autoscalers):
+            # no membership changes may race the teardown
+            with contextlib.suppress(Exception):
+                scaler.stop()
         if not self.scheduler.drain(drain_timeout):
             logger.warning("serving scheduler still busy after %.0fs drain; "
                            "remaining requests get typed shutdown errors",
@@ -857,8 +1480,17 @@ class ServingCluster:
             with contextlib.suppress(Exception):
                 self.metrics_http.stop()
             self.metrics_http = None
+        if self._driver_chaos is not None:
+            # a still-pending driver-kill timer must not fire into a
+            # cleanly shut down tier
+            with contextlib.suppress(Exception):
+                self._driver_chaos.stop()
         self.frontend.stop()
         self.scheduler.stop()
+        if self.journal is not None:
+            # after scheduler.stop(): nothing records past this point
+            self.journal.close()
+            self.journal = None
         if self.monitor is not None:
             self.monitor.stop()
         try:

@@ -9,9 +9,11 @@ host_params`: bf16 as int16 bits) and is copied back into the batcher's
 storage by ``load_params``.  Eager PyTorch compiles nothing, so the JAX
 package's fleet-wide compile cache has no counterpart; the batcher's
 compile-site cache is the CUDA-graph capture of ``serving/aot.py``
-(``serve_aot_cache``).  Model hot swaps, registry versions and the
-disaggregated prefill/decode roles wait for their modules (ROADMAP A8c),
-mesh-sharded gangs for the port's mesh (A6).
+(``serve_aot_cache``).  A model hot swap (``op: "model"``) copies the
+new version's weights into that storage through ``load_params``, so every
+captured site serves them; a disaggregated decode replica writes an
+adopted session's pages into its KV pool in place.  Mesh-sharded gangs
+wait for the port's mesh (ROADMAP A6).
 
 ``serve_replica`` is a ``map_fun`` launched through the ordinary cluster
 runtime (``TPUCluster.run`` / ``node.run``), so a serving replica gets the
@@ -69,7 +71,13 @@ tier:
   ``serve_batcher_kwargs`` (extra ``ContinuousBatcher`` kwargs, e.g.
   ``decode_block_steps``/``speculative_k`` — note blocks trade intake
   latency for dispatch amortization);
-- ``serve_idle_poll`` / ``serve_busy_poll`` — intake timeouts (secs).
+- ``serve_idle_poll`` / ``serve_busy_poll`` — intake timeouts (secs);
+- ``serve_role`` (``"prefill"``/``"decode"``) and ``serve_disagg`` — a
+  disaggregated pool member (``serving/disagg.py``);
+- ``serve_model`` — the ``(model_id, version)`` a registry version spawned
+  with (``serving/rollout.py``);
+- ``serve_step_delay`` — an artificial per-step latency (a deterministic
+  "slow version" for rollout-gate tests; a swap's overlay can change it).
 """
 
 from __future__ import annotations
@@ -124,27 +132,46 @@ def serving_aot_cache(args):
 
 
 def build_draft_model(args):
-    """This arg view's draft model (``serve_draft_builder``), moved to the
-    replica's device and wrapped in a
-    :class:`~tensorflowonspark_tpu_torch.models.serving.DraftModel` with
-    ``serve_draft_window``; None when no draft is configured."""
+    """This arg view's draft model (``serve_draft_builder``, or
+    ``serve_draft_base_builder`` [+ ``serve_draft_adapter``] for a
+    registry adapter version), moved to the replica's device and wrapped
+    in a :class:`~tensorflowonspark_tpu_torch.models.serving.DraftModel`
+    with ``serve_draft_window``; None when no draft is configured.  The
+    draft is "just another model version": the same builder/adapter
+    resolution the hot-swap and standby-promote paths use."""
     builder = args.get("serve_draft_builder")
-    if builder is None:
+    base = args.get("serve_draft_base_builder")
+    if builder is None and base is None:
         return None
     from tensorflowonspark_tpu_torch.models.serving import DraftModel
 
-    cfg, params = builder(args)
+    # the draft version's own serve_args overlay applies only while
+    # BUILDING the draft (rollout.draft_overlay stashes it here) — a
+    # draft's seed/knobs must never leak into the target's arg view
+    draft_args = dict(args)
+    draft_args.update(args.get("serve_draft_args") or {})
+    if builder is not None:
+        cfg, params = builder(draft_args)
+    else:
+        from tensorflowonspark_tpu_torch.serving.rollout import build_registered_model
+
+        draft_args["serve_base_builder"] = base
+        draft_args["serve_adapter"] = args.get("serve_draft_adapter")
+        cfg, params = build_registered_model(draft_args)
     return DraftModel(cfg, on_device(params, serving_device(args)),
                       window=int(args.get("serve_draft_window", 64)))
 
 
 def arm_draft(batcher, args) -> None:
-    """Arm the batcher's draft model from an arg view (boot and the
-    standby's warm-up both funnel here); a view without a draft, or a
-    batcher without a verify window, clears it.  Typed errors come from
-    ``set_draft``."""
+    """(Re)arm or clear the batcher's draft model from an arg view —
+    boot, standby promotion, and hot swap all funnel here so target and
+    draft can never go incoherent: a view without draft keys CLEARS any
+    armed draft (swap-away invalidation), one with them builds and
+    validates the new draft (typed errors from ``set_draft``, raised
+    before any params move)."""
     draft = None
-    if getattr(batcher, "spec_k", None) is not None:
+    if not getattr(batcher, "prefill_only", False) \
+            and getattr(batcher, "spec_k", None) is not None:
         draft = build_draft_model(args)
     batcher.set_draft(draft)
 
@@ -211,15 +238,136 @@ def serve_clone_request(batcher, item: dict, ctx) -> None:
     threading.Thread(target=_send, name="serve-clone", daemon=True).start()
 
 
+def resolve_version_params(args, item, base_cache: dict | None = None):
+    """Build a model-version payload's state dict (the hot-swap message /
+    the standby promote payload): the payload's ``builder`` — or
+    ``base_builder`` + ``adapter`` delta for adapter versions — run over
+    this worker's args with the version's ``serve_args`` overlaid (so a
+    builder keying on e.g. ``seed`` sees the version's value).  Returns
+    ``(params, version_args)``; the caller loads the params and keeps
+    ``version_args`` as its live arg view.
+
+    ``base_cache``: the worker's PRISTINE-BASE cache.  Adapter swaps ship
+    delta-only payloads, and re-applying a delta over the cached base
+    beats rebuilding base+delta every swap.  The cache is only consulted
+    when the payload's ``serve_args`` overlay carries no builder-visible
+    knob (a non-``serve_``-prefixed key like ``seed`` changes what the
+    base builder returns) — otherwise the base is rebuilt.  Capped at one
+    entry: a model's adapter versions share one base by construction
+    (adapter-over-adapter is rejected at registration)."""
+    version_args = dict(args)
+    version_args.update(item.get("serve_args") or {})
+    base = item.get("base_builder")
+    if base is not None:
+        from tensorflowonspark_tpu_torch.serving.rollout import apply_adapter
+
+        delta = item.get("adapter")
+        version_args["serve_base_builder"] = base
+        version_args["serve_adapter"] = delta
+        overlay = item.get("serve_args") or {}
+        cacheable = (base_cache is not None
+                     and not any(not str(k).startswith("serve_")
+                                 for k in overlay))
+        key = (getattr(base, "__module__", None),
+               getattr(base, "__qualname__", repr(base)))
+        base_params = base_cache.get(key) if cacheable else None
+        if base_params is None:
+            _, base_params = base(version_args)
+            if cacheable:
+                base_cache.clear()
+                base_cache[key] = base_params
+        # apply_adapter never mutates the base leaves (delta'd names get
+        # fresh tensors), so the cached state dict stays pristine
+        params = (apply_adapter(base_params, delta) if delta
+                  else base_params)
+    else:
+        builder = item.get("builder") or args["serve_model_builder"]
+        _, params = builder(version_args)
+    return params, version_args
+
+
+def _donation_counter():
+    """The one donation-counter family (both the export and import
+    sites record into it; a single definition cannot drift)."""
+    return _metrics.get_registry().counter(
+        "tfos_replica_prefix_donations_total",
+        "Cross-pool prefix-cache page donations by direction.",
+        labelnames=("direction",))
+
+
+def serve_prefix_donation(batcher, item, ctx) -> None:
+    """Source side of cross-pool prefix-page donation: snapshot this
+    (prefill) replica's shared prefix-cache pages and ship them straight
+    to the requesting decode replica's queue plane (zero-copy/bulk
+    negotiated like any tensor payload).  The gather runs HERE, on the
+    serve-loop thread — decode steps write the cache in place, so an
+    off-thread gather could read a half-written page; only the send is
+    off-thread."""
+    pages = None
+    try:
+        pages = batcher.export_prefix_cache()
+    # tfos: ignore[broad-except] — a donation is an optimization; a
+    # failed snapshot must not kill the serving replica
+    except Exception:
+        logger.exception("replica %d: prefix-cache export for donation "
+                         "failed", ctx.executor_id)
+    if not pages:
+        logger.info("replica %d: nothing to donate (empty/dense prefix "
+                    "cache)", ctx.executor_id)
+        return
+    m_donations = _donation_counter()
+
+    def _send():
+        from tensorflowonspark_tpu_torch.queues import QueueClient
+
+        try:
+            cli = QueueClient(tuple(item["reply_addr"]),
+                              item["reply_authkey"], timeout=60.0)
+            try:
+                cli.put(REQUEST_QUEUE,
+                        {"op": "prefix", "event": "pages", "export": pages,
+                         "src": ctx.executor_id}, timeout=60)
+            finally:
+                cli.close()
+            m_donations.inc(direction="exported")
+            logger.info("replica %d donated %d prefix page(s) to %s",
+                        ctx.executor_id, pages["pages"],
+                        item.get("reply_addr"))
+        # tfos: ignore[broad-except] — the recipient may have died; the
+        # donation just doesn't happen
+        except Exception:
+            logger.exception("replica %d: prefix-page donation failed",
+                             ctx.executor_id)
+
+    threading.Thread(target=_send, name="serve-prefix-donate",
+                     daemon=True).start()
+
+
 def serving_batcher_kwargs(args) -> dict:
-    """The ``ContinuousBatcher`` kwargs: ``serve_batcher_kwargs``, with
-    the verify window (``serve_draft_k``) armed when a draft is
-    configured and the caller pinned neither decode knob.  Shared by the
-    replica and the warm standby, so both build the identical engine."""
+    """The ``ContinuousBatcher`` kwargs for this worker's role:
+    ``serve_batcher_kwargs`` overlaid with the role's entry from
+    ``serve_disagg`` (``{"prefill_kwargs": ..., "decode_kwargs": ...}``)
+    and — for a prefill-pool worker — ``prefill_only=True``.  Shared by
+    the replica and the warm standby, so every specialization builds the
+    identical engine."""
     kwargs = dict(args.get("serve_batcher_kwargs") or {})
-    if args.get("serve_draft_builder") \
+    role = args.get("serve_role")
+    if role:
+        kwargs.update(dict(
+            (args.get("serve_disagg") or {}).get(f"{role}_kwargs") or {}))
+    if role == "prefill":
+        kwargs["prefill_only"] = True
+    if (args.get("serve_draft_builder")
+            or args.get("serve_draft_base_builder")) \
+            and role != "prefill" and not kwargs.get("prefill_only") \
+            and not (args.get("serve_disagg") and role is None) \
             and "speculative_k" not in kwargs \
             and "decode_block_steps" not in kwargs:
+        # a configured draft implies speculation: arm the verify window
+        # (serve_draft_k) unless the caller pinned either decode knob.
+        # Role-less workers of a disagg tier (warm standbys) stay
+        # unarmed — they may be promoted into a prefill pool, which
+        # set_role refuses under decode-time knobs.
         kwargs["speculative_k"] = int(args.get("serve_draft_k", 4))
     return kwargs
 
@@ -238,14 +386,32 @@ def serve_replica(args, ctx) -> None:
         eos_id=args.get("serve_eos_id"),
         aot_cache=serving_aot_cache(args),
         **serving_batcher_kwargs(args))
+    del params
     arm_draft(batcher, args)
-    run_serve_loop(args, ctx, batcher)
+    run_serve_loop(args, ctx, batcher, role=args.get("serve_role"))
 
 
-def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
+def run_serve_loop(args, ctx, batcher, *, label: str = "replica",
+                   role: str | None = None,
+                   base_args: dict | None = None) -> None:
     """THE serving loop (module docstring): intake ⇄ step interleave over
     the node queue plane until ``EndOfFeed`` / a drained preemption.
-    Shared by :func:`serve_replica` and a promoted warm standby."""
+    Shared by :func:`serve_replica` and a promoted warm standby.
+
+    ``role`` specializes the loop for a disaggregated pool
+    (docs/serving.md "Disaggregated prefill/decode"): every response
+    message carries the role so the scheduler can audit routing;
+    ``"prefill"`` flushes each admitted request's exported session as a
+    ``{"event": "handoff"}`` message (the batcher never decode-steps
+    it); ``"decode"`` accepts ``{"op": "adopt"}`` intake items and seats
+    them via ``batcher.adopt_session`` — a corrupt/raced transfer's
+    ``ValueError`` bounces back as a typed error without touching the
+    engine.
+
+    ``base_args`` (a promoted standby passes its PRISTINE boot args
+    while ``args`` carries the promoted version's serve_args overlay)
+    is the base a later hot swap's version_args build from — so a
+    rollback away from the promoted version fully sheds its knobs."""
     from tensorflowonspark_tpu_torch.bert_train import kernel_launches
 
     mgr = ctx.mgr
@@ -260,9 +426,14 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
     # + monitor poll), so a request dispatched into that window is still
     # served rather than stranded
     preempt_grace = float(args.get("serve_preempt_grace", 2.0))
+    #: artificial per-step latency (benches/chaos: a deterministic
+    #: "slow version" for rollout-gate testing); a model swap's
+    #: serve_args overlay can change it live
+    step_delay = float(args.get("serve_step_delay", 0.0))
 
     deltas: dict[int, list[int]] = {}   # batcher rid -> tokens this step
     carry = None   # gen request read during a full-slots control sweep
+    pending_swap = None   # a model hot-swap awaiting an idle batcher
 
     def on_token(brid: int, tok: int) -> None:
         deltas.setdefault(brid, []).append(int(tok))
@@ -315,6 +486,10 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
         "tfos_replica_prefix_cache_requests_total",
         "Prefix-cache admission outcomes (hit/miss/partial).",
         labelnames=("outcome",))
+    m_sessions = reg.counter(
+        "tfos_replica_sessions_total",
+        "KV-page handoff sessions by direction (exported by a prefill "
+        "pool / adopted by a decode pool).", labelnames=("direction",))
     m_aot = reg.counter(
         "tfos_replica_aot_resolves_total",
         "Serve-step site captures by outcome (compile = a CUDA graph "
@@ -327,6 +502,7 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
         "by kernel (the wrappers' own counts).", labelnames=("kernel",))
     last = {"decode_dispatches": 0, "prefill_dispatches": 0,
             "spec_proposed": 0, "spec_accepted": 0,
+            "sessions_exported": 0, "sessions_adopted": 0,
             "hit": 0, "miss": 0, "partial": 0,
             "aot_loads": 0, "aot_compiles": 0, "aot_errors": 0}
     launched = dict.fromkeys(kernel_launches(), 0)
@@ -348,6 +524,12 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
             cur = getattr(batcher, attr, 0)
             if cur > last[attr]:
                 m_spec.inc(cur - last[attr], outcome=outcome)
+                last[attr] = cur
+        for attr, direction in (("sessions_exported", "exported"),
+                                ("sessions_adopted", "adopted")):
+            cur = getattr(batcher, attr)
+            if cur > last[attr]:
+                m_sessions.inc(cur - last[attr], direction=direction)
                 last[attr] = cur
         for n in batcher.take_spec_accept_lens():
             h_accept.record(n)
@@ -371,12 +553,91 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
                 launched[name] = cur
 
     tracer = tracing.tracer_for(ctx.working_dir)
+    #: role piggyback on every response message — the scheduler audits
+    #: that a pool member really serves its registered specialization
+    role_extra = {} if role is None else {"role": role}
 
     def busy() -> bool:
         return batcher.load()["total"] > 0
 
-    logger.info("%s %d serving (max_batch=%d)", label, ctx.executor_id,
-                batcher.max_batch)
+    swap_base = base_args if base_args is not None else args
+    #: pristine-base cache for delta-only adapter swaps (see
+    #: resolve_version_params) — lives for the serve loop's lifetime
+    swap_base_cache: dict = {}
+
+    def apply_model_swap(item: dict, cur_delay: float):
+        """Apply a drained hot swap (docs/serving.md "Multi-model
+        serving"): params from a peer clone (the version already serves
+        elsewhere) or the payload's builder/adapter.  ``load_params``
+        checks names, shapes and dtypes before a weight changes (an
+        incompatible version bounces back typed, the OLD params keep
+        serving) and then COPIES the values into the batcher's storage
+        when its sites are captured — a graph replays the storage it was
+        captured over, so rebinding would keep serving the old weights.
+        Returns the new per-step delay, ``cur_delay`` on a failed swap,
+        or None when an EndOfFeed interrupted the clone wait (tier
+        shutdown)."""
+        old_draft = batcher._draft_model
+        params = None
+        version_args = dict(swap_base)
+        version_args.update(item.get("serve_args") or {})
+        peer = item.get("peer")
+        # adapter payloads are DELTA-ONLY: re-applying the delta over the
+        # pristine base (cached locally) always beats cloning full params
+        # from a peer, so the peer hint is ignored for them
+        if peer is not None and item.get("base_builder") is None:
+            from tensorflowonspark_tpu_torch.serving.standby import (
+                _STOP, _clone_from_peer)
+
+            got = _clone_from_peer(ctx, mgr, peer, timeout=float(
+                args.get("serve_clone_timeout", 60.0)))
+            if got is _STOP:
+                return None
+            if got is not None:
+                params = got["params"]
+        try:
+            if params is None:
+                params, version_args = resolve_version_params(
+                    swap_base, item, base_cache=swap_base_cache)
+            # draft coherence BEFORE the params move: the new version's
+            # draft arms (or a version without one clears the old draft)
+            # while the old target still serves — a bad draft payload
+            # bounces typed below with the old (params, draft) pair
+            # fully intact
+            arm_draft(batcher, version_args)
+            batcher.load_params(params)
+        # tfos: ignore[broad-except] — a bad version payload must bounce
+        # back typed, not kill a serving replica; load_params validated
+        # before it copied, so the old weights still serve
+        except Exception as e:
+            if batcher._draft_model is not old_draft:
+                batcher.set_draft(old_draft)
+            logger.exception("replica %d: model swap to %s@%s failed",
+                             ctx.executor_id, item.get("model"),
+                             item.get("version"))
+            mgr.queue_put(RESPONSE_QUEUE,
+                          {"rid": None, "event": "model_swap_failed",
+                           "error": f"{type(e).__name__}: {e}",
+                           "swap_token": item.get("swap_token"),
+                           "load": 0, **role_extra})
+            return cur_delay
+        mgr.queue_put(RESPONSE_QUEUE,
+                      {"rid": None, "event": "model_swapped",
+                       "model": item.get("model"),
+                       "version": item.get("version"),
+                       "swap_token": item.get("swap_token"), "load": 0,
+                       **role_extra})
+        logger.info("replica %d hot-swapped to model %s@%s",
+                    ctx.executor_id, item.get("model"),
+                    item.get("version"))
+        return float(version_args.get("serve_step_delay", 0.0))
+
+    served_model = args.get("serve_model")
+    logger.info("%s %d serving (max_batch=%d%s%s)", label, ctx.executor_id,
+                batcher.max_batch,
+                "" if not served_model
+                else f", model {served_model[0]}@{served_model[1]}",
+                "" if role is None else f", role {role}")
     draining = False
     drain_started = 0.0
     guard = PreemptionGuard()
@@ -392,6 +653,17 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
                 tracer.event("replica_preempted", None,
                              replica=ctx.executor_id,
                              inflight=batcher.load()["total"])
+            if pending_swap is not None and not stopping \
+                    and carry is None and not busy():
+                # the driver drained this replica first, so the batcher
+                # is idle here; a swap racing early-routed work simply
+                # waits for the next idle step
+                item, pending_swap = pending_swap, None
+                got = apply_model_swap(item, step_delay)
+                if got is None:     # EndOfFeed landed mid-clone
+                    stopping = True
+                    break
+                step_delay = got
             queue_idle = False
             while not stopping:
                 free = batcher.has_free_slot()
@@ -430,6 +702,69 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
                     # a promoted standby asks for this replica's weights
                     serve_clone_request(batcher, item, ctx)
                     continue
+                if isinstance(item, dict) and item.get("op") == "model":
+                    ev = item.get("event")
+                    if ev == "swap":
+                        # a hot swap: applied at the loop top once the
+                        # batcher is idle (the driver drained first, so
+                        # normally it already is)
+                        pending_swap = item
+                    elif ev == "cancel":
+                        # the driver's swap call gave up (ack timeout):
+                        # drop a swap not yet applied.  One already
+                        # applied acks late instead, and the scheduler
+                        # relabels on the late ack — the routing label
+                        # always tracks the served version.
+                        pending_swap = None
+                    continue
+                if isinstance(item, dict) and item.get("op") == "prefix":
+                    ev = item.get("event")
+                    if ev == "export":
+                        # a decode replica asks for this pool's prefix
+                        # pages (cross-pool donation)
+                        serve_prefix_donation(batcher, item, ctx)
+                    elif ev == "pages":
+                        # a donated page set arrives: import as cached,
+                        # refcount-0, evictable pages — matchable by
+                        # the very next admission/adopt
+                        try:
+                            n = batcher.import_prefix_cache(item.get("export"))
+                            if n:
+                                _donation_counter().inc(
+                                    n, direction="imported")
+                            logger.info(
+                                "replica %d imported %d donated prefix "
+                                "page(s) from %s", ctx.executor_id, n,
+                                item.get("src"))
+                        # tfos: ignore[broad-except] — a corrupt/
+                        # mismatched donation is rejected by the hash/
+                        # layout checks; the replica serves on
+                        except Exception:
+                            logger.exception(
+                                "replica %d: donated prefix-page import "
+                                "failed", ctx.executor_id)
+                    continue
+                if isinstance(item, dict) and item.get("op") == "adopt":
+                    # a handed-off session: seat it without re-prefilling.
+                    # adopt_session verifies layout + per-page content
+                    # hashes HERE — a corrupt or raced transfer raises
+                    # before any device write and bounces back typed,
+                    # the engine stays healthy
+                    try:
+                        brid = batcher.adopt_session(item["session"],
+                                                     on_token=on_token)
+                    except ValueError as e:
+                        mgr.queue_put(RESPONSE_QUEUE,
+                                      {"rid": item.get("rid"),
+                                       "event": "error", "error": str(e),
+                                       **role_extra})
+                        continue
+                    rid_map[brid] = (item["rid"], item.get("trace"))
+                    tracer.event(
+                        "replica_adopt", item.get("trace"),
+                        rid=item["rid"], replica=ctx.executor_id,
+                        pages=int(item["session"].get("pages", 0)))
+                    continue
                 if not (isinstance(item, dict) and item.get("op") == "gen"):
                     logger.warning("replica %d: ignoring non-request item %r",
                                    ctx.executor_id, type(item))
@@ -445,7 +780,7 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
                     # the typed error back to the scheduler
                     mgr.queue_put(RESPONSE_QUEUE,
                                   {"rid": item.get("rid"), "event": "error",
-                                   "error": str(e)})
+                                   "error": str(e), **role_extra})
                     continue
                 rid_map[brid] = (item["rid"], item.get("trace"))
                 tracer.event("replica_intake", item.get("trace"),
@@ -459,6 +794,8 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
                     break   # grace-window drain complete: exit cleanly
                 continue
             done = batcher.step()
+            if step_delay:
+                _time.sleep(step_delay)
             steps += 1
             # serving-phase heartbeat: arms the hang watchdog on the decode
             # loop and gives chaos its at_step trigger.  A draining replica
@@ -496,7 +833,8 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
                 mgr.queue_put(RESPONSE_QUEUE,
                               {"rid": rid, "event": "tok",
                                "tokens": toks, "load": load,
-                               "free_pages": free_pages, **spec_extra})
+                               "free_pages": free_pages, **spec_extra,
+                               **role_extra})
             deltas.clear()
             for brid in done:
                 batcher.result(brid, pop=True)  # tokens already streamed
@@ -507,8 +845,29 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica") -> None:
                 m_served.inc()
                 mgr.queue_put(RESPONSE_QUEUE,
                               {"rid": rid, "event": "done", "load": load,
-                               "free_pages": free_pages, **spec_extra})
+                               "free_pages": free_pages, **spec_extra,
+                               **role_extra})
                 served += 1
+            if role == "prefill":
+                # prefill pool: flush each admitted request's exported
+                # session AFTER its first-token delta (same queue, FIFO:
+                # the driver sees TTFT close before the handoff).  The
+                # session's KV pages ride the queue/shm plane as host
+                # arrays — zero-copy on a shared host.
+                for brid, session in batcher.take_sessions():
+                    rid, trace = rid_map.pop(brid)
+                    first_sent.discard(brid)
+                    tracer.event(
+                        "replica_handoff", trace, rid=rid,
+                        replica=ctx.executor_id,
+                        pages=int(session.get("pages", 0)),
+                        bytes=int(sum(a.nbytes for a in session["kv"])))
+                    mgr.queue_put(RESPONSE_QUEUE,
+                                  {"rid": rid, "event": "handoff",
+                                   "session": session, "load": load,
+                                   "free_pages": free_pages,
+                                   **role_extra})
+                    served += 1
     logger.info("%s %d %s: %d requests over %d steps "
                 "(%d prefill + %d decode dispatches)", label,
                 ctx.executor_id,

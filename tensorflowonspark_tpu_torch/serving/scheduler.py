@@ -1,12 +1,9 @@
 """Driver-side request scheduler: admission, routing, re-queue on death.
 
 Port of ``tensorflowonspark_tpu/serving/scheduler.py`` over the port's
-metrics, observability, tracing and queues.  The JAX package's routing
-for disaggregated prefill/decode pools, multi-model hosting with traffic
-splits and hot swaps, and the control-plane journal wait for their
-modules (ROADMAP A8c); mesh-sharded gang replicas for the port's mesh
-(A6).  The ``model`` label of the request series stays, as
-``"default"``, so the exposition keeps the JAX package's series.
+metrics, observability, tracing and queues, less the mesh-sharded gang
+bookkeeping (leaders, shard members, device-weighted capacity), which waits
+for the port's mesh (ROADMAP A6): every replica here is one worker.
 
 The scheduler is the piece between the :class:`~tensorflowonspark_tpu_torch.
 serving.frontend.ServeFrontend` (which owns client connections) and the
@@ -60,6 +57,19 @@ Scheduling policy (docs/serving.md):
   ahead of earlier-admitted low-priority ones (FIFO within a class;
   failover re-queues go to the front of their own class so the
   exactness contract is priority-blind).
+- **Disaggregated routing** (``roles=``; docs/serving.md "Disaggregated
+  prefill/decode") — in a role-aware tier a prompt routes only to the
+  least-loaded PREFILL gang, which computes the prompt KV and hands the
+  session back as a first-class KV-page transfer (``handoff`` response);
+  the scheduler then dispatches the session to the DECODE gang with the
+  fewest outstanding requests, tie-broken toward MORE free KV pages
+  (``op="adopt"``).  The adopt hop continues the same attempt, so the
+  requeue-once failover contract spans the handoff boundary: a death on
+  either side replays the request exactly once through the full
+  prefill→handoff→decode pipeline, skip-dedup keeping the client stream
+  oracle-exact.  ``submit`` on a tier whose prefill pool is gone raises
+  a typed ``RequestRejected(reason="role_mismatch")`` instead of
+  silently queueing a bare prompt on a decode-only gang.
 - **Elastic membership** — replicas can be added (:meth:`ReplicaScheduler.
   add_replica`, fed by ``ServingCluster.add_replicas``'s re-opened
   reservation path) and retired live.  Retirement is drain-based:
@@ -106,9 +116,11 @@ class RequestRejected(ServingError):
     ``reason`` is machine-readable: ``queue_full`` (bounded queue depth
     reached), ``tenant_throttled`` (the tenant's token bucket is empty —
     only THIS tenant is over budget), ``shutdown`` (scheduler stopping),
-    ``no_replica`` (every replica is dead), ``unknown_model`` (the
-    request names a ``model``: multi-model hosting waits for ROADMAP
-    A8c)."""
+    ``no_replica`` (every replica is dead), ``role_mismatch`` (a
+    disaggregated tier with no routable prefill-capable replica —
+    refusing to queue a bare prompt on a decode-only gang),
+    ``unknown_model`` (the request names a ``model`` no replica of this
+    tier hosts — docs/serving.md "Multi-model serving")."""
 
     def __init__(self, reason: str, message: str):
         super().__init__(message)
@@ -225,16 +237,22 @@ class ServeRequest:
     __slots__ = ("rid", "prompt", "max_new_tokens", "temperature", "top_p",
                  "seed", "deadline", "events", "tokens", "attempts",
                  "replica", "skip", "created", "first_token_at", "finished",
-                 "trace", "tenant", "priority")
+                 "trace", "tenant", "priority", "session", "model",
+                 "session_version")
 
     def __init__(self, rid: int, prompt, max_new_tokens: int,
                  temperature: float, top_p: float, seed: int,
                  deadline: float | None, trace: str | None = None,
-                 tenant: str = "default", priority: str = "normal"):
+                 tenant: str = "default", priority: str = "normal",
+                 model: str | None = None):
         self.rid = rid
         self.trace = trace or tracing.new_trace_id()
         self.tenant = tenant
         self.priority = priority
+        #: resolved hosting model id (multi-model tiers; None on a
+        #: single-model tier) — routing only considers replicas whose
+        #: registered model matches
+        self.model = model
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
@@ -249,6 +267,13 @@ class ServeRequest:
         self.created = time.monotonic()
         self.first_token_at: float | None = None
         self.finished = False
+        #: the KV-page session a prefill gang handed back, held only
+        #: between the ``handoff`` response and its adopt dispatch —
+        #: ``session_version`` pins the VERSION whose weights computed
+        #: it (adopt dispatch must match: KV decoded under other
+        #: weights would silently emit wrong tokens)
+        self.session: dict | None = None
+        self.session_version: str | None = None
 
     def message(self) -> dict:
         """The wire message the replica loop consumes (``trace`` rides
@@ -256,20 +281,30 @@ class ServeRequest:
         return {"op": "gen", "rid": self.rid, "prompt": self.prompt,
                 "max_new_tokens": self.max_new_tokens,
                 "temperature": self.temperature, "top_p": self.top_p,
-                "seed": self.seed, "trace": self.trace}
-
-
-#: the ``model`` label value of every request series (one model a tier)
-_MODEL = "default"
+                "seed": self.seed, "trace": self.trace,
+                "model": self.model}
 
 
 class _Replica:
     """Driver-side view of one routable replica (a serving worker)."""
 
-    def __init__(self, info: dict, max_inflight: int):
+    def __init__(self, info: dict, max_inflight: int,
+                 role: str | None = None, model: tuple | None = None):
         self.info = info
         self.eid = int(info["executor_id"])
         self.max_inflight = int(max_inflight)
+        #: disaggregated-tier specialization: ``"prefill"`` (computes
+        #: prompt KV, never decode-steps), ``"decode"`` (only adopts
+        #: handed-off sessions and steps them), or None (unified — the
+        #: historical replica, serves the whole request)
+        self.role = role
+        #: multi-model tier: the ``(model_id, version)`` this replica
+        #: serves (docs/serving.md "Multi-model serving").  None = the
+        #: historical unlabeled replica, which serves any request.
+        self.model: str | None = None
+        self.version: str | None = None
+        if model is not None:
+            self.model, self.version = str(model[0]), str(model[1])
         self.outstanding: dict[int, ServeRequest] = {}
         self.reported_load = 0   # last ContinuousBatcher.load()["total"]
         #: last self-reported allocatable KV pages (paged-KV replicas;
@@ -291,6 +326,19 @@ class _Replica:
         #: replayed streams, whose first token already happened)
         self.responded = False
 
+    def accepts(self, kind: str) -> bool:
+        """Whether this replica may take a ``"gen"`` dispatch (unified
+        or prefill role) or an ``"adopt"`` one (decode role only)."""
+        if kind == "adopt":
+            return self.role == "decode"
+        return self.role in (None, "prefill")
+
+    def accepts_model(self, model: str | None) -> bool:
+        """Whether this replica may serve a request for ``model`` — an
+        unlabeled request or replica matches anything (single-model
+        tiers keep the historical behavior exactly)."""
+        return model is None or self.model is None or self.model == model
+
 
 class ReplicaScheduler:
     """Routes generate requests over a cluster of ContinuousBatcher
@@ -300,7 +348,10 @@ class ReplicaScheduler:
                  overcommit: int = 2, max_queue_depth: int | None = None,
                  poll_interval: float = 0.25, requeue_limit: int = 1,
                  client_factory=None, event_log=None,
-                 tenants: dict | None = None):
+                 tenants: dict | None = None,
+                 roles: dict | None = None,
+                 model: tuple | None = None,
+                 journal=None):
         self.cluster = cluster
         feedable = sorted(
             (n for n in cluster.cluster_info
@@ -310,8 +361,30 @@ class ReplicaScheduler:
             raise ValueError("serving cluster has no feedable replicas")
         max_inflight = max(1, int(slots_per_replica) * int(overcommit))
         self._max_inflight = max_inflight  # replicas added live inherit it
-        self.replicas: dict[int, _Replica] = {
-            int(n["executor_id"]): _Replica(n, max_inflight) for n in feedable}
+        #: role-aware (disaggregated) tier: ``roles`` maps every replica
+        #: eid to ``"prefill"`` or ``"decode"`` (docs/serving.md
+        #: "Disaggregated prefill/decode").  Prompts route only to
+        #: prefill-capable replicas; handed-off sessions only to decode
+        #: gangs.  A plain tier passes no roles and keeps the unified
+        #: behavior exactly.
+        roles = {int(k): v for k, v in (roles or {}).items()}
+        for eid, role in roles.items():
+            if role not in ("prefill", "decode"):
+                raise ValueError(f"replica {eid}: unknown role {role!r} "
+                                 "(want 'prefill' or 'decode')")
+        self._has_roles = bool(roles)
+        self.replicas: dict[int, _Replica] = {}
+        for n in feedable:
+            eid = int(n["executor_id"])
+            if self._has_roles and eid not in roles:
+                raise ValueError(
+                    f"role-aware tier: replica {eid} has no role "
+                    f"(roles cover {sorted(roles)})")
+            self.replicas[eid] = _Replica(n, max_inflight,
+                                          role=roles.get(eid), model=model)
+        #: default model id (multi-model tiers): requests that name no
+        #: ``model`` resolve to the founding replicas' label
+        self.default_model = None if model is None else str(model[0])
         #: bounded admission queue: queued + in-flight across the tier
         self.max_queue_depth = int(
             max_queue_depth if max_queue_depth is not None
@@ -343,21 +416,49 @@ class ReplicaScheduler:
                 os.path.join(cluster.working_dir, "serving_events.jsonl"),
                 echo=False)
         self.events = event_log
+        #: write-ahead control-plane journal (``serving/journal.py``):
+        #: the recovery source of truth a resumed driver replays — every
+        #: admission/route/commit/membership/split transition appends an
+        #: fsync'd record BEFORE (admissions) or as (the rest) it becomes
+        #: observable.  None keeps the historical non-durable behavior.
+        self.journal = journal
+        if journal is not None:
+            for jeid, jrep in sorted(self.replicas.items()):
+                journal.record("replica_added", replica=jeid,
+                               members=[], role=jrep.role,
+                               model=jrep.model, version=jrep.version)
         self._pending = _PendingQueue()
-        #: in-flight replacements (expect_replica): while a heal is
-        #: pending, dispatch QUEUES work instead of fail-fasting on "no
-        #: survivor"
-        self._expected = 0
-        #: seconds dispatch keeps work queued after the LAST replica
-        #: dies, bridging death-detection (the recv loop's requeue fires
-        #: sub-second) to the tier's heal announcing itself via
-        #: :meth:`expect_replica` (the monitor classifies the crash on
-        #: its poll cadence).  0 = shed immediately (tiers with no heal
-        #: path keep the typed fail-fast); tiers that configure heals
-        #: (warm standbys / replace_failed) set this.
+        #: sessions a prefill gang handed back, awaiting their adopt
+        #: dispatch onto a decode gang (FIFO; dispatched ahead of new
+        #: prompts — their prefill compute is already spent)
+        self._pending_handoff: collections.deque = collections.deque()
+        self.handoffs = 0
+        #: in-flight replacements by pool (role, or None for unified):
+        #: while a heal is pending, dispatch QUEUES that pool's work
+        #: instead of fail-fasting on "no survivor" (expect_replica)
+        self._expected_roles: dict = {}
+        #: seconds dispatch keeps a pool's work queued after its LAST
+        #: acceptor dies, bridging death-detection (the recv loop's
+        #: requeue fires sub-second) to the tier's heal announcing
+        #: itself via :meth:`expect_replica` (the monitor classifies the
+        #: crash on its poll cadence).  0 = shed immediately (tiers with
+        #: no heal path keep the typed fail-fast); tiers that configure
+        #: heals (warm standbys / replace_failed) set this.
         self.heal_grace = 0.0
-        #: monotonic time the last replica died (None while any lives)
-        self._lost_at: float | None = None
+        self._pool_lost_at: dict = {}
+        #: model id -> monotonic time its LAST hosting replica died —
+        #: the per-model heal-grace clock (a multi-model tier healing
+        #: one model's gang must queue, not shed, that model's traffic)
+        self._model_lost_at: dict[str, float] = {}
+        #: model id -> {"shares": [(version, pct)], "credit": {version:
+        #: float}} — smooth weighted round-robin state (set_traffic_
+        #: split): exact proportions over any window, evenly interleaved
+        self._traffic: dict[str, dict] = {}
+        #: per-(model, version) live stats — the rollout gate's feedback
+        #: signal (completed/failed counts + ttft/e2e histograms)
+        self._mv_stats: dict[tuple, dict] = {}
+        #: eid -> waiter record for an in-flight model hot swap
+        self._swap_waiters: dict[int, dict] = {}
         self._requests: dict[int, ServeRequest] = {}
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
@@ -379,6 +480,9 @@ class ReplicaScheduler:
         # mirror live state are set by the collect hook at snapshot time
         # so the hot path never touches them
         reg = _metrics.get_registry()
+        # the ``model`` label keeps two hosted models' series apart
+        # (bounded cardinality: label values come from the registered
+        # model set; single-model tiers collapse to model="default")
         self._m_requests = reg.counter(
             "tfos_serving_requests_total",
             "Serving requests by outcome (accepted/completed/shed/"
@@ -405,6 +509,10 @@ class ReplicaScheduler:
         self._g_depth = reg.gauge(
             "tfos_serving_queue_depth_count",
             "Requests queued in the scheduler, not yet dispatched.")
+        self._g_handoff_depth = reg.gauge(
+            "tfos_serving_handoff_queue_depth_count",
+            "Handed-off sessions awaiting their decode-gang adopt "
+            "dispatch (disaggregated tiers; 0 otherwise).")
         self._g_outstanding = reg.gauge(
             "tfos_serving_replica_outstanding_count",
             "Driver-tracked in-flight requests per replica.",
@@ -425,7 +533,10 @@ class ReplicaScheduler:
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "ReplicaScheduler":
         self._emit("scheduler_started", replicas=sorted(self.replicas),
-                   max_queue_depth=self.max_queue_depth)
+                   max_queue_depth=self.max_queue_depth,
+                   roles={eid: rep.role
+                          for eid, rep in self.replicas.items()
+                          if rep.role is not None} or None)
         self._threads = [
             threading.Thread(target=self._dispatch_loop, name="serve-dispatch",
                              daemon=True),
@@ -448,16 +559,22 @@ class ReplicaScheduler:
         with self._lock:
             self._stop.set()
             self._work.notify_all()
-            leftovers = list(self._pending) + [
+            leftovers = list(self._pending) \
+                + list(self._pending_handoff) + [
                 r for rep in self.replicas.values()
                 for r in rep.outstanding.values()]
             self._pending.clear()
+            self._pending_handoff.clear()
             for rep in self.replicas.values():
                 rep.outstanding.clear()
             for req in leftovers:
                 if not req.finished:
                     self._finish_err(req, "shutdown",
                                      "scheduler stopped before completion")
+            for rec in self._swap_waiters.values():
+                rec["error"] = "scheduler stopped mid-swap"
+                rec["event"].set()
+            self._swap_waiters.clear()
         for t in list(self._threads):  # add_replica appends recv threads
             if t is not threading.current_thread():
                 t.join(timeout=5.0)
@@ -470,6 +587,7 @@ class ReplicaScheduler:
             self._g_outstanding.remove(replica=str(eid))
             self._g_load.remove(replica=str(eid))
         self._g_depth.remove()
+        self._g_handoff_depth.remove()
         self._g_alive.remove()
         for rep in self.replicas.values():
             self._close_clients(rep)
@@ -479,14 +597,155 @@ class ReplicaScheduler:
             self.events = None
             self._own_events = False
 
+    def crash(self) -> None:
+        """Hard-stop the control plane WITHOUT the shutdown courtesies —
+        the in-process equivalent of SIGKILLing a standalone driver
+        (driver-scope chaos; docs/robustness.md "Control-plane
+        failover").  Queued and in-flight requests are NOT failed,
+        drained, or journaled, and the journal handle is dropped FIRST
+        so nothing the crash path does is ever recorded: what the
+        journal already holds is exactly what a real kill would leave
+        behind, and ``serving.failover.resume_driver`` replays it."""
+        self.journal = None      # a dying driver writes nothing more
+        with self._lock:
+            self._stop.set()
+            self._work.notify_all()
+            # release swap waiters so tier threads blocked in wait_swap
+            # observe the death instead of hanging a full timeout
+            for rec in self._swap_waiters.values():
+                rec["error"] = "driver crashed mid-swap"
+                rec["event"].set()
+            self._swap_waiters.clear()
+        for t in list(self._threads):
+            if t is not threading.current_thread():
+                t.join(timeout=5.0)
+        _metrics.get_registry().remove_collect_hook(self._collect_gauges)
+        for eid in self.replicas:
+            self._g_outstanding.remove(replica=str(eid))
+            self._g_load.remove(replica=str(eid))
+        self._g_depth.remove()
+        self._g_handoff_depth.remove()
+        self._g_alive.remove()
+        for rep in self.replicas.values():
+            self._close_clients(rep)
+        # pending/outstanding/_requests stay AS-IS: a killed process
+        # fails no one — the obligations live in the journal now
+        if self._own_events and self.events is not None:
+            self.events.close()
+            self.events = None
+            self._own_events = False
+
+    # -- driver failover (serving/failover.py) -----------------------------
+    def adopt(self, state) -> dict:
+        """Apply a replayed :class:`~tensorflowonspark_tpu_torch.serving.
+        journal.JournalState` to this freshly constructed, NOT yet
+        started scheduler — the driver half of the PR-12 heal
+        discipline (``serving.failover.resume_driver``).
+
+        Journal-dead/retired gangs never route again, hot-swap labels
+        survive, traffic splits restore, and every accepted-but-
+        uncommitted admission re-queues as a NEW request under the
+        requeue-once discipline.  The replay deliberately mints FRESH
+        rids: a surviving replica may still be streaming the OLD rid,
+        and those stale messages must miss ``outstanding`` and drop
+        (the replica-death requeue's exact discipline) instead of
+        interleaving with the replay — a ``requeue {rid, as}`` alias
+        record ties the new rid back to the original admission, so
+        zero-loss accounting and a SECOND failover both resolve commits
+        through the chain.  Corrective ``replica_model``/dead/retired
+        records are re-journaled because this constructor just appended
+        founding ``replica_added`` lines with its default labels; a
+        second replay must not resurrect those.
+
+        Returns ``{"requeued": {trace: ServeRequest}, "done": {trace:
+        n_tokens}}`` — what the frontend needs to re-attach
+        reconnecting clients (mid-stream resumes, and streams whose
+        commit landed just before the kill)."""
+        with self._lock:
+            # never reuse a journaled rid: a fresh admission sharing an
+            # old rid would collide with its alias/commit history
+            top = max((int(r) for r in (*state.admitted, *state.aliases,
+                                        *state.committed)), default=-1)
+            self._ids = itertools.count(top + 1)
+            for eid, ent in sorted(state.replicas.items()):
+                rep = self.replicas.get(int(eid))
+                if rep is None:
+                    logger.warning(
+                        "journal replica %s has no reservation in the "
+                        "resumed cluster; skipping", eid)
+                    continue
+                if "model" in ent:
+                    rep.model = ent.get("model")
+                    rep.version = (None if ent.get("version") is None
+                                   else str(ent["version"]))
+                if ent.get("retired"):
+                    rep.alive = False
+                    rep.retired = True
+                elif ent.get("alive") is False:
+                    rep.alive = False
+                if self.journal is not None:
+                    self.journal.record("replica_model", replica=int(eid),
+                                        model=rep.model,
+                                        version=rep.version)
+                    if rep.retired:
+                        self.journal.record("replica_retired",
+                                            replica=int(eid))
+                    elif not rep.alive:
+                        self.journal.record("replica_dead",
+                                            replica=int(eid))
+            for model_id, split in state.traffic.items():
+                if split:
+                    items = [(str(v), float(p)) for v, p in split.items()]
+                    self._traffic[str(model_id)] = {
+                        "shares": items,
+                        "credit": {v: 0.0 for v, _ in items}}
+            done: dict[str, int] = {}
+            for orig, rec in state.committed.items():
+                trace = (state.admitted.get(orig) or {}).get("trace")
+                if trace and rec.get("outcome") == "done":
+                    done[trace] = int(rec.get("tokens") or 0)
+            requeued: dict[str, ServeRequest] = {}
+            for orig, rec in sorted(state.unfinished.items()):
+                rid = next(self._ids)
+                prio = rec.get("priority")
+                req = ServeRequest(
+                    rid, rec.get("prompt") or [],
+                    int(rec.get("max_new_tokens") or 1),
+                    float(rec.get("temperature") or 0.0),
+                    float(rec.get("top_p") or 1.0),
+                    int(rec.get("seed") or 0),
+                    # the wall-clock budget died with the old driver;
+                    # the frontend's resume path re-bounds the wait
+                    deadline=None,
+                    trace=rec.get("trace"),
+                    tenant=str(rec.get("tenant") or "default"),
+                    priority=(prio if prio in PRIORITIES else "normal"),
+                    model=rec.get("model"))
+                self._requests[rid] = req
+                self._pending.append(req)
+                self.requeued += 1
+                self._m_requests.inc(outcome="requeued",
+                                     model=req.model or "default")
+                if self.journal is not None:
+                    self.journal.record("requeue",
+                                        **{"rid": int(orig), "as": rid})
+                self._emit("request_requeued", rid=rid, trace=req.trace,
+                           from_replica=None, delivered=0,
+                           orig_rid=int(orig), failover=True)
+                if req.trace:
+                    requeued[req.trace] = req
+            self._work.notify_all()
+            return {"requeued": requeued, "done": done}
+
     def drain(self, timeout: float = 60.0) -> bool:
         """Wait for the queue and every replica's in-flight set to empty;
         False if ``timeout`` elapses first."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             with self._lock:
-                busy = bool(self._pending) or any(
-                    rep.outstanding for rep in self.replicas.values())
+                busy = bool(self._pending) or bool(self._pending_handoff) \
+                    or any(rep.outstanding
+                           for rep in self.replicas.values())
             if not busy:
                 return True
             time.sleep(0.05)
@@ -505,19 +764,26 @@ class ReplicaScheduler:
         selects the admission policy (unknown names fall back to the
         ``default`` tenant); ``priority`` overrides the tenant's class
         but can only DEMOTE — a tenant configured ``low`` cannot smuggle
-        requests into the high band.  A named ``model`` is rejected
-        typed ``unknown_model``: multi-model hosting waits for ROADMAP
-        A8c."""
+        requests into the high band.  ``model`` routes the request to
+        the replicas hosting that model on a multi-model tier (None =
+        the tier's default model); an unhosted model is rejected typed
+        ``unknown_model``."""
         with self._lock:
             if self._stop.is_set():
                 raise RequestRejected("shutdown", "serving tier is stopping")
             if not any(rep.alive for rep in self.replicas.values()):
                 raise RequestRejected("no_replica", "no replica alive")
-            if model is not None:
+            if self._has_roles and not any(
+                    rep.alive and not rep.draining and rep.accepts("gen")
+                    for rep in self.replicas.values()):
+                # fail typed at ADMISSION, not after a silent queue on a
+                # decode-only gang that will never prefill the prompt
                 raise RequestRejected(
-                    "unknown_model",
-                    f"model {model!r} is not hosted: this tier serves one model "
-                    "(multi-model hosting waits for ROADMAP A8c)")
+                    "role_mismatch",
+                    "no prefill-capable replica is routable: refusing to "
+                    "queue a bare prompt on a decode-only gang")
+            model = self._resolve_model(model)
+            mdl = model or "default"
             ten = self.tenants.get(tenant) or self.tenants["default"]
             if priority is not None and priority not in PRIORITIES:
                 raise ValueError(f"unknown priority {priority!r} "
@@ -533,7 +799,7 @@ class ReplicaScheduler:
             if depth >= self.max_queue_depth:
                 ten.shed += 1
                 self.shed += 1
-                self._m_requests.inc(outcome="shed", model=_MODEL)
+                self._m_requests.inc(outcome="shed", model=mdl)
                 self._m_tenant.inc(tenant=ten.name, outcome="queue_full")
                 raise RequestRejected(
                     "queue_full",
@@ -542,7 +808,7 @@ class ReplicaScheduler:
             if ten.bucket is not None and not ten.bucket.try_take():
                 ten.shed += 1
                 self.shed += 1
-                self._m_requests.inc(outcome="shed", model=_MODEL)
+                self._m_requests.inc(outcome="shed", model=mdl)
                 self._m_tenant.inc(tenant=ten.name,
                                    outcome="tenant_throttled")
                 self._emit("request_shed", tenant=ten.name,
@@ -557,16 +823,29 @@ class ReplicaScheduler:
                 rid, prompt, max_new_tokens, temperature, top_p, seed,
                 deadline=None if timeout is None
                 else time.monotonic() + float(timeout), trace=trace,
-                tenant=ten.name, priority=eff_priority)
+                tenant=ten.name, priority=eff_priority, model=model)
+            # WRITE-AHEAD: the zero-loss contract attaches at admission,
+            # so the accept is durable BEFORE it is observable anywhere
+            # (queue entry, counters, the caller's return) — a driver
+            # killed one instruction later still owes this request, and
+            # journal replay re-queues it
+            if self.journal is not None:
+                self.journal.record(
+                    "admit", rid=rid,
+                    prompt=[int(t) for t in req.prompt.tolist()],
+                    max_new_tokens=req.max_new_tokens,
+                    temperature=req.temperature, top_p=req.top_p,
+                    seed=req.seed, tenant=ten.name,
+                    priority=eff_priority, model=model, trace=req.trace)
             self._requests[rid] = req
             self._pending.append(req)
             self.accepted += 1
             ten.accepted += 1
-            self._m_requests.inc(outcome="accepted", model=_MODEL)
+            self._m_requests.inc(outcome="accepted", model=mdl)
             self._m_tenant.inc(tenant=ten.name, outcome="accepted")
             self._emit("request_admitted", rid=rid, trace=req.trace,
                        depth=depth, tenant=ten.name, priority=eff_priority,
-                       model=None)
+                       model=model)
             self._work.notify()
         return req
 
@@ -581,6 +860,9 @@ class ReplicaScheduler:
             self._requests.pop(req.rid, None)
             with contextlib.suppress(ValueError):
                 self._pending.remove(req)
+            with contextlib.suppress(ValueError):
+                self._pending_handoff.remove(req)
+            req.session = None
             if req.replica is not None:
                 rep = self.replicas.get(req.replica)
                 if rep is not None:
@@ -588,12 +870,17 @@ class ReplicaScheduler:
                     self._work.notify_all()
             if reason == "expired":
                 self.expired += 1
-                self._m_requests.inc(outcome="expired", model=_MODEL)
+                self._m_requests.inc(outcome="expired",
+                                     model=req.model or "default")
             else:
                 self.abandoned += 1
-                self._m_requests.inc(outcome="abandoned", model=_MODEL)
+                self._m_requests.inc(outcome="abandoned",
+                                     model=req.model or "default")
             self._emit("request_failed", rid=req.rid, trace=req.trace,
                        reason=reason)
+            if self.journal is not None:
+                self.journal.record("commit", rid=req.rid, outcome=reason,
+                                    tokens=len(req.tokens))
 
     # -- failure intake ----------------------------------------------------
     def on_cluster_failure(self, failure) -> None:
@@ -603,20 +890,241 @@ class ReplicaScheduler:
                 self._mark_dead(int(eid),
                                 f"{getattr(failure, 'kind', 'failure')}: {failure}")
 
-    def peer_replica_info(self, exclude=()) -> dict | None:
+    def peer_replica_info(self, exclude=(),
+                          model: tuple | None = None) -> dict | None:
         """Reservation info of the least-loaded alive, non-draining
         replica — the clone SOURCE a promoted warm standby pulls weights
         from; None when no healthy peer exists (the promotion then falls
-        back to checkpoint restore via the model builder)."""
+        back to checkpoint restore via the model builder).  ``model``
+        restricts the peer to replicas serving that exact ``(model_id,
+        version)`` — weights cloned across versions would silently serve
+        the wrong model under the new label."""
         with self._lock:
             best = None
             for eid, rep in self.replicas.items():
                 if not rep.alive or rep.draining or eid in exclude:
                     continue
+                if model is not None and (rep.model, rep.version) \
+                        != (str(model[0]), str(model[1])):
+                    continue
                 if best is None \
                         or len(rep.outstanding) < len(best.outstanding):
                     best = rep
             return None if best is None else dict(best.info)
+
+    def _resolve_model(self, model) -> str | None:
+        """Admission-time model resolution (lock held): None falls back
+        to the tier's default model; a named model must be hosted by at
+        least one ALIVE replica (draining included — it still finishes
+        work) or be inside its heal-grace window (a dead-but-healing
+        model's traffic queues rather than shedding).  A model whose
+        last gang died with no heal coming rejects typed — admitting it
+        would burn queue depth and tenant tokens on requests that can
+        only ever fail ``no_replica``."""
+        if model is None:
+            return self.default_model
+        model = str(model)
+        hosted = {rep.model for rep in self.replicas.values()
+                  if rep.model is not None and rep.alive}
+        if model not in hosted and not self._model_heal_active(model):
+            raise RequestRejected(
+                "unknown_model",
+                f"model {model!r} is not (or no longer) hosted by this "
+                f"tier (hosted: {sorted(hosted) or 'none'})")
+        return model
+
+    def _model_heal_active(self, model: str | None) -> bool:
+        """True while a just-lost model's last hosting gang may still be
+        healing (lock held by caller) — the per-model twin of
+        :meth:`_heal_grace_active`, cleared when a fresh replica of the
+        model registers."""
+        if model is None or self.heal_grace <= 0:
+            return False
+        t0 = self._model_lost_at.get(model)
+        return t0 is not None and (time.monotonic() - t0) < self.heal_grace
+
+    # -- multi-model hosting (docs/serving.md "Multi-model serving") ------
+    def model_versions(self, model_id: str) -> dict[str, list[int]]:
+        """``{version: [leader eids]}`` of the ALIVE replicas hosting
+        ``model_id`` (draining included — they still finish work)."""
+        with self._lock:
+            out: dict[str, list[int]] = {}
+            for eid, rep in self.replicas.items():
+                if rep.alive and not rep.retired \
+                        and rep.model == str(model_id):
+                    out.setdefault(rep.version or "", []).append(eid)
+            return {v: sorted(e) for v, e in out.items()}
+
+    def replicas_of(self, model_id: str,
+                    version: str | None = None) -> list[int]:
+        """Routable (alive, non-draining) leader eids hosting
+        ``model_id`` (optionally one version)."""
+        with self._lock:
+            return sorted(
+                eid for eid, rep in self.replicas.items()
+                if rep.alive and not rep.draining
+                and rep.model == str(model_id)
+                and (version is None or (rep.version or "")
+                     == str(version)))
+
+    def replica_model_version(self, eid: int) -> tuple | None:
+        """The ``(model_id, version)`` replica ``eid`` registered with
+        (None for unlabeled/unknown) — replacement spawns re-arm the
+        SAME model."""
+        with self._lock:
+            rep = self.replicas.get(int(eid))
+            if rep is None or rep.model is None:
+                return None
+            return (rep.model, rep.version)
+
+    def replica_info(self, eid: int) -> dict | None:
+        """The reservation info dict of replica ``eid`` (None when
+        unknown) — the address a prefix-page donation replies to."""
+        with self._lock:
+            rep = self.replicas.get(int(eid))
+            return None if rep is None else dict(rep.info)
+
+    def prefix_donor(self, exclude=(),
+                     model: tuple | None = None) -> int | None:
+        """The least-outstanding alive PREFILL gang eligible to donate
+        its prefix-cache pages (docs/serving.md "Prefix-page donation"):
+        prefill pools hold the hottest prompt prefixes, and donated
+        pages must come from a replica serving the SAME (model, version)
+        — KV computed under other weights would decode wrong tokens."""
+        with self._lock:
+            best = None
+            for eid, rep in self.replicas.items():
+                if not rep.alive or rep.draining or eid in exclude \
+                        or rep.role != "prefill":
+                    continue
+                if model is not None and (rep.model, rep.version) \
+                        != (str(model[0]), str(model[1])):
+                    continue
+                if best is None \
+                        or len(rep.outstanding) < len(best.outstanding):
+                    best = rep
+            return None if best is None else best.eid
+
+    def model_version_stats(self, model_id: str,
+                            base: dict | None = None) -> dict:
+        """Per-version live snapshot for one model — completed/failed
+        counts (cumulative) plus ttft/e2e percentile summaries, the
+        rollout gate's feedback signal.  With ``base`` (a PRIOR return
+        value of this method), the latency summaries cover only the
+        samples recorded since the base — windowed percentiles, so a
+        canary gate compares the bake window on BOTH sides instead of a
+        fresh canary histogram vs the incumbent's warm-up-polluted
+        history (``RolloutController._bake_and_gate``)."""
+        model_id = str(model_id)
+        with self._lock:
+            for rep in self.replicas.values():
+                if rep.model == model_id:
+                    self._mv(rep)           # materialize hosted versions
+            out = {}
+            for (mid, ver), mv in self._mv_stats.items():
+                if mid != model_id:
+                    continue
+                b = (base or {}).get(ver) or {}
+                out[ver] = {
+                    "completed": mv["completed"],
+                    "failed": mv["failed"],
+                    "ttft": mv["ttft"].summary() if base is None
+                    else mv["ttft"].window_summary(
+                        (b.get("ttft") or {}).get("count", 0)),
+                    "e2e": mv["e2e"].summary() if base is None
+                    else mv["e2e"].window_summary(
+                        (b.get("e2e") or {}).get("count", 0)),
+                }
+            return out
+
+    def _mv(self, rep) -> dict | None:
+        """The (model, version) stats bucket for ``rep``'s label (lock
+        held by caller); None for unlabeled replicas."""
+        if rep is None or rep.model is None:
+            return None
+        key = (rep.model, rep.version or "")
+        mv = self._mv_stats.get(key)
+        if mv is None:
+            mv = self._mv_stats[key] = {
+                "completed": 0, "failed": 0,
+                "ttft": observability.LatencyHistogram(),
+                "e2e": observability.LatencyHistogram()}
+        return mv
+
+    def set_traffic_split(self, model_id: str, split: dict) -> None:
+        """Declarative per-model version split: ``{version: percent}``
+        (positive percents summing to 100).  Dispatch runs smooth
+        weighted round-robin over the versions — deterministic AND
+        evenly interleaved, so a 10% canary sees every ~10th dispatched
+        request (exact proportions over any 100-dispatch window), not a
+        coin flip and not the first 10 of each 100 — falling back
+        across the model's other versions when the target has no spare
+        capacity (availability over split fidelity).
+        :meth:`clear_traffic_split` restores pure least-outstanding
+        routing."""
+        model_id = str(model_id)
+        items = [(str(v), float(p)) for v, p in dict(split).items()]
+        if not items or any(p <= 0 for _, p in items) \
+                or abs(sum(p for _, p in items) - 100.0) > 1e-6:
+            raise ValueError(f"traffic split must be positive percents "
+                             f"summing to 100, got {split!r}")
+        with self._work:
+            self._traffic[model_id] = {
+                "shares": items, "credit": {v: 0.0 for v, _ in items}}
+            self._emit("traffic_split", model=model_id,
+                       split={v: p for v, p in items})
+            if self.journal is not None:
+                self.journal.record("traffic_split", model=model_id,
+                                    split={v: p for v, p in items})
+            self._work.notify_all()
+
+    def clear_traffic_split(self, model_id: str) -> None:
+        with self._work:
+            if self._traffic.pop(str(model_id), None) is not None:
+                self._emit("traffic_split", model=str(model_id),
+                           split=None)
+                if self.journal is not None:
+                    self.journal.record("traffic_split",
+                                        model=str(model_id), split=None)
+                self._work.notify_all()
+
+    def resume_replica(self, eid: int) -> bool:
+        """Clear a replica's draining flag and resume routing to it —
+        the model-swap path un-drains after a completed (or failed,
+        still-serving-the-old-version) swap.  Retired/dead replicas
+        never resume."""
+        with self._work:
+            rep = self.replicas.get(int(eid))
+            if rep is None or not rep.alive or rep.retired:
+                return False
+            rep.draining = False
+            self._work.notify_all()
+            return True
+
+    def expect_swap(self, eid: int, token: str | None = None) -> dict:
+        """Register a waiter for replica ``eid``'s next hot-swap ack
+        (``model_swapped`` / ``model_swap_failed`` on its response
+        channel); a death mid-swap or scheduler stop releases the waiter
+        with an error.  ``token`` (echoed by the worker as
+        ``swap_token``) pins the waiter to ONE swap message: a late ack
+        from a PREVIOUS timed-out swap relabels the replica but cannot
+        release a retry's waiter.  Pair with :meth:`wait_swap`."""
+        rec = {"event": threading.Event(), "ok": False, "error": None,
+               "eid": int(eid), "token": token}
+        with self._lock:
+            self._swap_waiters[int(eid)] = rec
+        return rec
+
+    def wait_swap(self, rec: dict, timeout: float) -> tuple[bool, str]:
+        rec["event"].wait(timeout)
+        if not rec["event"].is_set():
+            # unregister THIS waiter: a stale entry would let the
+            # timed-out swap's late ack release a later retry's waiter
+            with self._lock:
+                if self._swap_waiters.get(rec["eid"]) is rec:
+                    del self._swap_waiters[rec["eid"]]
+            return False, f"no swap ack within {timeout:.0f}s"
+        return bool(rec["ok"]), rec.get("error") or ""
 
     def dead_replicas(self) -> set[int]:
         """Every executor id lost to FAILURE (cleanly retired replicas
@@ -629,63 +1137,103 @@ class ReplicaScheduler:
         with self._lock:
             return {eid for eid, rep in self.replicas.items() if rep.alive}
 
+    def replica_role(self, eid: int) -> str | None:
+        """The registered role of replica ``eid`` (None for unified or
+        unknown) — replacement spawns re-arm the SAME pool."""
+        with self._lock:
+            rep = self.replicas.get(int(eid))
+            return None if rep is None else rep.role
+
     def draining_replicas(self) -> set[int]:
         with self._lock:
             return {eid for eid, rep in self.replicas.items()
                     if rep.alive and rep.draining}
 
     # -- elastic membership ------------------------------------------------
-    def expect_replica(self) -> None:
-        """Announce an in-flight replacement (warm promotion or cold
-        spawn).  Until the matching :meth:`expect_done`, the dispatch
-        loop QUEUES work instead of fail-fasting on "no survivor" — a
-        heal window must not shed the very requests it exists to save.
+    def expect_replica(self, role: str | None = None) -> None:
+        """Announce an in-flight replacement for ``role``'s pool (warm
+        promotion or cold spawn; ``None`` = unified tier).  Until the
+        matching :meth:`expect_done`, the dispatch loop QUEUES work for
+        that pool instead of fail-fasting on "no survivor" — a heal
+        window must not shed the very requests it exists to save.
         Deadlines and client timeouts still bound the wait."""
         with self._work:
-            self._expected += 1
+            self._expected_roles[role] = \
+                self._expected_roles.get(role, 0) + 1
 
-    def expect_done(self) -> None:
+    def expect_done(self, role: str | None = None) -> None:
         """The announced replacement registered — or the heal gave up;
         either way dispatch resumes its normal no-survivor handling."""
         with self._work:
-            self._expected = max(0, self._expected - 1)
+            n = self._expected_roles.get(role, 0) - 1
+            if n > 0:
+                self._expected_roles[role] = n
+            else:
+                self._expected_roles.pop(role, None)
             self._work.notify_all()
 
-    def _heal_grace_active(self) -> bool:
-        """True while work should stay queued awaiting the heal's
-        ``expect_replica`` — bounded by ``heal_grace`` so a heal that
-        never comes still fails typed (lock held by caller).  The clock
-        is anchored at the DEATH that left no replica (``_mark_dead``),
-        not at the first dispatch attempt — a request arriving minutes
-        after a heal already gave up must fail fast, not stall a full
-        grace window."""
-        if self.heal_grace <= 0 or self._lost_at is None:
+    def _expecting(self, kind: str) -> bool:
+        # under the lock; dispatch kind -> the pool that serves it
+        role = "decode" if kind == "adopt" else "prefill"
+        return bool(self._expected_roles.get(role)
+                    or self._expected_roles.get(None))
+
+    def _heal_grace_active(self, kind: str) -> bool:
+        """True while a just-lost pool's work should stay queued awaiting
+        the heal's ``expect_replica`` — bounded by ``heal_grace`` so a
+        heal that never comes still fails typed (lock held by caller).
+        The clock is anchored at the DEATH that emptied the pool
+        (``_mark_dead``), not at the first dispatch attempt — a request
+        arriving minutes after a heal already gave up must fail fast,
+        not stall a full grace window."""
+        if self.heal_grace <= 0:
             return False
-        return (time.monotonic() - self._lost_at) < self.heal_grace
+        t0 = self._pool_lost_at.get(kind)
+        return t0 is not None and (time.monotonic() - t0) < self.heal_grace
 
-    def _holding(self) -> bool:
-        """Whether queued work waits for a heal (lock held by caller)."""
-        return bool(self._expected) or self._heal_grace_active()
-
-    def add_replica(self, info: dict) -> None:
+    def add_replica(self, info: dict, role: str | None = None,
+                    model: tuple | None = None) -> None:
         """Register a freshly reserved replica worker and start routing
         to it (live scale-up / preemption replacement).  ``info`` is the
-        node's reservation dict, exactly as ``cluster_info`` carries it."""
+        node's reservation dict, exactly as ``cluster_info`` carries it.  In a
+        role-aware (disaggregated) tier ``role`` is mandatory — an
+        unspecialized replica cannot join specialized pools.  ``model``
+        labels the newcomer with the ``(model_id, version)`` it serves
+        (multi-model tiers; deploys and re-armed heals pass it)."""
         eid = int(info["executor_id"])
+        if role is not None and role not in ("prefill", "decode"):
+            raise ValueError(f"unknown role {role!r} "
+                             "(want 'prefill' or 'decode')")
+        if self._has_roles and role is None:
+            raise ValueError(
+                f"role-aware tier: add_replica({eid}) needs role= "
+                "('prefill' or 'decode')")
         with self._lock:
             if self._stop.is_set():
                 raise RuntimeError("scheduler is stopping")
             existing = self.replicas.get(eid)
             if existing is not None and existing.alive:
                 raise ValueError(f"replica {eid} already registered")
-            rep = _Replica(info, self._max_inflight)
+            rep = _Replica(info, self._max_inflight, role=role, model=model)
             self.replicas[eid] = rep
-            # a fresh acceptor stops the lost-tier clock
-            self._lost_at = None
+            self._has_roles = self._has_roles or role is not None
+            # a fresh acceptor resets the lost-pool clock for every
+            # dispatch kind it serves (unified replicas serve both)
+            if role in (None, "decode"):
+                self._pool_lost_at.pop("adopt", None)
+            if role in (None, "prefill"):
+                self._pool_lost_at.pop("gen", None)
+            if rep.model is not None:
+                # the model is hosted again: its heal-grace clock stops
+                self._model_lost_at.pop(rep.model, None)
             self._m_scale.inc(change="added")
-            self._emit("replica_added", replica=eid,
+            self._emit("replica_added", replica=eid, role=role, model=rep.model, version=rep.version,
                        alive=sum(1 for r in self.replicas.values()
                                  if r.alive))
+            if self.journal is not None:
+                self.journal.record("replica_added", replica=eid,
+                                    members=[], role=role,
+                                    model=rep.model, version=rep.version)
             self._work.notify_all()
         t = threading.Thread(target=self._recv_loop, args=(rep,),
                              name=f"serve-recv-{eid}", daemon=True)
@@ -742,13 +1290,18 @@ class ReplicaScheduler:
                        requeued=len(stranded),
                        alive=sum(1 for r in self.replicas.values()
                                  if r.alive))
+            if self.journal is not None:
+                self.journal.record("replica_retired", replica=eid)
             for req in stranded:
                 if req.finished:
                     continue
                 self.requeued += 1
-                self._m_requests.inc(outcome="requeued", model=_MODEL)
+                self._m_requests.inc(outcome="requeued",
+                                     model=req.model or "default")
                 req.attempts = max(0, req.attempts - 1)
                 req.replica = None
+                req.session = None
+                req.session_version = None
                 req.skip = len(req.tokens)
                 self._pending.appendleft(req)
                 self._emit("request_requeued", rid=req.rid, trace=req.trace,
@@ -762,6 +1315,7 @@ class ReplicaScheduler:
         queue-depth / per-replica gauges at snapshot (scrape) time."""
         with self._lock:
             self._g_depth.set(len(self._pending))
+            self._g_handoff_depth.set(len(self._pending_handoff))
             alive = 0
             for eid, rep in self.replicas.items():
                 if rep.alive:
@@ -784,6 +1338,8 @@ class ReplicaScheduler:
                 "abandoned": self.abandoned,
                 "failed": self.failed, "requeued": self.requeued,
                 "queued": len(self._pending),
+                "handoffs": self.handoffs,
+                "queued_handoffs": len(self._pending_handoff),
                 "ttft": self.ttft.summary(), "e2e": self.e2e.summary(),
                 "replicas": {
                     eid: {"alive": rep.alive, "draining": rep.draining,
@@ -801,8 +1357,23 @@ class ReplicaScheduler:
                                     / rep.reported_spec["proposed"]
                                     if rep.reported_spec["proposed"]
                                     else None)},
+                          "role": rep.role,
+                          "model": rep.model,
+                          "version": rep.version,
                           "served": rep.served}
                     for eid, rep in self.replicas.items()},
+                # multi-model hosting view: per-(model, version) request
+                # counts + the replicas serving each (the rollout gate
+                # reads the richer model_version_stats())
+                "models": {
+                    mid: {ver: {"completed": mv["completed"],
+                                "failed": mv["failed"]}
+                          for (m, ver), mv in self._mv_stats.items()
+                          if m == mid}
+                    for mid in {m for m, _ in self._mv_stats}},
+                "traffic": {
+                    mid: {v: p for v, p in split["shares"]}
+                    for mid, split in self._traffic.items()},
                 "tenants": {
                     name: {"accepted": t.accepted, "shed": t.shed,
                            "priority": t.priority,
@@ -813,11 +1384,17 @@ class ReplicaScheduler:
 
     def emit_event(self, kind: str, **fields) -> None:
         """Public audit-event hook for tier components that share this
-        scheduler's ``serving_events.jsonl`` (the standby pool's and the
-        tier's membership events ride here so one log tells the whole
-        story)."""
+        scheduler's ``serving_events.jsonl`` (the autoscaler's scale
+        events ride here so one log tells the whole membership story)."""
         with self._lock:
             self._emit(kind, **fields)
+
+    def journal_record(self, kind: str, **fields) -> None:
+        """None-safe write-ahead journal append — tier components whose
+        state must survive a driver failover (the registry, the rollout
+        controller's step intents) record through here."""
+        if self.journal is not None:
+            self.journal.record(kind, **fields)
 
     # -- internals ---------------------------------------------------------
     def _default_client(self, info: dict):
@@ -858,85 +1435,197 @@ class ReplicaScheduler:
                     cli.close()
         rep.send_cli = rep.recv_cli = None
 
-    def _pick_replica(self) -> _Replica | None:
+    def _pick_replica(self, kind: str = "gen",
+                      model: str | None = None,
+                      version: str | None = None) -> _Replica | None:
         """Least-outstanding alive replica with spare in-flight capacity
         (ties by last self-reported batcher load, then by KV-page
         pressure — MORE free pages wins, so long prompts stop landing
-        on memory-starved replicas); None when saturated.  Draining
-        replicas take no new work."""
+        on memory-starved replicas, and a handed-off session seats on
+        the decode gang with the most page headroom); None when
+        saturated.  Draining replicas take no new work.  ``kind``
+        selects the pool in a role-aware tier: ``"gen"`` considers
+        unified/prefill replicas, ``"adopt"`` decode gangs only.
+        ``model`` restricts to replicas hosting that model and
+        ``version`` (adopt dispatches: the version whose weights
+        computed the handed-off KV) to that exact version; an active
+        traffic split additionally targets the version smooth-weighted-
+        round-robin picks next (deterministic, evenly interleaved
+        canary proportions), falling back to the model's other versions
+        when the target has no spare capacity."""
+        split = (self._traffic.get(model)
+                 if model is not None and kind == "gen" else None)
+        target = None
+        if split:
+            # tentative SWRR pick — committed only on a real dispatch
+            credit = split["credit"]
+            target = max(split["shares"],
+                         key=lambda vp: credit[vp[0]] + vp[1])[0]
         best = best_key = None
+        best_t = best_t_key = None
         for rep in self.replicas.values():
-            if not rep.alive or rep.draining \
+            if not rep.alive or rep.draining or not rep.accepts(kind) \
+                    or not rep.accepts_model(model) \
+                    or (version is not None and rep.version != version) \
                     or len(rep.outstanding) >= rep.max_inflight:
                 continue
             key = (len(rep.outstanding), rep.reported_load,
                    -rep.reported_free_pages)
             if best is None or key < best_key:
                 best, best_key = rep, key
-        return best
+            if target is not None and (rep.version or "") == target \
+                    and (best_t is None or key < best_t_key):
+                best_t, best_t_key = rep, key
+        chosen = best_t if best_t is not None else best
+        if chosen is not None and split:
+            # commit the SWRR step, charging the version that actually
+            # serves (a saturated target's unspent credit accumulates,
+            # so it catches up as soon as capacity frees)
+            credit = split["credit"]
+            for v, p in split["shares"]:
+                # clamp at one full round: normal SWRR never exceeds
+                # it, and a version with NO routable replica (dead
+                # canary awaiting its heal) cannot bank unbounded
+                # credit that would burst all traffic onto it the
+                # moment capacity returns
+                credit[v] = min(credit[v] + p, 100.0)
+            charged = (chosen.version
+                       if chosen.version in credit else target)
+            credit[charged] -= 100.0
+        return chosen
 
     # -- dispatch ----------------------------------------------------------
-    def _next_dispatch(self):
-        """The first dispatchable ``(req, rep)`` in the pending queue, or
-        None when everything queued waits on capacity or a heal (lock
-        held).  Expires deadline-passed requests anywhere in the queue,
-        and fails (typed) the queue when no replica survives and no heal
-        is in flight."""
-        saturated = False
-        for req in list(self._pending):
+    def _scan_queue(self, queue_, kind: str):
+        """First dispatchable request in ``queue_`` (lock held): scans
+        PAST work whose model/pool is merely saturated or healing —
+        one saturated model must never head-of-line block another's
+        traffic — while expiring deadline-passed requests and failing
+        (typed) work with no surviving acceptor and no heal in flight.
+        FIFO within a (priority, model) class is preserved: every
+        request of a class sees the same candidate set, so the head
+        dispatches first.  A class found saturated is probed ONCE per
+        scan (``stuck`` memo) — a deep backlog costs O(classes x
+        replicas) per scan under the lock, not O(pending x replicas).
+        Returns ``(req, rep)`` or None."""
+        stuck: set = set()
+        for req in list(queue_):
             if req.finished:
                 with contextlib.suppress(ValueError):
-                    self._pending.remove(req)
+                    queue_.remove(req)
                 continue
             if req.deadline is not None \
                     and time.monotonic() > req.deadline:
                 with contextlib.suppress(ValueError):
-                    self._pending.remove(req)
+                    queue_.remove(req)
                 self._expire(req)
                 continue
-            if saturated:
-                continue        # the tier was already probed saturated
-            rep = self._pick_replica()
+            pin = req.session_version if kind == "adopt" else None
+            if (req.model, pin) in stuck:
+                continue        # this class already probed saturated
+            rep = self._pick_replica(kind, model=req.model, version=pin)
             if rep is not None:
                 with contextlib.suppress(ValueError):
-                    self._pending.remove(req)
+                    queue_.remove(req)
                 return req, rep
-            # no capacity right now: does any replica survive?  Fail
-            # typed if not — UNLESS a heal is in flight (expect_replica)
-            # or recent enough that its announcement may still be coming
-            # (heal_grace), in which case the work stays queued
-            if not any(r.alive for r in self.replicas.values()) \
-                    and not self._holding():
+            # no capacity right now: does ANY acceptor for this work
+            # survive?  Fail typed if not — UNLESS a heal is in flight
+            # (expect_replica) or recent enough that its announcement
+            # may still be coming (heal_grace / the model's own clock),
+            # in which case the work stays queued
+            if not any(r.alive and r.accepts(kind)
+                       and r.accepts_model(req.model)
+                       and (pin is None or r.version == pin)
+                       for r in self.replicas.values()) \
+                    and not self._expecting(kind) \
+                    and not self._heal_grace_active(kind) \
+                    and not self._model_heal_active(req.model):
                 with contextlib.suppress(ValueError):
-                    self._pending.remove(req)
-                self._finish_err(req, "no_replica", "no replica alive")
+                    queue_.remove(req)
+                if kind == "adopt":
+                    self._finish_err(
+                        req, "no_replica",
+                        "no decode gang survives to adopt the "
+                        "handed-off session"
+                        + (f" (version {pin})" if pin else ""))
+                elif req.model is not None and any(
+                        r.alive for r in self.replicas.values()):
+                    self._finish_err(
+                        req, "no_replica",
+                        f"no replica hosting model {req.model!r} "
+                        "survives to run the request")
+                elif self._has_roles:
+                    self._finish_err(
+                        req, "no_replica",
+                        "no prefill-capable replica survives to "
+                        "run the prompt")
+                else:
+                    self._finish_err(req, "no_replica",
+                                     "no replica alive")
                 continue
-            # saturated (or healing): every later request faces the same
-            # candidate set, so FIFO within a priority class holds
-            saturated = True
+            # saturated (or healing): stays queued; later requests of
+            # the same class face the identical candidate set
+            stuck.add((req.model, pin))
+        return None
+
+    def _next_dispatch(self):
+        """The next (req, rep, is_handoff) to dispatch, or None when
+        everything queued is waiting on capacity or a heal (lock held).
+        Handed-off sessions go first — their prefill compute is already
+        spent, and seating them frees prefill-pool pages — unless the
+        decode pool is dead-but-healing, in which case prompts a live
+        prefill gang could overlap with the heal are not blocked."""
+        decode_dead_healing = self._pending and not any(
+            r.alive and r.accepts("adopt")
+            for r in self.replicas.values()) \
+            and (self._expecting("adopt")
+                 or self._heal_grace_active("adopt"))
+        if self._pending_handoff and not decode_dead_healing:
+            got = self._scan_queue(self._pending_handoff, "adopt")
+            if got is not None:
+                return (*got, True)
+        if self._pending:
+            got = self._scan_queue(self._pending, "gen")
+            if got is not None:
+                return (*got, False)
         return None
 
     def _dispatch_loop(self) -> None:
         while not self._stop.is_set():
             with self._work:
-                while not self._pending and not self._stop.is_set():
+                while not (self._pending or self._pending_handoff) \
+                        and not self._stop.is_set():
                     self._work.wait(0.2)
                 if self._stop.is_set():
                     return
                 got = self._next_dispatch()
                 if got is None:
-                    # every queued request is waiting on capacity or a
-                    # heal window
+                    # every queued piece of work is waiting on capacity
+                    # or a heal window
                     self._work.wait(0.05)
                     continue
-                req, rep = got
+                req, rep, handoff = got
                 req.replica = rep.eid
                 rep.outstanding[req.rid] = req
-                req.attempts += 1
-                msg = req.message()
-                self._emit("request_routed", rid=req.rid,
-                           trace=req.trace, replica=rep.eid,
-                           attempt=req.attempts)
+                if self.journal is not None:
+                    self.journal.record("route", rid=req.rid,
+                                        replica=rep.eid)
+                if handoff:
+                    # the adopt hop CONTINUES the same attempt — only gen
+                    # dispatches charge the requeue-once failover budget,
+                    # so a death on either side of the handoff boundary
+                    # leaves exactly one replay
+                    session, req.session = req.session, None
+                    msg = {"op": "adopt", "rid": req.rid,
+                           "trace": req.trace, "session": session}
+                    self._emit("request_handoff_routed", rid=req.rid,
+                               trace=req.trace, replica=rep.eid,
+                               pages=int((session or {}).get("pages", 0)))
+                else:
+                    req.attempts += 1
+                    msg = req.message()
+                    self._emit("request_routed", rid=req.rid,
+                               trace=req.trace, replica=rep.eid,
+                               attempt=req.attempts)
             # the put may block on the socket — never under the lock
             try:
                 if rep.send_cli is None:
@@ -951,11 +1640,15 @@ class ReplicaScheduler:
     def _expire(self, req: ServeRequest) -> None:
         """Fail ``req`` with a deadline error (lock held by caller)."""
         self.expired += 1
-        self._m_requests.inc(outcome="expired", model=_MODEL)
+        self._m_requests.inc(outcome="expired",
+                             model=req.model or "default")
         req.finished = True
         self._requests.pop(req.rid, None)
         self._emit("request_failed", rid=req.rid, trace=req.trace,
                    reason="deadline")
+        if self.journal is not None:
+            self.journal.record("commit", rid=req.rid, outcome="expired",
+                                tokens=len(req.tokens))
         req.events.put(("err", "deadline",
                         f"deadline exceeded after "
                         f"{time.monotonic() - req.created:.2f}s in queue"))
@@ -963,11 +1656,22 @@ class ReplicaScheduler:
     def _finish_err(self, req: ServeRequest, reason: str, msg: str) -> None:
         """Fail ``req`` with a typed error (lock held by caller)."""
         self.failed += 1
-        self._m_requests.inc(outcome="failed", model=_MODEL)
+        self._m_requests.inc(outcome="failed",
+                             model=req.model or "default")
+        # per-version failure attribution: the replica last serving the
+        # request (the rollout gate's error-rate signal); unattributable
+        # failures (never routed) only count at the model level
+        mv = self._mv(self.replicas.get(req.replica)
+                      if req.replica is not None else None)
+        if mv is not None:
+            mv["failed"] += 1
         req.finished = True
         self._requests.pop(req.rid, None)
         self._emit("request_failed", rid=req.rid, trace=req.trace,
                    reason=reason)
+        if self.journal is not None:
+            self.journal.record("commit", rid=req.rid, outcome="failed",
+                                reason=reason, tokens=len(req.tokens))
         req.events.put(("err", reason, msg))
 
     # -- replica responses -------------------------------------------------
@@ -1002,6 +1706,59 @@ class ReplicaScheduler:
                 rep.reported_spec = {
                     "proposed": int(spec.get("proposed", 0)),
                     "accepted": int(spec.get("accepted", 0))}
+            role = msg.get("role")
+            if role is not None and role != rep.role:
+                # a replica serving a different specialization than it
+                # registered with would silently break the pools — keep
+                # serving (the stream is still exact) but say so loudly
+                logger.error(
+                    "replica %d reports role %r but registered as %r",
+                    rep.eid, role, rep.role)
+                self._emit("role_mismatch", replica=rep.eid,
+                           reported=role, registered=rep.role)
+            if event == "model_swapped":
+                # the replica finished its hot swap: update its label,
+                # resume routing, release the tier's waiter
+                model, version = msg.get("model"), msg.get("version")
+                rep.model = None if model is None else str(model)
+                rep.version = None if version is None else str(version)
+                if rep.model is not None:
+                    self._model_lost_at.pop(rep.model, None)
+                rec = self._swap_waiters.get(rep.eid)
+                if rec is None or rec["token"] in (
+                        None, msg.get("swap_token")):
+                    # the ack belongs to the active swap (or no swap is
+                    # in flight): resume routing.  A LATE ack racing a
+                    # retry's drain still relabels above, but must not
+                    # clear the drain the retry owns.
+                    rep.draining = False
+                if rec is not None and rec["token"] in (
+                        None, msg.get("swap_token")):
+                    self._swap_waiters.pop(rep.eid, None)
+                    rec["ok"] = True
+                    rec["event"].set()
+                self._emit("model_swapped", replica=rep.eid, model=model,
+                           version=version)
+                if self.journal is not None:
+                    self.journal.record("replica_model", replica=rep.eid,
+                                        model=rep.model,
+                                        version=rep.version)
+                self._work.notify_all()
+                return
+            if event == "model_swap_failed":
+                # the replica kept (or restored) its OLD params — it is
+                # still routable; the tier's swap call raises
+                rec = self._swap_waiters.get(rep.eid)
+                err = str(msg.get("error", "swap failed"))
+                if rec is not None and rec["token"] in (
+                        None, msg.get("swap_token")):
+                    self._swap_waiters.pop(rep.eid, None)
+                    rec["error"] = err
+                    rec["event"].set()
+                logger.error("replica %d model swap failed: %s",
+                             rep.eid, err)
+                self._emit("model_swap_failed", replica=rep.eid, error=err)
+                return
             if event == "standby_ready":
                 # a promoted standby finished loading weights: capacity
                 # is restored — let the tier close its heal measurement
@@ -1020,6 +1777,30 @@ class ReplicaScheduler:
             req = rep.outstanding.get(rid)
             if req is None or req.finished:
                 return          # abandoned, or replayed on another replica
+            if event == "handoff":
+                # the prefill gang finished the prompt: the request's
+                # session (KV pages + first token + sampler state) moves
+                # to the driver, awaiting its decode-gang adopt dispatch.
+                # The outstanding guard above makes this race-safe: a
+                # handoff from a replica _mark_dead already swept is
+                # dropped here, and the requeued gen replay wins.
+                rep.outstanding.pop(rid, None)
+                session = msg.get("session") or {}
+                req.replica = None
+                req.session = session
+                req.session_version = rep.version
+                self.handoffs += 1
+                self._m_requests.inc(outcome="handoff",
+                                     model=req.model or "default")
+                self._pending_handoff.append(req)
+                self._emit(
+                    "request_handoff", rid=rid, trace=req.trace,
+                    from_replica=rep.eid,
+                    pages=int(session.get("pages", 0)),
+                    bytes=int(sum(getattr(a, "nbytes", 0)
+                                  for a in session.get("kv", ()))))
+                self._work.notify_all()
+                return
             if event == "tok":
                 toks = [int(t) for t in msg.get("tokens", ())]
                 if req.skip:    # replay after failover: dedup the prefix
@@ -1032,7 +1813,10 @@ class ReplicaScheduler:
                     req.first_token_at = time.monotonic()
                     ttft = req.first_token_at - req.created
                     self.ttft.record(ttft)
-                    self._m_ttft.record(ttft, model=_MODEL)
+                    self._m_ttft.record(ttft, model=req.model or "default")
+                    mv = self._mv(rep)
+                    if mv is not None:
+                        mv["ttft"].record(ttft)
                     self._emit("request_first_token", rid=rid,
                                trace=req.trace, replica=rep.eid,
                                ttft_secs=round(ttft, 6))
@@ -1044,14 +1828,22 @@ class ReplicaScheduler:
                 req.finished = True
                 self._requests.pop(rid, None)
                 self.completed += 1
-                self._m_requests.inc(outcome="completed", model=_MODEL)
+                self._m_requests.inc(outcome="completed",
+                                     model=req.model or "default")
                 e2e = time.monotonic() - req.created
                 self.e2e.record(e2e)
-                self._m_e2e.record(e2e, model=_MODEL)
+                self._m_e2e.record(e2e, model=req.model or "default")
+                mv = self._mv(rep)
+                if mv is not None:
+                    mv["completed"] += 1
+                    mv["e2e"].record(e2e)
                 self._emit("request_done", rid=rid, trace=req.trace,
                            replica=rep.eid, tokens=len(req.tokens),
                            e2e_secs=round(e2e, 6))
                 req.events.put(("done", len(req.tokens)))
+                if self.journal is not None:
+                    self.journal.record("commit", rid=rid, outcome="done",
+                                        tokens=len(req.tokens))
                 self._work.notify_all()
             elif event == "error":
                 rep.outstanding.pop(rid, None)
@@ -1074,7 +1866,9 @@ class ReplicaScheduler:
                 continue
             with self._lock:
                 for eid, rep in self.replicas.items():
-                    if rep.alive and codes.get(eid) not in (0, None):
+                    if not rep.alive:
+                        continue
+                    if codes.get(eid) not in (0, None):
                         self._mark_dead(
                             eid, f"process exited (code {codes[eid]})")
 
@@ -1089,24 +1883,43 @@ class ReplicaScheduler:
         logger.warning("serving replica %d marked dead: %s", eid, reason)
         self._m_scale.inc(change="dead")
         self._emit("replica_dead", replica=eid, reason=reason,
-                   shards=[eid], inflight=len(rep.outstanding))
+                   inflight=len(rep.outstanding))
+        if self.journal is not None:
+            self.journal.record("replica_dead", replica=eid)
         stranded = list(rep.outstanding.values())
         rep.outstanding.clear()
         self._close_clients(rep)
+        # a death mid-hot-swap releases the tier's waiter with an error
+        # (the swap call fails; normal death handling replaces the gang)
+        rec = self._swap_waiters.pop(eid, None)
+        if rec is not None:
+            rec["error"] = f"replica died mid-swap: {reason}"
+            rec["event"].set()
         survivors = any(r.alive for r in self.replicas.values())
-        if not survivors and self._lost_at is None:
-            # the heal-grace window runs from HERE (a fresh replica
-            # stops the clock in add_replica)
-            self._lost_at = time.monotonic()
+        # anchor the lost-pool clock for every dispatch kind this death
+        # left without an acceptor: the heal-grace window runs from HERE
+        # (a fresh acceptor pops the clock in add_replica)
+        now = time.monotonic()
+        for kind in ("gen", "adopt"):
+            if not any(r.alive and r.accepts(kind)
+                       for r in self.replicas.values()):
+                self._pool_lost_at.setdefault(kind, now)
+        # and per model: the heal window for a multi-model tier that
+        # just lost a model's LAST hosting gang
+        if rep.model is not None and not any(
+                r.alive and r.model == rep.model
+                for r in self.replicas.values()):
+            self._model_lost_at.setdefault(rep.model, now)
         # while a heal is announced (or recent enough that its
         # announcement may still be coming), stranded/pending work is
         # HELD instead of shed — the heal window must not lose the very
         # requests it exists to save
-        hold = self._holding()
+        hold_gen = self._expecting("gen") or self._heal_grace_active("gen")
         for req in stranded:
             if req.finished:
                 continue
-            if not survivors and not hold:
+            if not survivors and not hold_gen \
+                    and not self._model_heal_active(req.model):
                 self._finish_err(req, "no_replica",
                                  f"replica {eid} died and no replica "
                                  "survives to replay the request")
@@ -1118,16 +1931,33 @@ class ReplicaScheduler:
                     f"{self.requeue_limit})")
             else:
                 # replay from scratch on a survivor; decode determinism
-                # + the skip counter make the client's stream exact
+                # + the skip counter make the client's stream exact.  A
+                # request lost POST-HANDOFF replays the same way: the
+                # gen replay re-prefills (on a prefill gang in a
+                # disaggregated tier), hands off again, and the skip
+                # counter dedups everything already delivered — the
+                # requeue-once budget spans the whole pipeline
                 self.requeued += 1
-                self._m_requests.inc(outcome="requeued", model=_MODEL)
+                self._m_requests.inc(outcome="requeued",
+                                     model=req.model or "default")
                 req.replica = None
+                req.session = None
+                req.session_version = None
                 req.skip = len(req.tokens)
                 self._pending.appendleft(req)
                 self._emit("request_requeued", rid=req.rid, trace=req.trace,
                            from_replica=eid, delivered=len(req.tokens))
-        if not survivors and not hold:
-            for req in list(self._pending):
-                self._finish_err(req, "no_replica", "no replica alive")
-            self._pending.clear()
+        if not survivors:
+            if not hold_gen:
+                for req in list(self._pending):
+                    if self._model_heal_active(req.model):
+                        continue        # held for the model's heal window
+                    self._finish_err(req, "no_replica", "no replica alive")
+                    with contextlib.suppress(ValueError):
+                        self._pending.remove(req)
+            if not (self._expecting("adopt")
+                    or self._heal_grace_active("adopt")):
+                for req in list(self._pending_handoff):
+                    self._finish_err(req, "no_replica", "no replica alive")
+                self._pending_handoff.clear()
         self._work.notify_all()

@@ -5,9 +5,10 @@ pre-pays here is the card's start, the weights' first load and, with the
 tier's capture cache armed (``aot_cache``), the CUDA-graph capture of
 every serve-step site the warm-up sweep reaches; a promotion then copies
 the cloned weights INTO the storage those graphs were captured over
-(``ContinuousBatcher.load_params``).  Mesh-sharded standby gangs wait for
-the port's mesh (ROADMAP A6), promotions into a disaggregated pool or to
-another model version for their modules (A8c).
+(``ContinuousBatcher.load_params``).  A promotion may carry a pool role
+(a disaggregated tier's standbys are built role-less and specialize on
+arrival) or a model version (one spare pool backs every hosted model).
+Mesh-sharded standby gangs wait for the port's mesh (ROADMAP A6).
 
 Every heal path the tier had before this module was COLD: a dead,
 preempted, or scale-up replica paid full process boot + first calls +
@@ -136,6 +137,23 @@ def serve_standby(args, ctx) -> None:
         logger.info("standby %d stopped during promotion", ctx.executor_id)
         return
     params, prefix_pages = got
+    role = promote.get("role")
+    if role is not None:
+        # promote-with-role (disaggregated tier): specialize the
+        # pre-warmed engine for the pool this standby joins.  The standby
+        # was built from the tier's BASE batcher kwargs — per-role
+        # overlays (e.g. prefill_chunk) need a batcher rebuild, which
+        # would re-pay the warm-up the pool exists to hoist, so the
+        # promoted replica serves with the base engine and a notice is
+        # logged.
+        overlay = (args.get("serve_disagg") or {}).get(f"{role}_kwargs")
+        if overlay:
+            logger.warning(
+                "standby %d promoted into the %s pool: the tier's %s_kwargs "
+                "overlay %r does not apply to a pre-warmed engine (serving "
+                "with base batcher config)", ctx.executor_id, role, role, overlay)
+        batcher.set_role(role)
+        logger.info("standby %d specialized for the %s pool", ctx.executor_id, role)
     # a peer clone arrives as HOST arrays: with captured sites, copied
     # once into the storage the graphs read
     batcher.load_params(params)
@@ -156,10 +174,38 @@ def serve_standby(args, ctx) -> None:
                              "serving cold-cache", ctx.executor_id)
     mgr.queue_put(RESPONSE_QUEUE,
                   {"rid": None, "event": "standby_ready",
-                   "load": 0, "source": promote.get("source")})
-    logger.info("standby %d promoted (source=%s): serving",
-                ctx.executor_id, promote.get("source"))
-    run_serve_loop(args, ctx, batcher, label="promoted-standby")
+                   "load": 0, "source": promote.get("source"),
+                   **({} if role is None else {"role": role})})
+    logger.info("standby %d promoted (source=%s%s): serving",
+                ctx.executor_id, promote.get("source"),
+                "" if promote.get("model") is None
+                else f", model={promote['model']}@{promote.get('version')}")
+    # the promoted model's serve_args overlay (e.g. a seed, a bench's
+    # step delay) applies to the serve LOOP; the pristine boot args stay
+    # the base for later hot swaps, so a rollback away from this version
+    # fully sheds its knobs
+    loop_args = (dict(args, **promote["serve_args"])
+                 if promote.get("serve_args") else args)
+    if any(loop_args.get(k) != args.get(k)
+           for k in ("serve_draft_builder", "serve_draft_base_builder",
+                     "serve_draft_adapter", "serve_draft_window",
+                     "serve_draft_k", "seed")):
+        try:
+            # the PROMOTED version's overlay changed the draft config:
+            # re-arm from its arg view (swap or clear) — an unchanged
+            # overlay keeps the boot draft and its warmed sites.
+            # Best-effort: a standby that already acked standby_ready must
+            # serve, so a bad overlay draft costs speculation, never the
+            # heal
+            arm_draft(batcher, loop_args)
+        # tfos: ignore[broad-except] — see above; the target params are
+        # already live and correct without any draft
+        except Exception:
+            logger.exception("standby %d: draft re-arm on promotion failed; "
+                             "serving without speculation draft", ctx.executor_id)
+            batcher.set_draft(None)
+    run_serve_loop(loop_args, ctx, batcher, label="promoted-standby",
+                   role=role, base_args=args)
 
 
 def _warm_batcher(batcher) -> None:
@@ -251,7 +297,14 @@ def _acquire_params(args, ctx, mgr, promote: dict):
     ONLY rides the clone path: builder-restored weights may differ from
     any peer's, and prefix K/V computed under other weights would
     silently decode wrong tokens.  ``_STOP`` when an ``EndOfFeed``
-    interrupted the clone wait (tier shutdown / concurrent retire)."""
+    interrupted the clone wait (tier shutdown / concurrent retire).
+
+    A promote message carrying a MODEL-VERSION payload (``model``/
+    ``builder``/``base_builder``/``adapter``/``serve_args`` — the shared
+    spare pool re-armed per model, docs/serving.md) builds through THAT
+    payload on the fallback path; the driver already restricted ``peer``
+    to replicas serving the same version, so the clone path is
+    version-correct by construction."""
     peer = promote.get("peer")
     if peer is not None:
         got = _clone_from_peer(
@@ -264,6 +317,12 @@ def _acquire_params(args, ctx, mgr, promote: dict):
         logger.warning("standby %d: peer clone from %s failed/timed out; "
                        "falling back to the model builder",
                        ctx.executor_id, peer.get("executor_id"))
+    if promote.get("model") is not None or promote.get("builder") \
+            or promote.get("base_builder"):
+        from tensorflowonspark_tpu_torch.serving.replica import resolve_version_params
+
+        params, _ = resolve_version_params(args, promote)
+        return params, None
     _cfg, params = args["serve_model_builder"](args)
     return params, None
 

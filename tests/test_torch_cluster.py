@@ -262,25 +262,11 @@ def _reference_package_imports(package: str) -> list[tuple[str, str]]:
 
 
 #: names the port leaves out, each waiting for its queue item:
-#: ``shard_quantized`` and the mesh strategies for the port's mesh (A6);
-#: the serving package's names whose modules wait — the autoscaler,
-#: disagg, failover, journal and rollout (A8c), the gang replica (A6)
+#: ``shard_quantized``, the mesh strategies and the serving package's gang
+#: replica, all for the port's mesh (A6)
 NOT_PORTED_YET = {("ops", "quant", "shard_quantized"),
                   ("parallel", "strategy", "FSDPStrategy"),
                   ("parallel", "strategy", "MeshStrategy"),
-                  ("serving", "autoscaler", "Autoscaler"),
-                  ("serving", "autoscaler", "AutoscalerConfig"),
-                  ("serving", "disagg", "serve_disagg_replica"),
-                  ("serving", "failover", "resume_driver"),
-                  ("serving", "failover", "resume_rollouts"),
-                  ("serving", "journal", "ControlPlaneJournal"),
-                  ("serving", "journal", "JournalState"),
-                  ("serving", "rollout", "ModelRegistry"),
-                  ("serving", "rollout", "ModelVersion"),
-                  ("serving", "rollout", "RolloutController"),
-                  ("serving", "rollout", "RolloutError"),
-                  ("serving", "rollout", "RolloutPolicy"),
-                  ("serving", "rollout", "apply_adapter"),
                   ("serving", "sharded", "GangShardLost"),
                   ("serving", "sharded", "GangSpec"),
                   ("serving", "sharded", "serve_sharded_replica")}
@@ -315,7 +301,11 @@ def test_models_and_ops_export_the_reference_names_of_ported_modules(package):
     if package == "serving":
         assert {"AOTExecutableCache", "ServingCluster", "ServeFrontend", "ServeClient",
                 "FrontendUnavailable", "serve_replica", "StandbyPool", "serve_standby",
-                "ReplicaScheduler", "RequestRejected", "DeadlineExceeded"} \
+                "ReplicaScheduler", "RequestRejected", "DeadlineExceeded",
+                "Autoscaler", "AutoscalerConfig", "serve_disagg_replica", "resume_driver",
+                "resume_rollouts", "ControlPlaneJournal", "JournalState", "ModelRegistry",
+                "ModelVersion", "RolloutController", "RolloutError", "RolloutPolicy",
+                "apply_adapter"} \
             <= {n for _, n in expected}
     if package == "models":
         assert {"WideDeep", "InceptionV3", "UNet", "BertForSequenceClassification",

@@ -3,8 +3,9 @@
 - **unit** — the JAX package's ``tests/test_serving_cluster.py`` unit
   cases (``ReplicaScheduler`` + ``ServeFrontend``/``ServeClient`` and the
   warm-standby races against deterministic in-process fake replicas),
-  run against the port's copies; its gang, autoscaler and disagg cases
-  wait for those modules (ROADMAP A6, A8c);
+  run against the port's copies (the autoscaler, journal, rollout and
+  disagg cases are in ``test_torch_rollout.py``, ``test_torch_journal.py``
+  and ``test_torch_disagg.py``; the gang cases wait for ROADMAP A6);
 - **cross-package** — one seeded fake-world scenario (routing, shedding,
   a deadline, a replica death with requeue) through the JAX package's
   scheduler and the port's: the same outcomes and event kinds;
@@ -12,8 +13,8 @@
   replicas and a warm standby, replica 1 SIGKILLed by ``TFOS_CHAOS``, the
   standby promoted; every stream equal to the JAX package's
   ``greedy_generate`` on the flax weights the workers get as numpy;
-- the ``ServingCluster.run`` options whose modules are not ported raise
-  ``NotImplementedError``.
+- the mesh-sharded gang options of ``ServingCluster.run``, not ported yet,
+  raise ``NotImplementedError``.
 """
 
 import queue as _queue
@@ -793,9 +794,9 @@ def test_frontend_client_roundtrip_and_typed_shed():
 
 
 def test_frontend_answers_a_resume_unknown_so_the_client_resubmits():
-    """No port frontend replays a stream after a driver failover (the
-    journal waits for ROADMAP A8c): a ``resume`` gets ``unknown_request``,
-    the answer on which a ``failover_wait`` client re-submits."""
+    """A ``resume`` naming a trace the frontend has no replayed request
+    for (here: no driver failover happened) gets ``unknown_request``, the
+    answer on which a ``failover_wait`` client re-submits."""
     world = _FakeWorld(1)
     s = _scheduler(world).start()
     fe = ServeFrontend(s, authkey=b"s" * 16)
@@ -1014,14 +1015,12 @@ def test_tier_with_a_killed_replica_and_a_promoted_standby_equals_jax_greedy(tmp
 # ----------------------------------------------------- unported options
 
 @pytest.mark.parametrize("option, value", [
-    ("autoscale", {"min_replicas": 1}), ("disagg", {"prefill": 1, "decode": 1}),
-    ("model", ("m", "v1")), ("registry", object()), ("mesh", {"tp": 2}), ("gang_size", 2),
-    ("shard_params", lambda cfg, p, mesh: p), ("draft_model", ("m", "draft"))])
+    ("mesh", {"tp": 2}), ("gang_size", 2), ("shard_params", lambda cfg, p, mesh: p)])
 def test_unported_options_raise_not_implemented(option, value):
     from tensorflowonspark_tpu_torch.examples.gpt.online_serving import model_builder
     from tensorflowonspark_tpu_torch.serving import ServingCluster
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         ServingCluster.run(model_builder, 1, **{option: value})
 
 
