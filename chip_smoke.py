@@ -141,8 +141,8 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    through ``TPUCluster.run`` (one worker, ``InputMode.TENSORFLOW``, 26
    categorical and 13 dense features, ``vocab_size`` 1,298,561 a feature:
    the Criteo Kaggle total of 33.76M table rows, embed 16, MLP (256, 128,
-   64), batch 8192, 8 steps of dense optax adagrad, checkpoints at steps 4
-   and 8); its first 4 steps replayed by the port's float32 path on the
+   64), batch 8192, 4 steps of dense optax adagrad, a checkpoint at step
+   4); those 4 steps replayed by the port's float32 path on the
    CPU: every loss, the MLP and the touched table rows within
    :data:`WIDE_DEEP_TOL`, untouched rows bit for bit their initial values,
    where ``torch.optim.Adagrad``'s semantics on the card must not be; then
@@ -194,7 +194,8 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    with 2 replicas and a warm standby, every site captured, 24 requests
    from 4 clients, replica 1 killed: every stream equal to solo greedy, a
    requeue, the standby promoted and serving (a promotion that rebinds the
-   weights instead of copying them must change a stream);
+   weights instead of copying them, a captured batcher promoted in this
+   process, must change a stream);
 22. the rest of the tier on the same weights: tier A, a ``ModelRegistry``
    (v1, and v2 = v1 plus a seeded adapter delta), one captured replica and
    the autoscaler (min 1, max 2): a burst must scale it up, ``rollout("gpt",
@@ -207,12 +208,33 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    tier B, ``disagg={"prefill": 1, "decode": 1}`` with paged KV on 12
    requests: every stream exact, a handoff a request, no prefill on the
    decode replica, where a session seated one position off (a prefill and a
-   decode batcher in this process) must change a stream.
+   decode batcher in this process) must change a stream;
+23. the batch and continual planes: (a) 256 SQuAD-shaped rows written by
+   ``dfutil`` as 8 TFRecord shards, scored by phase 6's checkpoint
+   (BERT-base QA, bf16, K1) through ``BatchJob`` in one worker that
+   ``TFOS_CHAOS`` kills at its 5th predict batch and ``run_with_recovery``
+   relaunches: no committed shard scored again, the parts committed before
+   the kill unchanged, every row back in manifest order and within
+   :data:`EXPORT_TOL` of this process's K1 scoring (a predict_fn that swaps
+   the mask and the token types must not be), K1 12 times a predict batch
+   in the workers; (b) on phase 22's tier A, before its driver crash,
+   ``ContinualPipeline.run`` of a trainer that fine-tunes phase 13's
+   weights 4 steps (B 8 x T 1024, the last block and ``ln_f``, K1-K3) and
+   publishes the adapter delta, an offline eval of it over 64 held-out
+   rows (a ``GridSearch`` trial, K1) and a canary rollout: the candidate
+   promoted and journaled stage by stage, every stream after it equal to
+   solo float32 greedy over ``apply_adapter(v1, delta)``, the delta the
+   trainer's checkpoint less v1 leaf for leaf; the delta times -8 must end
+   ``rejected_offline`` and never load, where an eval that ignores the
+   candidate must pass it; phase 22's crash then resumes onto the promoted
+   version, and a pipeline rebuilt there settles nothing.
 
 ``python3 chip_smoke.py --calibrate-slice9`` only logs phases 15-18's gate
 readings at three seeds (the examples and the bench at the first);
 ``--calibrate-serving`` trains phase 13's model at three seeds and logs
-phase 19's readings on each.
+phase 19's readings on each; ``--calibrate-continual`` trains it at three
+seeds and logs phase 23b's offline-gate readings (v1's, the fine-tuned
+candidate's and the bad candidate's eval loss) on each.
 
 Each phase's seconds are printed.  The ResNet, MNIST, Wide&Deep,
 Inception-v3 and U-Net paths run none of the repo's hand-written kernels
@@ -1316,7 +1338,7 @@ def run_resnet_training(seed: int, card: str, wd: str) -> dict:
     import torch
 
     from tensorflowonspark_tpu_torch import resnet_train as rt
-    from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint
 
     data_dir = os.path.join(wd, "resnet_records")
     args = {**RESNET_TRAIN, "model": "ResNet50", "seed": seed, "device": "cuda",
@@ -1380,18 +1402,18 @@ def run_resnet_training(seed: int, card: str, wd: str) -> dict:
     replay, w_replay = rt.train_in_process(args, 1, "cuda")
     losses = first["losses"] + second["losses"]
     sound = resnet_train_readings(losses, replay, weights, w_replay, w0)
-    fault_dir = os.path.join(wd, "resnet_model_no_momentum")
-    save_checkpoint(fault_dir, {**saved, "optim": {**saved["optim"], "state": {}}},
-                    step=steps // 2)
-    fault_run, fault_w, _ = run("resnet_fault", model_dir=fault_dir)
-    fault = resnet_train_readings(first["losses"] + fault_run["losses"], replay, fault_w,
+    # the planted fault resumes in this process (no third cluster boot: cut
+    # for time), from the step-4 checkpoint stripped of its momentum
+    fault_losses, fault_w = rt.train_in_process(
+        args, 1, "cuda", restored={**saved, "optim": {**saved["optim"], "state": {}}})
+    fault = resnet_train_readings(first["losses"] + fault_losses, replay, fault_w,
                                   w_replay, w0)
     buffers = [n for n in w_replay if "running" in n]
     unmoved = [n for n in buffers if torch.equal(weights[n], w0[n])]
     log(f"ResNet-50 replay (unbroken, same records): losses {[round(x, 5) for x in replay]}")
     for name, r, ls in (("resumed run", sound, losses),
-                        ("resumed without momentum (planted fault)", fault,
-                         first["losses"] + fault_run["losses"])):
+                        ("resumed without momentum in this process (planted fault)", fault,
+                         first["losses"] + fault_losses)):
         log(f"ResNet-50 {name} vs the replay: losses {[round(x, 5) for x in ls]} (max |diff| "
             f"{r['loss']:.4g}); final weights and buffers ||w-w_replay||/||w_replay-w0|| over "
             f"{r['tensors']} tensors: max {r['max']:.4g} ({r['worst']}), median "
@@ -2697,9 +2719,8 @@ def run_cluster_serving(seed: int, card: str, wd: str, device: str = "cuda",
 #: standby, 24 requests from 4 concurrent clients with phase 19's prompt
 #: lengths (8-200 tokens) and budgets (8-48), replica 1 SIGKILLed at its
 #: decode step ``kill_at_step`` (``TFOS_CHAOS``).  The planted fault runs
-#: a smaller tier for time: one replica (killed at the same step), the
-#: standby, ``fault_requests`` of the requests (the second half after the
-#: promotion, so the standby serves them)
+#: in this process for time: a warm standby's captured batcher promoted,
+#: ``fault_requests`` of the requests
 SERVING_TIER = {"replicas": 2, "standbys": 1, "slots": 4, "clients": 4, "requests": 24,
                 "kill_at_step": 8, "fault_requests": 6}
 
@@ -2724,23 +2745,53 @@ def tier_builder(args: dict):
                                         weights_only=True)
 
 
-def stale_capture_builder(args: dict):
-    """Phase 21's planted fault: :func:`tier_builder`, with the batcher's
-    ``load_params`` of the port before this slice (new tensors rebound in
-    the model), so a promoted standby's captured sites keep reading the
-    storage its unload zeroed."""
+def rebinding_load_params(self, params):
+    """Phase 21's planted fault: a ``load_params`` that binds new tensors in
+    the model instead of copying into the captured storage, so a promoted
+    standby's captured sites keep reading the storage its unload zeroed."""
     import torch
 
-    from tensorflowonspark_tpu_torch.models import gpt, serving
+    from tensorflowonspark_tpu_torch.models import gpt
 
-    def rebinding_load_params(self, params):
-        self._stale = self._bound_params()     # the storage the captures read stays
-        params = {n: torch.as_tensor(v).to(self.device) for n, v in params.items()}
-        gpt.bind(self.model, params)
-        self.params = params
+    self._stale = self._bound_params()     # the storage the captures read stays
+    params = {n: torch.as_tensor(v).to(self.device) for n, v in params.items()}
+    gpt.bind(self.model, params)
+    self.params = params
 
-    serving.ContinuousBatcher.load_params = rebinding_load_params
-    return tier_builder(args)
+
+def check_promotion_in_process(trained: dict, tier: dict, slots: int, n: int) -> dict:
+    """Phase 21's planted fault in this process on the card (no second
+    tier: cut for time): a warm standby's posture — a captured batcher
+    (``AOTExecutableCache``) whose warm-up sweep captured its sites, then
+    ``unload_params`` — promoted by ``load_params`` of phase 13's weights,
+    once as the port copies them into the captured storage and once by
+    :func:`rebinding_load_params`, then serving ``n`` of the tier's
+    requests.  Returns the streams equal to solo greedy in each."""
+    import types
+
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher
+    from tensorflowonspark_tpu_torch.serving.aot import AOTExecutableCache
+    from tensorflowonspark_tpu_torch.serving.standby import _warm_batcher
+
+    f32 = serving_config(trained)
+    reqs = list(zip(tier["requests"], tier["solo"]))[:n]
+    out = {}
+    for name, load in (("sound", None), ("rebinding promotion", rebinding_load_params)):
+        b = ContinuousBatcher(f32, trained["params"], max_batch=slots,
+                              aot_cache=AOTExecutableCache(None))
+        _warm_batcher(b)
+        b.unload_params()
+        if load is not None:
+            b.load_params = types.MethodType(load, b)
+        b.load_params(trained["params"])
+        rids = {b.submit(np.asarray(p), budget): k for k, ((p, budget), _) in enumerate(reqs)}
+        results = b.run()
+        out[name] = sum([int(t) for t in results[r]] == reqs[k][1] for r, k in rids.items())
+        out[f"{name} captures"] = b.aot_stats()
+        del b
+    return out
 
 
 def run_serving_tier(seed: int, card: str, wd: str, trained: dict, device: str = "cuda",
@@ -2753,12 +2804,11 @@ def run_serving_tier(seed: int, card: str, wd: str, trained: dict, device: str =
     process, a requeue, a standby promotion whose standby then served, no
     failed capture on any replica, and every replica that served reporting
     its kernel launches.  A promotion that rebinds the weights instead of copying them
-    into the captured storage (:func:`stale_capture_builder`) must change a
-    stream.  ``device="cpu"`` rehearses it (no captures there).  Returns
+    into the captured storage (:func:`rebinding_load_params`, in this
+    process: :func:`check_promotion_in_process`) must change a stream.
+    ``device="cpu"`` rehearses it (no captures there, and no fault check).  Returns
     the kernels' launches on the sound run (none), summed over the
     replicas' heartbeat-carried counts, and the tier's readings."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -2766,7 +2816,7 @@ def run_serving_tier(seed: int, card: str, wd: str, trained: dict, device: str =
     from tensorflowonspark_tpu_torch.models.gpt import greedy_generate
 
     c = SERVING_TIER
-    f32 = dataclasses.replace(trained["cfg"], dtype=torch.float32, attention_fn=None)
+    f32 = serving_config(trained)
     params = trained["params"]
     path = os.path.join(wd, "tier_weights.pt")
     torch.save({n: t.detach().cpu() for n, t in params.items()}, path)
@@ -2779,9 +2829,7 @@ def run_serving_tier(seed: int, card: str, wd: str, trained: dict, device: str =
         f"{[n for _, n in reqs]}); solo greedy oracles in {time.perf_counter() - t0:.1f} s")
     readings, bad, launches = {}, [], None
     for name, builder, n, replicas, kill_node in (
-            ("sound", tier_builder, c["requests"], c["replicas"], 1),
-            ("stale captures after a promotion (planted fault)", stale_capture_builder,
-             c["fault_requests"], 1, 0)):
+            ("sound", tier_builder, c["requests"], c["replicas"], 1),):
         zero_launch_counts()   # the driver's; each worker's start at 0 with its process
         t0 = time.perf_counter()
         out = online_serving.run(args, reqs[:n], replicas=replicas, slots=c["slots"],
@@ -2825,19 +2873,27 @@ def run_serving_tier(seed: int, card: str, wd: str, trained: dict, device: str =
             f"served by replica {readings[name]['served']} (the promoted standby "
             f"{readings[name]['standby_served']}); captures by replica {aot}; kernel launches "
             f"{run_launches}, reported by replicas {sorted(counted)}")
-        if builder is tier_builder:
-            captured_ok = device != "cuda" or (
-                all(a["error"] == 0 for a in aot.values())
-                and all(aot.get(e, {}).get("compile", 0) > 0
-                        for e, r in m["replicas"].items() if r["alive"]))
-            launches = run_launches
-            reported = all(e in counted for e, v in served.items() if v)
-            if same != n or m["requeued"] < 1 or not readings[name]["promotions"] \
-                    or not readings[name]["standby_served"] or not captured_ok \
-                    or not reported:
-                bad.append(name)
-        elif device == "cuda" and same == n:
+        captured_ok = device != "cuda" or (
+            all(a["error"] == 0 for a in aot.values())
+            and all(aot.get(e, {}).get("compile", 0) > 0
+                    for e, r in m["replicas"].items() if r["alive"]))
+        launches = run_launches
+        reported = all(e in counted for e, v in served.items() if v)
+        if same != n or m["requeued"] < 1 or not readings[name]["promotions"] \
+                or not readings[name]["standby_served"] or not captured_ok \
+                or not reported:
             bad.append(name)
+    if device == "cuda":
+        t0 = time.perf_counter()
+        n = c["fault_requests"]
+        promo = readings["promotion in this process"] = check_promotion_in_process(
+            trained, {"requests": reqs, "solo": want}, c["slots"], n)
+        log(f"serving tier, a warm standby promoted in this process (captured, {n} requests, "
+            f"{time.perf_counter() - t0:.1f} s): {promo}")
+        if promo["sound"] != n:
+            bad.append("a promotion that copies into the captured storage")
+        if promo["rebinding promotion"] == n:
+            bad.append("a rebinding promotion (planted fault) changed no stream")
     log(f"serving tier gate: {'passed' if not bad else 'FAILED: ' + ', '.join(bad)}")
     if bad:
         raise SystemExit(f"the serving tier's gate failed: {bad}")
@@ -2891,6 +2947,16 @@ def rollout_registry(delta: dict):
     reg.register("gpt", "v1", tier_builder)
     reg.register("gpt", "v2", base=("gpt", "v1"), adapter=delta)
     reg.record_eval("gpt", "v2", {"planted": True}, passed=True)
+    return reg
+
+
+def resumed_registry(delta: dict, version: str, payload: dict):
+    """A resumed driver's catalog after phase 23b: :func:`rollout_registry`'s
+    versions and the promoted candidate ``version``, an adapter over v1
+    with ``payload`` (re-registered by the operator, as every builder is;
+    the journal restores its state and eval verdict)."""
+    reg = rollout_registry(delta)
+    reg.register("gpt", version, base=("gpt", "v1"), adapter=payload)
     return reg
 
 
@@ -2951,10 +3017,11 @@ def skipping_adopt(self, state):
     return ReplicaScheduler._sound_adopt(self, st)
 
 
-def crash_and_resume(serving, jobs, want, c: dict, registry, timeout: float):
+def crash_and_resume(serving, jobs, want, c: dict, registry, timeout: float,
+                     model: tuple = ("gpt", "v2")):
     """Stream ``jobs`` with ``failover_wait`` clients, crash the driver once
     every client holds a token, and resume it from the journal on the same
-    port.  Returns the resumed tier and the readings: streams equal to
+    port, labelled ``model`` (the version serving).  Returns the resumed tier and the readings: streams equal to
     ``want``, errors, the heal seconds (the crash to the first token a
     client reads after ``resume_driver`` returned: frames the dead driver
     sent before the crash may still sit in a client's socket, so an earlier
@@ -2973,7 +3040,7 @@ def crash_and_resume(serving, jobs, want, c: dict, registry, timeout: float):
     held = sorted(len(r["tokens"]) for r in out)
     serving.crash()
     resumed = resume_driver(serving.cluster, journal_path=jpath, address=serving.address,
-                            max_batch=c["slots"], model=("gpt", "v2"), registry=registry,
+                            max_batch=c["slots"], model=model, registry=registry,
                             crashed_at=t_crash, client_timeout=timeout)
     t_resumed = time.time()
     resume_s = t_resumed - t_crash
@@ -3014,24 +3081,26 @@ def tier_launches(nodes: dict) -> tuple[dict, list]:
 
 def run_rollout_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
                      device: str = "cuda", worker_env: dict | None = None,
-                     timeout: float = 300.0) -> dict:
+                     timeout: float = 300.0, continual: dict | None = None) -> dict:
     """Phase 22, tier A (:data:`ROLLOUT_TIER`): ``ServingCluster.run`` with a
     ``ModelRegistry`` (``gpt@v1`` phase 13's weights, ``gpt@v2`` v1 plus
     :func:`rollout_delta`), one captured replica and the autoscaler; a burst
     must scale it up (a ``scale_up`` event); ``rollout("gpt", "v2")`` under
     traffic must promote, every stream done before it started equal to solo
     greedy under v1, every one during it to v1's or v2's, every one after
-    it to v2's; then the driver is crashed mid-stream and
-    ``resume_driver`` rebinds its port: the ``failover_wait`` clients ride
-    through, every stream equal to v2's, the journal holds no accepted
-    request without a commit.  Planted faults on the resumed tier: a hot
+    it to v2's; then phase 23b's continual loop promotes a fine-tuned
+    candidate on this tier (:func:`run_continual_loop`; ``continual``
+    overrides :data:`CONTINUAL` for a rehearsal); then the driver is
+    crashed mid-stream and ``resume_driver`` rebinds its port: the
+    ``failover_wait`` clients ride through, every stream equal to the
+    candidate's solo greedy, the journal holds no accepted request without
+    a commit, and a ``ContinualPipeline.resume()`` on the resumed tier
+    settles nothing (the candidate's ``continual_done`` is journaled).  Planted faults on the resumed tier: a hot
     swap whose payload drops the adapter delta (v1 under v2's label) must
     change a stream; a resume that requeues nothing must lose a request."""
-    import dataclasses
-
     import numpy as np
-    import torch
 
+    from tensorflowonspark_tpu_torch.continual import ContinualPipeline
     from tensorflowonspark_tpu_torch.models.gpt import greedy_generate
     from tensorflowonspark_tpu_torch.observability import EventLog
     from tensorflowonspark_tpu_torch.serving import (ControlPlaneJournal, RolloutPolicy,
@@ -3039,7 +3108,7 @@ def run_rollout_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
                                                      rollout as rollout_mod, scheduler)
 
     c = ROLLOUT_TIER
-    f32 = dataclasses.replace(trained["cfg"], dtype=torch.float32, attention_fn=None)
+    f32 = serving_config(trained)
     v1 = trained["params"]
     delta = rollout_delta(f32, seed)
     v2 = apply_adapter(v1, delta)
@@ -3049,8 +3118,6 @@ def run_rollout_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
     t0 = time.perf_counter()
     solo = {v: [greedy_generate(f32, w, np.asarray([p]), n)[0, len(p):].tolist()
                 for p, n in pool] for v, w in (("v1", v1), ("v2", v2))}
-    solo_crash = [greedy_generate(f32, v2, np.asarray([p]), n)[0, len(p):].tolist()
-                  for p, n in crash]
     del v2
     differ = sum(a != b for a, b in zip(solo["v1"], solo["v2"]))
     log(f"rollout tier: {len(pool)} pooled requests, v2 changes {differ} of their greedy "
@@ -3129,11 +3196,26 @@ def run_rollout_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
                               for x in post)
         r["post_of"] = len(post)
         r["versions"] = serving.scheduler.model_versions("gpt")
+        # phase 23b: the continual loop promotes a fine-tuned candidate here
+        t0 = time.perf_counter()
+        r["continual"] = run_continual_loop(seed, card, wd, serving, trained, pool, solo["v2"],
+                                            c["policy"], device, worker_env, timeout, continual)
+        r["continual_s"] = time.perf_counter() - t0
+        served = ("gpt", r["continual"]["version"])
+        payload = r["continual"].pop("payload")
+        cand = apply_adapter(v1, payload)
+        solo_crash = [greedy_generate(f32, cand, np.asarray([p]), n)[0, len(p):].tolist()
+                      for p, n in crash]
+        del cand
         # the driver crashed mid-stream, resumed from its journal on the same port
         jobs = [(i, *crash[i]) for i in range(len(crash))]
         resumed, r["crash"] = crash_and_resume(serving, jobs, solo_crash, c,
-                                               rollout_registry(delta), timeout)
+                                               resumed_registry(delta, served[1], payload),
+                                               timeout, model=served)
         live = resumed
+        # a pipeline rebuilt on the resumed tier finds nothing open
+        r["continual_resume"] = ContinualPipeline(resumed, "gpt",
+                                                  base_builder=tier_builder).resume()
         # planted fault 1: the hot swap's payload drops the adapter delta
         sound_payload = rollout_mod.ModelVersion.swap_payload
 
@@ -3160,7 +3242,8 @@ def run_rollout_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
         scheduler.ReplicaScheduler.adopt = skipping_adopt
         try:
             live, r["fault_no_requeue"] = crash_and_resume(
-                resumed, jobs, solo_crash, c, rollout_registry(delta), timeout)
+                resumed, jobs, solo_crash, c, resumed_registry(delta, served[1], payload),
+                timeout, model=served)
         finally:
             scheduler.ReplicaScheduler.adopt = scheduler.ReplicaScheduler._sound_adopt
             del scheduler.ReplicaScheduler._sound_adopt
@@ -3184,6 +3267,7 @@ def run_rollout_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
           "post": r["post_equal"] == r["post_of"] and r["versions"] == {"v2": [0, 1]},
           "crash": cr["equal"] == cr["of"] and not cr["errors"] and cr["unfinished"] == 0
                    and cr["requeued"] >= 1 and min(cr["held_at_crash"]) < c["crash_budget"],
+          "resumed pipeline settles nothing": r["continual_resume"] == {},
           "launches": not any(r["launches"].values()) and r["launches_from"] == [0, 1]}
     faults = {"dropped delta changes a stream":
                   r["fault_dropped_delta"]["equal"] < r["fault_dropped_delta"]["of"],
@@ -3195,11 +3279,12 @@ def run_rollout_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
         f"{r['during_v1_or_v2']}/{r['during_of']} streams during it equal v1's or v2's "
         f"({r['during_v2']} v2's); after it {r['post_equal']}/{r['post_of']} equal v2's, "
         f"versions {r['versions']}; driver crash with streams holding {cr['held_at_crash']} "
-        f"tokens: resume_driver {cr['resume_s']:.2f} s, heal (the crash to the first token "
+        f"tokens (serving {served[1]}): resume_driver {cr['resume_s']:.2f} s, heal (the crash to the first token "
         f"after the resume) {cr['heal_s']} s, requeued {cr['requeued']}, {cr['equal']}/{cr['of']} streams "
         f"exact, errors {cr['errors']}, unfinished in the journal {cr['unfinished']} "
         f"({r['journal_records']} records); kernel launches {r['launches']} from replicas "
-        f"{r['launches_from']}")
+        f"{r['launches_from']}; phase 23b's continual loop {r['continual_s']:.1f} s on this "
+        f"tier; a pipeline rebuilt on the resumed tier settled {r['continual_resume']}")
     log(f"rollout tier planted faults: a swap dropping the delta: "
         f"{r['fault_dropped_delta']['equal']}/{r['fault_dropped_delta']['of']} equal v2's; "
         f"a resume that requeues nothing: unfinished {r['fault_no_requeue']['unfinished']}, "
@@ -3217,14 +3302,11 @@ def check_handoff_in_process(trained: dict, tier: dict, page_tokens: int, n: int
     batcher (paged KV, eager), once as the port seats them and once with
     the session seated one position off (planted fault).  Returns the
     streams equal to solo greedy in each."""
-    import dataclasses
-
     import numpy as np
-    import torch
 
     from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher
 
-    f32 = dataclasses.replace(trained["cfg"], dtype=torch.float32, attention_fn=None)
+    f32 = serving_config(trained)
     reqs = list(zip(tier["requests"], tier["solo"]))[:n]
     out = {}
     for name, shift in (("sound", 0), ("seated one position off", 1)):
@@ -3261,15 +3343,11 @@ def run_disagg_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
     kernel launch.  The planted fault (a session seated one position off)
     runs in :func:`check_handoff_in_process`, the smallest tier that shows
     it, and must change a stream."""
-    import dataclasses
-
-    import torch
-
     from tensorflowonspark_tpu_torch.examples.gpt import online_serving
     from tensorflowonspark_tpu_torch.serving import ServingCluster
 
     c = DISAGG_TIER
-    f32 = dataclasses.replace(trained["cfg"], dtype=torch.float32, attention_fn=None)
+    f32 = serving_config(trained)
     args = {"tier_cfg": f32, "tier_weights": os.path.join(wd, "tier_weights.pt")}
     reqs, want = tier["requests"][:c["requests"]], tier["solo"][:c["requests"]]
     t0 = time.perf_counter()
@@ -3345,6 +3423,491 @@ def run_rest_of_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
             "rollout": a, "disagg": b}
 
 
+# ------------------------------ phase 23: the batch and continual planes
+
+#: phase 23a: BASELINE config 3's scoring half as bulk offline inference
+#: (``BatchJob``): ``rows`` SQuAD-shaped rows at T 384 written by ``dfutil``
+#: as ``shards`` TFRecord parts, phase 6's checkpoint (BERT-base QA) scoring
+#: them in batches of ``batch_size`` in one worker that a ``TFOS_CHAOS``
+#: plan kills at its ``kill_at_step``-th predict batch and
+#: ``run_with_recovery`` relaunches (``scripts/bench_batch.py::
+#: bench_resume``'s settings)
+BATCH_PLANE = {"rows": 256, "shards": 8, "batch_size": 16, "kill_at_step": 5}
+#: phase 23b, on phase 22's tier A once v2 serves (``scripts/
+#: bench_continual.py::continual_loop_scenario``'s stages on real models):
+#: a trainer fine-tunes phase 13's weights ``steps`` steps (B x T
+#: ``batch_size`` x ``seq_len`` of the "+1" corpus, Adam ``lr``, only the
+#: last block and ``ln_f``) and publishes the step's adapter delta; the
+#: offline gate scores it over ``eval_rows`` held-out rows in
+#: ``eval_shards`` array shards, ``eval_batch`` rows a predict batch; the
+#: rollout takes phase 22's policy; the bad candidate is the healthy delta
+#: times ``bad_scale``
+CONTINUAL = {"steps": 4, "batch_size": 8, "seq_len": 1024, "lr": 1e-4, "eval_rows": 64,
+             "eval_shards": 8, "eval_batch": 8, "bad_scale": -8.0}
+#: the offline gate: a candidate passes when its mean next-token loss over
+#: the held-out rows is at most v1's (the same predict_fn in this process)
+#: plus this margin, in nats; readings at seeds 0-2 in PERF.md ("Phase 23")
+CONTINUAL_MARGIN = 0.02
+
+
+def batch_plane_stats(stats_dir: str) -> dict:
+    """The scoring workers' predict batches and K1 launches, summed over
+    their processes (the killed one's last write included)."""
+    from tensorflowonspark_tpu_torch.gpt_continual import read_stats
+
+    st = read_stats(stats_dir, "batch_stats")
+    return {"processes": len(st), "batches": sum(s["batches"] for s in st),
+            "launches": sum(s["launches"] for s in st),
+            "per_batch": sorted({n for s in st for n in s["batch_launches"]}),
+            "build_s": [s["build_s"] for s in st],
+            "batch_ms": [statistics.median(s["batch_ms"]) for s in st]}
+
+
+def run_batch_plane(seed: int, card: str, wd: str, cfg: dict | None = None,
+                    device: str = "cuda", worker_env: dict | None = None,
+                    timeout: float = 600.0) -> dict:
+    """Phase 23a (:data:`BATCH_PLANE`): ``BatchJob`` over a
+    ``ShardManifest.from_tfrecords`` of ``dfutil``-written rows, phase 6's
+    checkpoint (``<wd>/bert_model``) built once a worker on the card
+    (``bert_inference.batch_model_builder``) and scoring through K1
+    (``batch_predict``); the only worker SIGKILLed at a predict batch and
+    relaunched.  Gates: a shard committed before the kill; no committed
+    shard assigned again (``ProgressLedger.replay``); every part committed
+    before the kill the same bytes after the resume; ``read_results`` in
+    manifest order, every row; every row within :data:`EXPORT_TOL` of this
+    process's scoring of the same records with the same weights through
+    K1, where a scoring that swaps the mask and the token types must not
+    be; K1 12 (L) times a predict batch in the workers.
+    ``cfg`` and ``device="cpu"`` rehearse it at a tiny width (no launches
+    there).  Returns the workers' launches and the readings."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import bert_inference as bi
+    from tensorflowonspark_tpu_torch import dfutil, tfrecord
+    from tensorflowonspark_tpu_torch.batch import BatchJob, ProgressLedger, ShardManifest
+    from tensorflowonspark_tpu_torch.chaos import fired_at
+    from tensorflowonspark_tpu_torch.dataframe import DataFrame
+
+    c, cfg = BATCH_PLANE, cfg or bi.BERT_BASE
+    layers = cfg["num_layers"] if device == "cuda" else 0
+    rows = bi.make_rows(c["rows"], SEQ_LEN, cfg["vocab_size"], seed + 23)
+    src, out_dir = os.path.join(wd, "batch_records"), os.path.join(wd, "batch_out")
+    stats_dir, job_wd = os.path.join(wd, "batch_stats"), os.path.join(wd, "batch_job")
+    os.makedirs(stats_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    dfutil.saveAsTFRecords(DataFrame([dict(zip(bi.INPUT_COLUMNS, r)) for r in rows],
+                                     num_partitions=c["shards"]), src)
+    manifest = ShardManifest.from_tfrecords(os.path.join(src, "part-r-*"))
+    write_s = time.perf_counter() - t0
+    if len(manifest) != c["shards"]:
+        raise SystemExit(f"batch plane: {len(manifest)} shards, not {c['shards']}")
+    args = {"config": cfg, "model_dir": os.path.join(wd, "bert_model"), "device": device}
+    job = BatchJob(manifest, out_dir, bi.batch_predict, model_builder=bi.batch_model_builder,
+                   batch_size=c["batch_size"], prefetch=1,
+                   predict_args={**args, "stats_dir": stats_dir})
+    before_resume = {}
+
+    def digest(key):
+        with open(os.path.join(out_dir, "parts", f"{key}.tfrecord"), "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    def snapshot(attempt, exc, kind):
+        # the parts the ledger holds committed when the relaunch begins
+        before_resume.update({k: digest(k) for k in ProgressLedger.replay(out_dir).committed})
+
+    t_start = time.time()
+    summary = job.run(num_workers=1, max_restarts=2, reassign_dead=False, backoff_base=0.2,
+                      on_restart=snapshot, working_dir=job_wd,
+                      worker_env={**(worker_env or {}),
+                                  "TFOS_CHAOS": f"kill node=0 at_step={c['kill_at_step']}"},
+                      reservation_timeout=timeout, shutdown_timeout=timeout)
+    wall = time.time() - t_start
+    replay = ProgressLedger.replay(out_dir)
+    attempts = [e["t"] for e in replay.events if e.get("event") == "attempt"]
+    dones = [e["t"] for e in replay.events if e.get("event") == "done"]
+    killed = fired_at(job_wd, 0)
+    committed_before = sorted(replay.done_at_attempt(2))
+    after = {k: digest(k) for k in before_resume}
+    results = job.results()
+    got = np.stack([np.frombuffer(b, np.float32) for b in results])
+    st = batch_plane_stats(stats_dir)
+
+    # the same records and weights in this process, through K1, in the
+    # job's groups (each shard's records in batches of batch_size)
+    model = bi.batch_model_builder({**args, "batch_size": c["batch_size"]})
+    records = [list(tfrecord.read_records(s.path)) for s in manifest]
+
+    groups = [recs[i:i + c["batch_size"]] for recs in records
+              for i in range(0, len(recs), c["batch_size"])]
+    want = np.stack([np.frombuffer(b, np.float32) for g in groups
+                     for b in bi.batch_predict(model, g, None)])
+    swapped = []            # the planted fault: the mask and the token types swapped
+    for g in groups:
+        ids, mask, types = bi.decode_rows(g)
+        with torch.inference_mode():
+            swapped.append(np.concatenate(bi.forward_batch(
+                model["model"], [ids, types, mask], model["batch_size"], model["device"]), 1))
+    swapped = np.concatenate(swapped)
+    masks = np.concatenate([bi.decode_rows(recs)[1] for recs in records]).astype(bool)
+    T = masks.shape[1]
+    split = lambda x: (x[:, :T], x[:, T:])  # noqa: E731
+    sound, fault = ({k: float(v) for k, v in export_readings(split(x), split(want),
+                                                             masks).items()}
+                    for x in (got, swapped))
+    max_diff = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    r = {"write_s": write_s, "wall_s": wall, "attempts": replay.attempts,
+         "committed_before": committed_before, "reprocessed": replay.reprocessed_committed,
+         "summary": summary, "rows": len(results), "max_diff": max_diff, "sound": sound,
+         "fault": fault, "parts_same": sum(after[k] == v for k, v in before_resume.items()),
+         "parts_of": len(before_resume), "stats": st,
+         "boot_s": attempts[0] - t_start if attempts else None,
+         "to_kill_s": killed - attempts[0] if killed and attempts else None,
+         "relaunch_s": attempts[1] - killed if killed and len(attempts) > 1 else None,
+         "finish_s": dones[-1] - attempts[-1] if dones and attempts else None}
+    scored_after = sum(1 for e in replay.events if e.get("event") == "done"
+                       and attempts and e["t"] > attempts[-1]) * (c["rows"] // c["shards"])
+    r["rows_per_s"] = c["rows"] / wall
+    r["steady_rows_per_s"] = scored_after / r["finish_s"] if r["finish_s"] else None
+    ok = {"killed and relaunched": replay.attempts == 2 and killed is not None,
+          "committed before the kill": len(committed_before) >= 1,
+          "no committed shard again": replay.reprocessed_committed == []
+                                      and summary.get("skipped_committed")
+                                      == len(committed_before),
+          "parts kept their bytes": r["parts_same"] == r["parts_of"] >= 1,
+          "every row in manifest order": got.shape == (c["rows"], 2 * SEQ_LEN),
+          "finite": bool(np.isfinite(got).all()),
+          "logits": within_export(sound),
+          "launches": st["batches"] >= c["rows"] // c["batch_size"]
+                      and st["launches"] == layers * st["batches"]
+                      and st["per_batch"] == [layers] and st["processes"] == 2}
+    log(f"batch plane on {card}: {c['rows']} rows in {c['shards']} TFRecord shards "
+        f"(dfutil, {write_s:.2f} s); BatchJob with one worker killed at predict batch "
+        f"{c['kill_at_step']}: {replay.attempts} attempts, committed before the kill "
+        f"{committed_before}, reprocessed {replay.reprocessed_committed}, summary "
+        f"{summary}; {r['parts_same']}/{r['parts_of']} parts committed before the kill "
+        f"kept their bytes; boot {r['boot_s']} s, first dispatch to the kill "
+        f"{r['to_kill_s']} s, kill to the relaunch's dispatch {r['relaunch_s']} s, the "
+        f"relaunch to its last commit {r['finish_s']} s; {wall:.1f} s in all = "
+        f"{r['rows_per_s']:.1f} rows/s through the plane (boots included), "
+        f"{r['steady_rows_per_s']} rows/s after the relaunch; worker K1 launches "
+        f"{st['launches']} over {st['batches']} predict batches in {st['processes']} "
+        f"processes (per batch {st['per_batch']}, expected [{layers}]); each worker's "
+        f"model build {st['build_s']} s, median predict call {st['batch_ms']} ms (Example "
+        f"decode, forward, logits to the host)")
+    log(f"batch plane vs this process's K1 scoring (same weights and records): max |diff| "
+        f"{max_diff:.3g} (bit-identical: {max_diff == 0.0}); export gate {EXPORT_TOL}: "
+        f"sound {sound}, mask and token types swapped (planted fault) {fault}")
+    bad = [k for k, v in ok.items() if not v]
+    if within_export(fault):
+        bad.append("the swapped mask and token types fall inside the gate")
+    log(f"batch plane gate: {'passed' if not bad else 'FAILED: ' + ', '.join(bad)}")
+    if bad:
+        raise SystemExit(f"the batch plane's gate failed: {bad}")
+    return {"flash_attention_fwd": st["launches"], "flash_attention_dq": 0,
+            "flash_attention_dkv": 0, **r}
+
+
+def ignoring_candidate_predict(model, records, trial_params):
+    """Phase 23b's planted fault: the eval predict_fn scoring the base,
+    whatever ``trial_params["continual_candidate"]`` holds."""
+    from tensorflowonspark_tpu_torch import gpt_continual
+
+    return gpt_continual.eval_predict(model, records, None)
+
+
+def swap_count(events_path: str) -> int:
+    """Hot swaps the tier's event log records (done and failed)."""
+    from tensorflowonspark_tpu_torch.observability import EventLog
+
+    return sum(e["kind"] in ("model_swapped", "model_swap_failed")
+               for e in EventLog.read(events_path))
+
+
+def run_continual_loop(seed: int, card: str, wd: str, serving, trained: dict, pool: list,
+                       solo_v2: list, policy: dict, device: str = "cuda",
+                       worker_env: dict | None = None, timeout: float = 300.0,
+                       width: dict | None = None) -> dict:
+    """Phase 23b (:data:`CONTINUAL`) on a live tier whose ``gpt@v2`` serves
+    ``pool``: ``ContinualPipeline(serving, "gpt", base_builder=tier_builder,
+    eval_spec=OfflineEval(...)).run(gpt_continual.trainer_fn, ...)`` with
+    traffic flowing.  Gates: ``step-<steps>`` ends ``promoted``; the journal
+    holds its candidate, ``offline_eval`` and ``rollout`` stages and
+    ``continual_done promoted`` in that order; every stream during the
+    rollout equals v2's or the candidate's solo greedy and every one after
+    it the candidate's (``apply_adapter(v1, delta)`` in float32, this
+    process); the promoted delta is the trainer's step checkpoint less v1,
+    leaf for leaf and digest for digest; the kernels launch 12 / 1 / 1 (K1 /
+    K2 / K3) a training step and K1 12 an eval batch, counted in the
+    workers.  Then the healthy delta times ``bad_scale`` must end
+    ``rejected_offline`` with no swap and no version change; in this
+    process, over the same held-out rows, the sound eval must reject it and
+    an eval predict_fn that ignores the candidate must pass it.  ``width`` overrides :data:`CONTINUAL` for a rehearsal on the
+    CPU.  Returns the readings, the workers' launches and the promoted
+    ``version`` with its ``payload``."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import gpt_continual as gc
+    from tensorflowonspark_tpu_torch.batch import ShardManifest
+    from tensorflowonspark_tpu_torch.checkpoint import restore_checkpoint
+    from tensorflowonspark_tpu_torch.continual import (CONTINUAL_QUEUES, ContinualPipeline,
+                                                       OfflineEval, Publication, diff_params,
+                                                       payload_digest)
+    from tensorflowonspark_tpu_torch.models.gpt import greedy_generate
+    from tensorflowonspark_tpu_torch.serving import RolloutPolicy, apply_adapter
+    from tensorflowonspark_tpu_torch.serving.journal import ControlPlaneJournal
+
+    c = {**CONTINUAL, **(width or {})}
+    f32, v1 = serving_config(trained), trained["params"]
+    layers = f32.num_layers if device == "cuda" else 0
+    twd = os.path.dirname(serving.journal.path)
+    stats_dir = os.path.join(wd, "continual_stats")
+    os.makedirs(stats_dir, exist_ok=True)
+    base_args = {"continual_base_builder": tier_builder, "tier_cfg": f32,
+                 "tier_weights": os.path.join(wd, "tier_weights.pt"), "device": device}
+    rows = gc.plus_one_rows(c["eval_rows"], c["seq_len"], f32.vocab_size, seed + 231)
+    shards = np.split(rows, c["eval_shards"])
+
+    # v1's loss through the same predict_fn, in this process, on the card
+    t0 = time.perf_counter()
+    model = gc.eval_model_builder(base_args)
+    v1_losses = [gc.row_losses(gc.eval_predict(model, s, None)) for s in shards]
+    reference = float(np.mean(v1_losses))
+    reference_s = time.perf_counter() - t0
+    scorer = gc.loss_scorer(reference, CONTINUAL_MARGIN)
+    spec = OfflineEval(
+        manifest=ShardManifest.from_arrays(shards),
+        output_dir=os.path.join(wd, "continual_eval"), predict_fn=gc.eval_predict,
+        scorer=scorer, num_workers=1,
+        job_kwargs={"batch_size": c["eval_batch"], "model_builder": gc.eval_model_builder,
+                    "predict_args": {**base_args, "stats_dir": stats_dir}},
+        run_kwargs={"worker_env": worker_env, "max_restarts": 0,
+                    "working_dir": os.path.join(wd, "continual_eval_wd"),
+                    "reservation_timeout": timeout, "shutdown_timeout": timeout})
+    pipe = ContinualPipeline(serving, "gpt", base_builder=tier_builder, eval_spec=spec,
+                             policy=RolloutPolicy(**policy))
+    stages = ("ingest", "offline_eval", "rollout")
+    stage0 = {k: pipe._h_stage.labels(stage=k).fold()["sum"] for k in stages}
+    arrived = {}
+    process = pipe.process
+
+    def timed_process(pub):
+        arrived[pub.version] = time.time()      # the collector's poll just returned it
+        return process(pub)
+
+    pipe.process = timed_process
+    rollout, during = pipe._rollout, []
+
+    def rollout_under_traffic(version):
+        # the canary's gates read live requests: clients stream while it runs
+        stop = threading.Event()
+        threads, recs = stream_clients(serving.address, serving.authkey,
+                                       [(i, *pool[i]) for i in range(len(pool))],
+                                       len(pool) // 2, timeout, stop=stop)
+        try:
+            return rollout(version)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout)
+            during.extend(recs)
+
+    pipe._rollout = rollout_under_traffic
+    train_args = {**base_args, "model_id": "gpt", "model_dir": os.path.join(wd, "continual_model"),
+                  "steps": c["steps"], "batch_size": c["batch_size"], "seq_len": c["seq_len"],
+                  "lr": c["lr"], "seed": seed + 232, "stats_dir": stats_dir}
+    events = os.path.join(twd, "serving_events.jsonl")
+    t_run = time.perf_counter()
+    outcomes = pipe.run(gc.trainer_fn, train_args, 1, queues=CONTINUAL_QUEUES,
+                        max_restarts=0, poll_interval=0.2,
+                        worker_env={**(worker_env or {}), "TFOS_PUBLISH_DRAIN_SECS": "600"},
+                        working_dir=os.path.join(wd, "continual_train"),
+                        reservation_timeout=timeout, shutdown_timeout=timeout)
+    run_s = time.perf_counter() - t_run
+    pipe.process, pipe._rollout = process, rollout
+    version = f"step-{c['steps']}"
+    stage_s = {k: pipe._h_stage.labels(stage=k).fold()["sum"] - stage0[k] for k in stages}
+    pub = pipe.load_publication(version)
+    if pub is None:
+        raise SystemExit(f"continual loop: no stored publication of {version} "
+                         f"(outcomes {outcomes})")
+    [trainer] = gc.read_stats(stats_dir, "trainer")
+    evals = gc.read_stats(stats_dir, "eval_stats")
+
+    # the candidate's oracle: apply_adapter(v1, delta) in float32, here
+    cand = apply_adapter(v1, pub.payload)
+    solo_cand = [greedy_generate(f32, cand, np.asarray([p]), n)[0, len(p):].tolist()
+                 for p, n in pool]
+    threads, post = stream_clients(serving.address, serving.authkey,
+                                   [(i, *pool[i]) for i in range(len(pool))], 4, timeout)
+    for t in threads:
+        t.join(timeout)
+    saved = restore_checkpoint(train_args["model_dir"])["model"]     # its one step
+    v1_cpu = {n: t.detach().cpu() for n, t in v1.items()}
+    want_delta = diff_params(v1_cpu, saved)
+    delta_ok = set(want_delta) == set(pub.payload) and all(
+        np.array_equal(want_delta[n], pub.payload[n]) for n in want_delta) \
+        and payload_digest(want_delta) == pub.digest
+    trainable = gc.trainable_prefixes(f32)
+    recs = [(x["kind"], x.get("stage") or x.get("outcome"))
+            for x in ControlPlaneJournal.read_records(serving.journal.path)
+            if x["kind"].startswith("continual_") and x.get("version") == version]
+    r = {"outcomes": {f"{m}@{v}": o for (m, v), o in outcomes.items()}, "run_s": run_s,
+         "reference_loss": reference, "reference_s": reference_s, "stage_s": stage_s,
+         "eval": pipe.registry.version("gpt", version).eval_metrics,
+         "nbytes": pub.nbytes, "leaves": len(pub.payload),
+         "values": int(sum(a.size for a in pub.payload.values())),
+         "transfer_s": arrived.get(version, float("nan")) - trainer["published_at"],
+         "trainer": trainer, "journal": recs, "delta_is_checkpoint_less_v1": delta_ok,
+         "during_of": len(during),
+         "during_v2_or_cand": sum(x["error"] is None and x["tokens"] in
+                                  (solo_v2[x["i"]], solo_cand[x["i"]]) for x in during),
+         "during_cand": sum(x["tokens"] == solo_cand[x["i"]] != solo_v2[x["i"]]
+                            for x in during),
+         "cand_differs": sum(a != b for a, b in zip(solo_v2, solo_cand)),
+         "post_equal": sum(x["error"] is None and x["tokens"] == solo_cand[x["i"]]
+                           for x in post), "post_of": len(post),
+         "versions": serving.scheduler.model_versions("gpt")}
+    del cand
+
+    # the bad candidate: the healthy delta times bad_scale, a new label
+    bad_payload = {n: (c["bad_scale"] * a).astype(a.dtype) for n, a in pub.payload.items()}
+    bad = Publication(model="gpt", version=f"{version}-x{c['bad_scale']:g}", flavor="adapter",
+                      step=pub.step, payload=bad_payload, serve_args={}, metadata={},
+                      digest=payload_digest(bad_payload), src=0, seq=pub.seq + 1)
+    swaps0, versions0 = swap_count(events), serving.scheduler.model_versions("gpt")
+    t0 = time.perf_counter()
+    r["bad_outcome"] = pipe.process(bad)
+    r["bad_s"] = time.perf_counter() - t0
+    r["bad_eval"] = pipe.registry.version("gpt", bad.version).eval_metrics
+    r["bad_swaps"] = swap_count(events) - swaps0
+    r["bad_versions_same"] = serving.scheduler.model_versions("gpt") == versions0
+    evals = gc.read_stats(stats_dir, "eval_stats")
+    # the same held-out rows and scorer in this process: the sound eval must
+    # reject the bad candidate, and one that ignores it (the planted fault)
+    # scores the base and so passes it
+    trial = {"continual_candidate": {"version": bad.version, "flavor": "adapter",
+                                     "payload": bad_payload}}
+    r["sound_eval"], sound_pass = scorer([b for s in shards
+                                          for b in gc.eval_predict(model, s, trial)])
+    r["fault_eval"], fault_pass = scorer([b for s in shards
+                                          for b in ignoring_candidate_predict(model, s, trial)])
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    per_step = trainer["launches"]
+    r["launches"] = {
+        "trainer": {k: sum(s[k] for s in per_step) for k in gc.KERNELS},
+        "eval": {k: sum(e["launches"][k] for e in evals) for k in gc.KERNELS},
+        "eval_batches": sum(e["batches"] for e in evals)}
+    want_step = {"flash_attention_fwd": layers, "flash_attention_dq": min(layers, 1),
+                 "flash_attention_dkv": min(layers, 1)}
+    ok = {"promoted": outcomes == {("gpt", version): "promoted"},
+          "journal": recs == [("continual_candidate", None), ("continual_stage", "offline_eval"),
+                              ("continual_stage", "rollout"), ("continual_done", "promoted")],
+          "during": r["during_v2_or_cand"] == r["during_of"] >= 1,
+          "post": r["post_equal"] == r["post_of"] and r["versions"] == {version: [0, 1]},
+          "delta": delta_ok and all(n.startswith(trainable) for n in pub.payload),
+          "candidate changes a stream": r["cand_differs"] >= 1,
+          "trainer launches": all(s == want_step for s in per_step),
+          "eval launches": r["launches"]["eval_batches"] == 2 * c["eval_shards"]
+                           and r["launches"]["eval"]["flash_attention_fwd"]
+                           == layers * r["launches"]["eval_batches"],
+          "bad rejected offline": r["bad_outcome"] == "rejected_offline",
+          "bad never loaded": r["bad_swaps"] == 0 and r["bad_versions_same"]}
+    log(f"continual loop on {card}: outcomes {r['outcomes']} in {run_s:.1f} s (trainer boot, "
+        f"{c['steps']} steps, publication, offline eval, rollout); stage seconds {stage_s}; "
+        f"v1's eval loss {reference:.5f} ({reference_s:.1f} s in this process), the "
+        f"candidate's {r['eval']}; publication {r['nbytes']} bytes ({r['values']} float32 "
+        f"values in {r['leaves']} leaves), transfer {r['transfer_s']:.3f} s; trainer losses "
+        f"{[round(x, 5) for x in trainer['losses']]}, step ms "
+        f"{[round(x, 1) for x in trainer['step_ms']]}, save and publish "
+        f"{trainer['save_and_publish_s']:.2f} s, its CUDA context and v1's load "
+        f"{trainer['load_s']} s; the eval workers' {[e['load_s'] for e in evals]} s, "
+        f"median predict call {[statistics.median(e['batch_ms']) for e in evals]} ms; journal {recs}; delta = the checkpoint less v1 "
+        f"leaf for leaf: {delta_ok}; {r['during_v2_or_cand']}/{r['during_of']} streams during "
+        f"the loop equal v2's or the candidate's ({r['during_cand']} the candidate's), "
+        f"{r['post_equal']}/{r['post_of']} after it the candidate's (it changes "
+        f"{r['cand_differs']} of {len(pool)}), versions {r['versions']}; launches "
+        f"{r['launches']} (a training step {per_step[0] if per_step else None})")
+    log(f"continual loop, bad candidate (x{c['bad_scale']:g}): {r['bad_outcome']} in "
+        f"{r['bad_s']:.1f} s, eval {r['bad_eval']}, swaps {r['bad_swaps']}, versions "
+        f"unchanged {r['bad_versions_same']}; on the {c['eval_rows']} held-out rows in this "
+        f"process: sound eval {r['sound_eval']} (passed {sound_pass}), an eval ignoring the "
+        f"candidate (planted fault) {r['fault_eval']} (passed {fault_pass})")
+    failed = [k for k, v in ok.items() if not v]
+    if sound_pass:
+        failed.append("the sound eval in this process passes the bad candidate")
+    if not fault_pass:
+        failed.append("the eval that ignores the candidate rejects it")
+    log(f"continual loop gate: {'passed' if not failed else 'FAILED: ' + ', '.join(failed)}")
+    if failed:
+        raise SystemExit(f"the continual loop's gate failed: {failed}")
+    r["version"], r["payload"] = version, pub.payload
+    return r
+
+
+def continual_readings(seed: int, trained: dict, wd: str, device: str = "cuda",
+                       width: dict | None = None) -> dict:
+    """Phase 23b's offline-gate readings, in this process
+    (``--calibrate-continual``): the held-out rows' mean eval loss under v1
+    (phase 13's weights ``trained``), under the candidate the trainer's
+    steps make from it, and under the bad candidate (its delta times
+    ``bad_scale``), through the phase's own ``finetune`` and
+    ``eval_predict``."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import gpt_continual as gc
+    from tensorflowonspark_tpu_torch.continual import diff_params
+
+    c = {**CONTINUAL, **(width or {})}
+    f32 = serving_config(trained)
+    path = os.path.join(wd, "tier_weights.pt")
+    torch.save({n: t.detach().cpu() for n, t in trained["params"].items()}, path)
+    args = {"continual_base_builder": tier_builder, "tier_cfg": f32, "tier_weights": path,
+            "device": device}
+    rows = gc.plus_one_rows(c["eval_rows"], c["seq_len"], f32.vocab_size, seed + 231)
+    train = gc.plus_one_rows(c["steps"] * c["batch_size"], c["seq_len"], f32.vocab_size,
+                             seed + 232)
+    model = gc.eval_model_builder(args)
+    out = gc.finetune(f32, model["base"], np.split(train, c["steps"]), c["lr"],
+                      model["device"])
+    delta = diff_params(model["base"], out["model"].state_dict())
+    del out
+
+    def loss(payload):
+        trial = None if payload is None else {"continual_candidate": {
+            "version": str(id(payload)), "flavor": "adapter", "payload": payload}}
+        return float(np.mean([gc.row_losses(gc.eval_predict(model, s, trial))
+                              for s in np.split(rows, c["eval_shards"])]))
+
+    r = {"v1": loss(None), "candidate": loss(delta),
+         "bad": loss({n: c["bad_scale"] * a for n, a in delta.items()})}
+    r["candidate_minus_v1"], r["bad_minus_v1"] = r["candidate"] - r["v1"], r["bad"] - r["v1"]
+    log(f"continual gate readings, seed {seed}: eval loss v1 {r['v1']:.5f}, candidate "
+        f"{r['candidate']:.5f} ({r['candidate_minus_v1']:+.5f}), bad x{c['bad_scale']:g} "
+        f"{r['bad']:.5f} ({r['bad_minus_v1']:+.5f}); margin {CONTINUAL_MARGIN}")
+    return r
+
+
+def serving_config(trained: dict):
+    """Phase 13's configuration as the tier serves it: float32, no kernel."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(trained["cfg"], dtype=torch.float32, attention_fn=None)
+
+
 # ------------------------------------------------- the other models (slice 9)
 
 #: the 26 categorical vocabularies of Criteo Kaggle (the DLRM repository's
@@ -3355,8 +3918,10 @@ CRITEO_KAGGLE_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93
 #: phase 15's dense run: the JAX example takes one vocab for all 26
 #: features, so 1,298,561 rows each gives the Kaggle total (33.76M rows,
 #: 2.2 GB of float32 embeddings at 16 wide); the replay on the CPU covers
-#: the first ``replay_steps`` (the worker checkpoints there too)
-WIDE_DEEP = {"vocab_size": 1_298_561, "embed_dim": 16, "batch_size": 8192, "steps": 8,
+#: the first ``replay_steps`` (the worker checkpoints there too); 4
+#: steps, not 8, for time (the steps after the replay's end, and their
+#: 2.2 GB checkpoint, were gated by nothing)
+WIDE_DEEP = {"vocab_size": 1_298_561, "embed_dim": 16, "batch_size": 8192, "steps": 4,
              "lr": 0.05, "save_every": 4, "replay_steps": 4}
 #: the Wide&Deep gates against the CPU replay (float32 both sides, no TF32):
 #: each step's loss, relative; ||w - w_cpu|| / ||w_cpu - w0|| of the MLP's
@@ -4138,6 +4703,10 @@ def main() -> int:
                    help="only build the kernels, train phase 13's model at seeds "
                         "--seed..--seed+2 and log phase 19's readings on each (the bf16 tie "
                         "margins among them), and exit (no result)")
+    p.add_argument("--calibrate-continual", action="store_true",
+                   help="only build the kernels, train phase 13's model at seeds "
+                        "--seed..--seed+2 and log phase 23b's offline-gate readings on each, "
+                        "and exit (no result)")
     p.add_argument("--calibrate-gpt", action="store_true",
                    help="only build the kernels and log phase 13's and 13b's gate readings "
                         "at seeds --seed..--seed+2, at GPT_LR and at gpt_tiny's own rate "
@@ -4191,6 +4760,21 @@ def main() -> int:
                 out = gpt_tiny.train(gpt_args(seed, os.path.join(wd, f"gpt_{seed}")),
                                      torch.device("cuda"))
                 check_serving(seed, card, out, gate=False)
+                del out
+                torch.cuda.empty_cache()
+                log(f"calibration seed {seed}: {time.perf_counter() - t0:.1f} s")
+        return 0
+
+    if args.calibrate_continual:
+        build_kernels()
+        from tensorflowonspark_tpu_torch.examples.gpt import gpt_tiny
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+            for seed in range(args.seed, args.seed + 3):
+                t0 = time.perf_counter()
+                out = gpt_tiny.train(gpt_args(seed, os.path.join(wd, f"gpt_{seed}")),
+                                     torch.device("cuda"))
+                continual_readings(seed, out, wd)
                 del out
                 torch.cuda.empty_cache()
                 log(f"calibration seed {seed}: {time.perf_counter() - t0:.1f} s")
@@ -4322,7 +4906,10 @@ def main() -> int:
         from tensorflowonspark_tpu_torch import bench_gpt_decode
 
         t0 = time.perf_counter()
-        print(json.dumps(bench_gpt_decode.bench(seed=args.seed)), flush=True)
+        # one timed decode of 64 tokens a row after the warm-up (the module's
+        # defaults are 3 of 128): cut for time
+        print(json.dumps(bench_gpt_decode.bench(seed=args.seed, new_tokens=64, iters=1)),
+              flush=True)
         phase_s["14 decode bench"] = time.perf_counter() - t0
 
         # 15-18. the other models: Wide&Deep at Criteo scale, Inception-v3,
@@ -4341,7 +4928,8 @@ def main() -> int:
         from tensorflowonspark_tpu_torch import bench_batcher
 
         t0 = time.perf_counter()
-        print(json.dumps(bench_batcher.bench(seed=args.seed)), flush=True)
+        # 8 requests (the module's default is 16): cut for time
+        print(json.dumps(bench_batcher.bench(seed=args.seed, n_req=8)), flush=True)
         phase_s["19-20 batcher bench"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
 
@@ -4355,6 +4943,15 @@ def main() -> int:
         rest_of_tier = timed("22 rollout and disagg tiers", run_rest_of_tier, args.seed, card,
                              wd, gpt_train, serving_tier)
         del gpt_train["params"]
+        torch.cuda.empty_cache()
+        continual = rest_of_tier["rollout"]["continual"]
+        phase_s["23b continual loop (in 22)"] = rest_of_tier["rollout"]["continual_s"]
+
+        # 23a. the batch plane: phase 6's BERT-base QA through a BatchJob whose
+        # worker is killed and relaunched (23b ran on phase 22's tier A)
+        batch_plane = timed("23a batch plane", run_batch_plane, args.seed, card, wd)
+        batch_and_continual = {k: batch_plane[k] + continual["launches"]["trainer"][k]
+                               + continual["launches"]["eval"][k] for k in KERNEL_NAMES}
         torch.cuda.empty_cache()
 
     # 10. the bench
@@ -4384,6 +4981,7 @@ def main() -> int:
                                       "cluster_serving": cluster_serving[e["name"]],
                                       "serving_tier": serving_tier[e["name"]],
                                       "rollout_and_disagg_tiers": rest_of_tier[e["name"]],
+                                      "batch_and_continual": batch_and_continual[e["name"]],
                                       "bert_cls_training":
                                           new_models["bert_cls"]["launches"][e["name"]]})
     log("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

@@ -22,7 +22,9 @@ and the chief writes a serving export with :func:`export_model` that
 ``transform(df)`` serves the export), the ``model_dir`` trainer
 (:class:`Estimator` with :func:`train_and_evaluate`) and
 :func:`run_with_recovery`, which relaunches a job after a lost worker,
-and the online tier (``serving.ServingCluster``).  The root exports the reference root's names for every module ported so
+the online tier (``serving.ServingCluster``), the batch-inference plane
+(``batch.BatchJob``) and the continual loop
+(``continual.ContinualPipeline``).  The root exports the reference root's names for every module ported so
 far.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
@@ -42,14 +44,34 @@ from tensorflowonspark_tpu_torch.checkpoint import (CheckpointManager,  # noqa: 
                                                     restore_checkpoint, save_checkpoint)
 from tensorflowonspark_tpu_torch.data import Dataset, device_prefetch  # noqa: F401
 from tensorflowonspark_tpu_torch.dataframe import DataFrame, Row  # noqa: F401
-from tensorflowonspark_tpu_torch.estimator import (Estimator, EvalSpec,  # noqa: F401
-                                                   TrainSpec, train_and_evaluate)
 from tensorflowonspark_tpu_torch.preemption import PreemptionGuard  # noqa: F401
 from tensorflowonspark_tpu_torch.pipeline import (Namespace, Pipeline,  # noqa: F401
                                                   ParamGridBuilder, TFEstimator,
                                                   TFModel, TrainValidationSplit,
                                                   CrossValidator)
 from tensorflowonspark_tpu_torch import gpu_info, metrics, tracing  # noqa: F401,E402
-# the online serving tier over ContinuousBatcher replicas; the replicas'
-# model imports happen inside the worker map_fun, not at import time
-from tensorflowonspark_tpu_torch import serving  # noqa: F401,E402
+# the batch-inference plane (manifest-driven, resumable bulk predict) and
+# the continual loop (checkpoint publication, offline gate, journaled
+# rollout); their model imports happen inside the worker map_fun
+from tensorflowonspark_tpu_torch import batch, continual  # noqa: F401,E402
+
+# the Estimator and the online serving tier (over ContinuousBatcher
+# replicas) import torch: they load at their first use, so a worker whose
+# map_fun needs neither starts without torch
+_LAZY = {"Estimator": "estimator", "EvalSpec": "estimator", "TrainSpec": "estimator",
+         "train_and_evaluate": "estimator", "serving": "serving"}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    mod = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+    value = mod if name == _LAZY[name] else getattr(mod, name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

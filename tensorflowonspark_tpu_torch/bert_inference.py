@@ -21,6 +21,13 @@ kernel, which the worker's launch count shows.
 
     rows = make_rows(64, 384, vocab_size=30522, seed=0)
     results, stats = run_inference(rows, BERT_BASE, seed=0, batch_size=16)
+
+The batch plane's half (:class:`~tensorflowonspark_tpu_torch.batch.BatchJob`):
+:func:`batch_model_builder` builds the model once a scoring worker, on its
+card, from a ``model_dir`` checkpoint, and :func:`batch_predict` scores
+``tf.train.Example`` records (``input_ids``, ``attention_mask``,
+``token_type_ids``, as ``dfutil`` writes them) into one record a row: the
+start logits then the end logits, float32 bytes.
 """
 
 from __future__ import annotations
@@ -214,3 +221,80 @@ def run_inference(rows: list, config: dict | None = None, *, seed: int = 0,
         with open(os.path.join(cluster.working_dir, f"bert_stats.{i}.json")) as f:
             stats.append(json.load(f))
     return results, stats
+
+
+#: the QA model's input columns, in its argument order
+INPUT_COLUMNS = ("input_ids", "attention_mask", "token_type_ids")
+
+
+def batch_model_builder(args: dict) -> dict:
+    """``BatchJob``'s ``model_builder``: the QA model of ``args["config"]``
+    on ``args["device"]`` (the card by default) with the flash attention,
+    its weights restored from the ``"model"`` entry of
+    ``args["model_dir"]``'s latest checkpoint straight into the model's
+    storage on the device (the optimizer's moments stay on disk).  Built
+    once a worker process; the returned dict is what :func:`batch_predict`
+    receives.  ``args["stats_dir"]``, when given, receives
+    the process's predict batches, kernel launches and build seconds
+    (``batch_stats.<pid>.json``)."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.checkpoint import CheckpointManager
+    from tensorflowonspark_tpu_torch.models.bert import BertForQuestionAnswering
+    from tensorflowonspark_tpu_torch.util import (resolve_device,
+                                                  strict_matmul_precision)
+
+    t0 = time.perf_counter()
+    device = resolve_device(args.get("device"))
+    strict_matmul_precision()
+    if device.type == "cpu":
+        torch.set_num_threads(1)  # CPU workers share the host's cores
+    torch.empty(1, device=device).cpu()           # the process's CUDA context, timed apart
+    t_cuda = time.perf_counter()
+    with torch.device("meta"):
+        model = BertForQuestionAnswering(qa_config(args["config"]))
+    model = model.to_empty(device=device).eval()
+    CheckpointManager(args["model_dir"]).restore(target={"model": model.state_dict()})
+    return {"model": model, "device": device, "batch_size": int(args["batch_size"]),
+            "stats_dir": args.get("stats_dir"),
+            "batches": 0, "launches": 0, "batch_launches": [], "batch_ms": [],
+            "build_s": {"cuda": t_cuda - t0, "restore": time.perf_counter() - t_cuda}}
+
+
+def decode_rows(records) -> list:
+    """The model's three input columns (:data:`INPUT_COLUMNS`) of serialized
+    Examples, as int32 arrays ``[n, T]``."""
+    from tensorflowonspark_tpu_torch import example_proto
+
+    rows = [example_proto.decode_example(r) for r in records]
+    return [np.asarray([row[c][1] for row in rows], np.int32) for c in INPUT_COLUMNS]
+
+
+def batch_predict(model: dict, records, trial_params) -> list[bytes]:
+    """``BatchJob``'s ``predict_fn``: score serialized Examples with the
+    model of :func:`batch_model_builder` (one padded batch of its
+    ``batch_size``); one record a row, ``start`` then ``end`` logits as
+    float32 bytes.  Counts the flash kernel's launches of each call."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.ops import flash_attention
+
+    t0 = time.perf_counter()
+    cols = decode_rows(records)
+    launches0 = flash_attention.launches
+    with torch.inference_mode():
+        start, end = forward_batch(model["model"], cols, model["batch_size"],
+                                   model["device"])
+    n = flash_attention.launches - launches0
+    model["batches"] += 1
+    model["launches"] += n
+    model["batch_launches"].append(n)
+    model["batch_ms"].append((time.perf_counter() - t0) * 1e3)
+    if model.get("stats_dir"):
+        path = os.path.join(model["stats_dir"], f"batch_stats.{os.getpid()}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump({k: model[k] for k in ("batches", "launches", "batch_launches",
+                                             "batch_ms", "build_s")}, f)
+        os.replace(path + ".tmp", path)
+    return [np.concatenate([s, e]).astype(np.float32).tobytes()
+            for s, e in zip(start, end)]

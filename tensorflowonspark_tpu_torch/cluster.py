@@ -2,7 +2,8 @@
 
 Port of ``tensorflowonspark_tpu/cluster.py``, itself the equivalent of the
 reference's ``tensorflowonspark/TFCluster.py``.  :class:`LocalProcessBackend`
-spawns N worker processes on this machine (``multiprocessing`` spawn), one
+starts N worker processes on this machine (``multiprocessing``'s fork
+server, which has imported torch once), one
 per card; each runs the node harness (``node.run``) and the user's
 ``map_fun``.  The user-facing contract is the reference's:
 
@@ -11,8 +12,8 @@ per card; each runs the node harness (``node.run``) and the user's
     preds = cluster.inference(data)
     cluster.shutdown(grace_secs=0)
 
-The driver never initialises CUDA: workers are spawned (not forked) and
-each applies its ``worker_env`` (``CUDA_VISIBLE_DEVICES`` for instance)
+Workers are forked from the fork server, never from the driver (which
+may have initialised CUDA), and each applies its ``worker_env`` (``CUDA_VISIBLE_DEVICES`` for instance)
 before its ``map_fun`` first touches ``torch.cuda``.
 
 :func:`run_with_recovery` is the driver loop that relaunches the whole
@@ -32,6 +33,7 @@ import contextlib
 import itertools
 import logging
 import multiprocessing as mp
+import multiprocessing.connection
 import os
 import secrets
 import tempfile
@@ -55,20 +57,28 @@ class InputMode:
     TENSORFLOW = 1   # nodes read their own data
 
 
-def _worker_entry(executor_id: int, env: dict, fn, tf_args, cluster_meta: dict,
-                  queues) -> None:
-    """Top-level child-process entry (must be picklable for mp 'spawn').
+def _worker_entry(executor_id: int, parent_env: dict, env: dict, fn, tf_args,
+                  cluster_meta: dict, queues) -> None:
+    """Top-level child-process entry (must be picklable).
 
-    Sets per-worker env before anything in this process initialises CUDA,
-    so visibility flags take effect, then runs the node harness
+    Takes the driver's environment as it was at the start of this worker
+    (a forked worker inherits the fork server's, which is older) plus its
+    per-worker env, before anything in this process initialises CUDA, so
+    visibility flags take effect, then runs the node harness
     (``node.run``), mirroring how a Spark task process executes
     ``TFSparkNode._mapfn``.
     """
+    os.environ.clear()
+    os.environ.update(parent_env)
     os.environ.update({k: str(v) for k, v in env.items()})
     logging.basicConfig(level=logging.INFO,
                         format=f"%(asctime)s [node {executor_id}] %(message)s")
     mapfn = tpu_node.run(fn, tf_args, cluster_meta, queues=queues)
     mapfn(executor_id)
+
+
+#: what the workers' fork server imports once, before it forks any
+FORKSERVER_PRELOAD = ["__main__", "torch"]
 
 
 class LocalProcessBackend:
@@ -77,6 +87,11 @@ class LocalProcessBackend:
     def __init__(self, worker_env: dict | None = None):
         self.worker_env = worker_env or {}
         self.procs: list[mp.Process] = []
+        # a forked worker's exit code is read once from the fork server's
+        # pipe: two threads polling one process (the monitor and a join)
+        # would leave the second an EOF, which multiprocessing reports as
+        # exit code 255, so every poll holds this lock
+        self._poll_lock = threading.Lock()
 
     def start(self, num_workers: int, fn, tf_args, cluster_meta: dict, queues) -> None:
         self.procs = []  # restartable: a relaunch must not index old procs
@@ -85,11 +100,15 @@ class LocalProcessBackend:
 
     def _spawn(self, executor_id: int, fn, tf_args, cluster_meta: dict,
                queues) -> None:
-        ctx = mp.get_context("spawn")  # fork is unsafe once CUDA is initialised
+        # forked from a fork server that has imported torch (seconds a
+        # process) and never touches CUDA; forking the driver itself is
+        # unsafe once it has initialised CUDA
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload(FORKSERVER_PRELOAD)
         p = ctx.Process(
             target=_worker_entry,
-            args=(executor_id, self.worker_env, fn, tf_args, cluster_meta,
-                  queues),
+            args=(executor_id, dict(os.environ), self.worker_env, fn, tf_args,
+                  cluster_meta, queues),
             name=f"tfos-node-{executor_id}", daemon=False)
         p.start()
         self.procs.append(p)
@@ -108,30 +127,30 @@ class LocalProcessBackend:
             self._spawn(i, fn, tf_args, cluster_meta, queues)
 
     def alive(self) -> list[bool]:
-        return [p.is_alive() for p in self.procs]
+        return [code is None for code in self.exitcodes().values()]
 
     def failed(self) -> list[int]:
-        return [i for i, p in enumerate(self.procs)
-                if (not p.is_alive()) and p.exitcode not in (0, None)]
+        return [i for i, code in self.exitcodes().items() if code not in (0, None)]
 
     def exitcodes(self) -> dict[int, int | None]:
         """Exit codes by executor id (None while alive) — the monitor's
         crash-vs-preemption classifier reads the signal number from here."""
-        return {i: p.exitcode for i, p in enumerate(self.procs)}
+        with self._poll_lock:
+            return {i: p.exitcode for i, p in enumerate(self.procs)}
 
     def join(self, timeout: float | None = None) -> bool:
         deadline = None if timeout is None else time.monotonic() + timeout
         for p in self.procs:
             remaining = None if deadline is None else max(0.0, deadline - time.monotonic())
-            p.join(remaining)
-        return all(not p.is_alive() for p in self.procs)
+            mp.connection.wait([p.sentinel], remaining)   # waits, reads nothing
+        return not any(self.alive())
 
     def terminate(self) -> None:
-        for p in self.procs:
-            if p.is_alive():
+        for p, alive in zip(self.procs, self.alive()):
+            if alive:
                 p.terminate()
         for p in self.procs:
-            p.join(5)
+            mp.connection.wait([p.sentinel], 5)
 
 
 class TPUCluster:
@@ -962,7 +981,7 @@ def _watch_for_crashes(backend, server: Server, status: dict) -> None:
                 f"worker(s) {failed} exited during bootstrap. If this driver "
                 "script runs at module top level, wrap it in `if __name__ == "
                 "'__main__':` — worker processes re-import the main module "
-                "(multiprocessing 'spawn'), like PySpark driver scripts."
+                "(multiprocessing's fork server), like PySpark driver scripts."
             )
             return
         time.sleep(0.25)

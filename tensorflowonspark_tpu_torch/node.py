@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 import traceback
 
 from tensorflowonspark_tpu_torch import chaos as chaos_mod
@@ -257,6 +258,7 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
             logger.info("node %d starting map_fun as %s:%d", executor_id, job_name, task_index)
             reporter.set_phase("run")
             fn(tf_args, ctx)
+            _drain_publish_queue(mgr, executor_id)
             mgr.kv_set("state", "finished")
             reporter.set_phase("finished")
             logger.info("node %d map_fun finished", executor_id)
@@ -290,6 +292,37 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
                 client.close()
 
     return _mapfn
+
+
+def _drain_publish_queue(mgr, executor_id: int,
+                         qname: str = "publish") -> None:
+    """Linger until the continual loop's ``publish`` queue is drained
+    before a CLEAN worker exit: the queue server dies with this process,
+    so a candidate published moments before ``map_fun`` returned (the
+    final checkpoint's publication) would be lost mid-wire while the
+    driver's collector is still polling.  Bounded by
+    ``TFOS_PUBLISH_DRAIN_SECS`` (default 60) so a cluster booted with a
+    ``publish`` queue but no collector cannot hang its workers; a crash
+    exit skips this — a torn publication is the collector's
+    whole-or-nothing problem."""
+    q = getattr(mgr, "queues", {}).get(qname)
+    if q is None or q.qsize() == 0:
+        return
+    deadline = time.monotonic() + float(
+        os.environ.get("TFOS_PUBLISH_DRAIN_SECS", "60"))
+    logger.info("node %d waiting for %d pending publication(s) to drain",
+                executor_id, q.qsize())
+    while q.qsize() > 0 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if q.qsize() > 0:
+        logger.warning(
+            "node %d exiting with %d undrained publication(s) on %r — "
+            "no collector picked them up within TFOS_PUBLISH_DRAIN_SECS",
+            executor_id, q.qsize(), qname)
+    else:
+        # the last get left the server's reply in flight; give the
+        # socket a beat so the payload clears this process's buffers
+        time.sleep(0.1)
 
 
 def _role_for(cluster_template: dict[str, list[int]], executor_id: int) -> tuple[str, int]:

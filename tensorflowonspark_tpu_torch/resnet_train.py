@@ -295,12 +295,15 @@ def run_training(args: dict, num_workers: int = 1, worker_env: dict | None = Non
     return stats, restore_checkpoint(args["model_dir"])["model"]
 
 
-def train_in_process(args: dict, num_workers: int = 1, device=None):
+def train_in_process(args: dict, num_workers: int = 1, device=None,
+                     restored: dict | None = None):
     """The cluster's run replayed in this process: one replica trained on
     every worker's batches side by side (worker 0's first), which is what
-    DDP with global-batch BatchNorm computes.  Returns ``(losses,
-    weights)``: the mean loss a step and the final state dict on the
-    CPU."""
+    DDP with global-batch BatchNorm computes.  With ``restored`` (a
+    checkpoint's state, as :func:`map_fun` restores it) the run resumes
+    from that state and input position, as a relaunched cluster would.
+    Returns ``(losses, weights)``: the mean loss a step and the final state
+    dict on the CPU."""
     import torch
 
     from tensorflowonspark_tpu_torch.data import device_prefetch
@@ -309,8 +312,13 @@ def train_in_process(args: dict, num_workers: int = 1, device=None):
     args = _args(args)
     device = resolve_device(device if device is not None else args.get("device"))
     state, step = strategy_state(args, device)
+    consumed = 0
+    if restored is not None:
+        state.load_state_dict(restored)
+        consumed = int(restored["data"]["elements_consumed"])
     num_classes = state.module.fc.out_features
-    streams = [batches(args, i, num_workers, num_classes) for i in range(num_workers)]
+    streams = [batches(args, i, num_workers, num_classes).checkpointable(
+        {"elements_consumed": consumed}) for i in range(num_workers)]
     losses = []
     for parts in zip(*streams):
         batch = tuple(torch.cat([p[c] for p in parts]) for c in range(2))

@@ -1436,6 +1436,11 @@ class ServingCluster:
             with contextlib.suppress(Exception):
                 self.metrics_http.stop()
             self.metrics_http = None
+        # a dead process journals nothing more: drop the scheduler's handle
+        # before the frontend's sockets close, or a stream thread that loses
+        # its client there journals its request abandoned and the resume
+        # never requeues it
+        self.scheduler.journal = None
         self.frontend.stop()
         self.scheduler.crash()
         if self.monitor is not None:

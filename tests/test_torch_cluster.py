@@ -274,13 +274,15 @@ NOT_PORTED_YET = {("ops", "quant", "shard_quantized"),
 #: packages whose ``__init__`` re-exports every submodule's names: a name
 #: of a module the port has not got counts as missing there, so each wait
 #: is listed in :data:`NOT_PORTED_YET` rather than skipped
-WHOLE_PACKAGES = {"serving"}
+WHOLE_PACKAGES = {"serving", "batch", "continual"}
 
 
-@pytest.mark.parametrize("package", ["models", "ops", "parallel", "serving"])
+@pytest.mark.parametrize("package", ["models", "ops", "parallel", "serving", "batch",
+                                     "continual"])
 def test_models_and_ops_export_the_reference_names_of_ported_modules(package):
     """For every module of the JAX package's ``models``/``ops``/``parallel``
-    imports that the port has — and every name of its ``serving`` package —
+    imports that the port has — and every name of its ``serving``, ``batch``
+    and ``continual`` packages —
     the port's package exports the same names (the port module's objects),
     the only gaps being :data:`NOT_PORTED_YET` — in a fresh interpreter
     that loads no JAX-family module."""
@@ -296,8 +298,18 @@ def test_models_and_ops_export_the_reference_names_of_ported_modules(package):
         else:
             missing.add((package, module, name))
     assert missing == {m for m in NOT_PORTED_YET if m[0] == package}
-    assert {"gpt", "convert", "quant", "xent", "embedding", "scheduler"} \
-        & {m for m, _ in expected}
+    assert {"gpt", "convert", "quant", "xent", "embedding", "scheduler", "job",
+            "publisher"} & {m for m, _ in expected}
+    if package == "batch":
+        assert {"BatchJob", "GridSearch", "expand_param_grid", "ProgressLedger", "Shard",
+                "ShardManifest", "batch_worker", "ShardWriter", "iter_part", "iter_results",
+                "read_results"} <= {n for _, n in expected}
+    if package == "continual":
+        assert {"CONTINUAL_QUEUES", "PUBLISH_QUEUE", "CheckpointPublisher", "Publication",
+                "PublicationCollector", "build_published_full", "diff_params",
+                "flatten_params", "payload_digest", "payload_nbytes", "replace_leaves",
+                "OUTCOMES", "ContinualPipeline", "OfflineEval",
+                "candidate_trial_params"} <= {n for _, n in expected}
     if package == "serving":
         assert {"AOTExecutableCache", "ServingCluster", "ServeFrontend", "ServeClient",
                 "FrontendUnavailable", "serve_replica", "StandbyPool", "serve_standby",

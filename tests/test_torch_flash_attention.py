@@ -284,6 +284,11 @@ def _padded_launches(monkeypatch, widths):
 
     monkeypatch.setattr(fa, "_fwd_launch", fwd)
     monkeypatch.setattr(fa, "_bwd_launch", bwd)
+    # the stand-ins' launches count in the process's counters, which later
+    # tests in this process read: put them back at teardown
+    monkeypatch.setattr(fa.flash_attention, "launches", fa.flash_attention.launches)
+    for name in ("launches_dq", "launches_dkv"):
+        monkeypatch.setattr(fa.flash_attention_bwd, name, getattr(fa.flash_attention_bwd, name))
     return fa
 
 

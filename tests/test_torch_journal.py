@@ -355,6 +355,34 @@ def test_client_stream_rides_through_frontend_restart():
         s.stop()
 
 
+def test_a_crash_journals_no_abandon_from_a_stream_cut_by_it(tmp_path):
+    """A stream thread that loses its client while the crash closes the
+    frontend's sockets abandons its request; the dead driver must not
+    journal that, so the resume still requeues the request (the JAX
+    package's ``crash`` stops the frontend while its scheduler still
+    journals, and its resume then answers the client ``unknown_request``)."""
+    from tensorflowonspark_tpu_torch.serving import (ControlPlaneJournal, ServeFrontend,
+                                                     ServingCluster)
+
+    jnl = ControlPlaneJournal(str(tmp_path / "cp.jsonl"))
+    s = _scheduler(PACKAGES[1], _FakeWorld(1), journal=jnl)   # not started: stays queued
+    req = s.submit(np.asarray([3, 4], np.int32), 6, trace="tr-cut")
+    fe = ServeFrontend(s, authkey=b"s" * 16)
+    tier = ServingCluster(None, s, None, fe, fe.start())
+    tier.journal = jnl
+    stop = fe.stop
+
+    def stop_and_lose_the_client():
+        stop()
+        s.abandon(req, reason="disconnect")      # the stream thread's except clause
+
+    fe.stop = stop_and_lose_the_client
+    tier.crash()
+    st = ControlPlaneJournal.replay(jnl.path)
+    assert [r.get("trace") for r in st.unfinished.values()] == ["tr-cut"]
+    assert st.committed == {}
+
+
 def test_a_stopped_frontend_frees_its_port_with_no_client_connected():
     """A driver crash with no client connected: the resumed frontend
     rebinds the crashed one's port at once (the JAX package's frontend
