@@ -227,14 +227,34 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    trainer's checkpoint less v1 leaf for leaf; the delta times -8 must end
    ``rejected_offline`` and never load, where an eval that ignores the
    candidate must pass it; phase 22's crash then resumes onto the promoted
-   version, and a pipeline rebuilt there settles nothing.
+   version, and a pipeline rebuilt there settles nothing;
+24. sequence parallelism through the reference's front door: one
+   ``HostAgent`` on localhost with a random authkey and
+   ``TFCluster.run(None, map_fun, args, 2, 0, True,
+   InputMode.TENSORFLOW, logdir, backend=AgentBackend(...))``: two workers
+   in a gloo group (they share the one card; NCCL takes one rank a device)
+   and a ``{dp: 1, sp: 2}`` mesh train the long-context LM of
+   ``examples/long_context/ring_lm.py`` at full BERT-base width (vocab
+   30522, hidden 768, 12 layers, 12 heads, FFN 3072) at B 1 x T 4096, 2048
+   positions a rank, bf16 on float32 parameters, Adam 1e-4: 4 steps with
+   Ulysses (K1 at [1, 4096, 6, 64] causal, K2 and K3 in the backward, each
+   12 times a step on each rank) and 4 with ring attention, from the same
+   seeded weights and data, each held to :data:`LONG_CONTEXT_TOL` against
+   an unsharded run in this process (plain causal attention over the whole
+   sequence) and with both ranks' parameters the same bit for bit, where
+   an exchange that swaps the head halves, a ring that masks by local
+   positions and a step that skips the ``sp`` gradient sum must not be; the chief's losses come back equal from its
+   ``SummaryWriter`` event file, its profiled step's trace names K1, and
+   ``cluster.tensorboard_url()`` is printed (``None`` without the
+   ``tensorboard`` package).
 
 ``python3 chip_smoke.py --calibrate-slice9`` only logs phases 15-18's gate
 readings at three seeds (the examples and the bench at the first);
 ``--calibrate-serving`` trains phase 13's model at three seeds and logs
 phase 19's readings on each; ``--calibrate-continual`` trains it at three
 seeds and logs phase 23b's offline-gate readings (v1's, the fine-tuned
-candidate's and the bad candidate's eval loss) on each.
+candidate's and the bad candidate's eval loss) on each;
+``--calibrate-long-context`` logs phase 24's readings at three seeds.
 
 Each phase's seconds are printed.  The ResNet, MNIST, Wide&Deep,
 Inception-v3 and U-Net paths run none of the repo's hand-written kernels
@@ -370,6 +390,9 @@ def flash_cases(seed: int):
         ("llama_window_bf16", 8, 1024, 1024, 12, 64, bf16, None, True, 512, 2e-2),
         # generation's (phase 14): the bf16 full forward at the prompt
         ("gen_causal_bf16", 4, 32, 32, 12, 64, bf16, None, True, None, 2e-2),
+        # the long-context LM's Ulysses arm (phase 24): after the exchange
+        # each of the two sp ranks holds the whole sequence and 6 of 12 heads
+        ("ulysses_causal_bf16", 1, 4096, 4096, 6, 64, bf16, None, True, None, 2e-2),
         ("bert_f32", 16, 384, 384, 12, 64, f32, bert_lens, False, None, 2e-5),
         ("causal_window_d128", 2, 512, 512, 8, 128, bf16, None, True, 128, 2e-2),
         ("tq_ne_tk", 4, 100, 300, 12, 64, bf16, [300, 250, 17, 299], False, None, 2e-2),
@@ -386,13 +409,15 @@ def flash_cases(seed: int):
     ]
 
 
-#: the cases timed beside their bound, plain version and SDPA: this
-#: slice's main path (phase 18's classification shape, the summary's top
-#: level), the decoder's causal shape (``gpt_shape``) and the BERT QA shape
-#: of the earlier slices (``bert_shape``)
+#: the cases timed beside their bound, plain version and SDPA: phase 18's
+#: classification shape (the summary's top level), the decoder's causal
+#: shape (``gpt_shape``), the BERT QA shape of the earlier slices
+#: (``bert_shape``) and the long-context Ulysses shape (``ulysses_shape``)
 MAIN_CASE, GPT_CASE, BERT_CASE = "bert_cls_bf16", "gpt_causal_bf16", "bert_bf16"
-#: plain versions at the GPT shape take milliseconds a call: fewer samples
-PLAIN_REPS = {MAIN_CASE: KERNEL_REPS, GPT_CASE: 5, BERT_CASE: KERNEL_REPS}
+ULYSSES_CASE = "ulysses_causal_bf16"
+#: plain versions at the GPT and Ulysses shapes take milliseconds a call:
+#: fewer samples
+PLAIN_REPS = {MAIN_CASE: KERNEL_REPS, GPT_CASE: 5, BERT_CASE: KERNEL_REPS, ULYSSES_CASE: 3}
 
 #: the padded head dims timed against SDPA, at BERT-base's batch and length
 PADDED_HEAD_DIMS = (16, 96)
@@ -473,7 +498,8 @@ def check_flash(seed: int) -> dict:
         }
     return {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES, "design": HOPPER_DESIGN, "launches": None,
-            **timed[MAIN_CASE], "gpt_shape": timed[GPT_CASE], "bert_shape": timed[BERT_CASE]}
+            **timed[MAIN_CASE], "gpt_shape": timed[GPT_CASE], "bert_shape": timed[BERT_CASE],
+            "ulysses_shape": timed[ULYSSES_CASE]}
 
 
 def visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
@@ -620,7 +646,8 @@ def check_flash_bwd(seed: int) -> list[dict]:
              "achieved_tflops": 4 * prod / (turns["dkv"] * 1e-3) / 1e12})
     return [{"name": kname, "route": "cuda", "source": BWD_SOURCE, "replaces": replaces,
              "design": HOPPER_DESIGN, "launches": None, **timed[MAIN_CASE][j],
-             "gpt_shape": timed[GPT_CASE][j], "bert_shape": timed[BERT_CASE][j]}
+             "gpt_shape": timed[GPT_CASE][j], "bert_shape": timed[BERT_CASE][j],
+             "ulysses_shape": timed[ULYSSES_CASE][j]}
             for j, (kname, replaces) in enumerate((("flash_attention_dq", DQ_REPLACES),
                                                    ("flash_attention_dkv", DKV_REPLACES)))]
 
@@ -3423,6 +3450,408 @@ def run_rest_of_tier(seed: int, card: str, wd: str, trained: dict, tier: dict,
             "rollout": a, "disagg": b}
 
 
+# -------------------- phase 24: sequence parallelism through the front door
+
+#: phase 24's model: the long-context LM of ``examples/long_context/
+#: ring_lm.py`` at full BERT-base width (hidden 768, 12 layers, 12 heads,
+#: FFN 3072, BERT's vocabulary) with 4096 positions, bf16 compute on float32
+#: parameters, no dropout
+LONG_CONTEXT = {"vocab_size": 30522, "hidden_size": 768, "num_layers": 12, "num_heads": 12,
+                "intermediate_size": 3072, "max_position_embeddings": 4096,
+                "dropout_rate": 0.0, "dtype": "bfloat16"}
+#: its run: B 1 x T 4096 over sp = 2 (2048 positions a rank), Adam 1e-4,
+#: ``steps`` steps of each sound arm and ``fault_steps`` of each planted fault
+LONG_CONTEXT_RUN = {"seq_len": 4096, "batch_size": 1, "sp": 2, "lr": 1e-4, "steps": 4,
+                    "fault_steps": 2}
+#: the arms one two-worker cluster trains in turn from the same seeded
+#: weights and data: (name, sp_impl, planted fault or None, steps key,
+#: Ulysses' inner attention: "kernel" (K1-K3) or "plain" (their plain
+#: versions))
+LONG_CONTEXT_ARMS = (("ulysses", "ulysses", None, "steps", "kernel"),
+                     ("ring", "ring", None, "steps", "kernel"),
+                     ("swapped_heads", "ulysses", "swapped_heads", "fault_steps", "kernel"),
+                     ("local_positions", "ring", "local_positions", "fault_steps", "kernel"),
+                     ("no_sp_grad_sum", "ulysses", "no_sp_grad_sum", "fault_steps", "kernel"))
+#: ``--calibrate-long-context`` reads these as well: Ulysses over the
+#: kernels' plain versions, sound and with its two faults
+LONG_CONTEXT_CALIBRATION_ARMS = LONG_CONTEXT_ARMS + (
+    ("ulysses_plain", "ulysses", None, "steps", "plain"),
+    ("swapped_heads_plain", "ulysses", "swapped_heads", "fault_steps", "plain"),
+    ("no_sp_grad_sum_plain", "ulysses", "no_sp_grad_sum", "fault_steps", "plain"))
+#: the gate, against the unsharded oracle on the card (plain causal
+#: attention over the whole sequence, same weights, data and Adam): each
+#: step's |loss diff|; ||w - w_oracle|| / ||w_oracle - w0|| over the
+#: parameters the oracle moved (max and median) but the key biases, whose
+#: gradient is zero in theory (a shift of every key by one vector moves no
+#: softmax) and held, as in phase 6, to Adam's noise bound in units of lr
+#: x steps; the parameters the oracle did not move (``type_emb``: no token
+#: types) must not move.  Set from ``--calibrate-long-context`` at seeds
+#: 0-2: the sound arms (Ulysses over K1-K3 or their plain versions, the
+#: ring) read up to 2.6e-4 / 0.098 / 0.049 / 1.13, about half of each
+#: limit; the planted faults read at least 0.96 (max) and 0.21 (median;
+#: the ring masking by local positions, whose losses alone stay within
+#: 6.5e-4), and the other two 0.83 (PERF.md, "Gate calibration").  Both
+#: ranks' parameters must also be the same (:func:`replica_drift` 0): at
+#: seeds 0-2 every sound arm and the two attention faults read 0, the
+#: skipped ``sp`` sum 1.99-2
+LONG_CONTEXT_TOL = {"loss": 1e-3, "max": 0.2, "median": 0.1, "noise": 2.03}
+
+
+def long_context_batches(seed: int, run: dict, vocab: int) -> list:
+    from tensorflowonspark_tpu_torch.examples.long_context import ring_lm
+
+    return ring_lm.make_batches(seed, run["steps"], run["batch_size"], run["seq_len"], vocab)
+
+
+def long_context_oracle(seed: int, cfg: dict, run: dict, path: str, device: str) -> dict:
+    """One process trains the model unsharded (plain causal attention over
+    the whole sequence, float32 scores) ``steps`` steps; saves the initial
+    state dict (the workers start from it), each step's loss and the
+    parameters after ``fault_steps`` and ``steps`` to ``path``, and frees
+    the card before the cluster boots."""
+    import functools
+
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.long_context import ring_lm
+    from tensorflowonspark_tpu_torch.parallel.ring_attention import reference_attention
+    from tensorflowonspark_tpu_torch.parallel.strategy import adam
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = ring_lm.build_model(cfg, functools.partial(reference_attention, causal=True),
+                                seed=seed)
+    w0 = {n: t.clone() for n, t in model.state_dict().items()}
+    model = model.to(device)
+    opt = adam(run["lr"])(model.parameters())
+    loss_fn = ring_lm.lm_loss(None, run["seq_len"])
+    losses, snaps = [], {}
+    for i, b in enumerate(long_context_batches(seed, run, cfg["vocab_size"])):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, {"ids": torch.as_tensor(b["ids"], device=device)})
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        if i + 1 in (run["fault_steps"], run["steps"]):
+            snaps[i + 1] = {n: p.detach().float().cpu().clone()
+                            for n, p in model.named_parameters()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda" else 0.0
+    torch.save({"losses": losses, "w": snaps, "w0": w0}, path)
+    del model, opt, loss
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": losses, "peak_gib": peak}
+
+
+def long_context_readings(losses: list, w: dict, oracle: dict, w0: dict, lr: float) -> dict:
+    """An arm's losses and parameters against the oracle's at the same
+    step, as :data:`LONG_CONTEXT_TOL` reads them (all three on one device)."""
+    import numpy as np
+
+    want = oracle["losses"][:len(losses)]
+    w_or = oracle["w"][len(losses)]
+    moved = {n for n, p in w_or.items() if (p - w0[n]).norm().item() > 0}
+    zero = {n for n in moved if n.endswith("attn.key.bias")}
+    rel = {n: ((w[n] - w_or[n]).norm() / (w_or[n] - w0[n]).norm()).item()
+           for n in moved - zero}
+    worst = max(rel, key=rel.get)
+    return {"loss": max(abs(a - b) for a, b in zip(losses, want)), "max": rel[worst],
+            "worst": worst, "median": float(np.median(list(rel.values()))),
+            "noise": max(((w[n] - w_or[n]).abs().max().item() for n in zero), default=0.0)
+            / (lr * len(losses)),
+            "unmoved": max(((w[n] - w0[n]).abs().max().item() for n in w_or
+                            if n not in moved), default=0.0)}
+
+
+def replica_drift(a: dict, b: dict) -> float:
+    """The largest relative difference between two ranks' parameter
+    digests (each leaf's float64 sum and norm); 0.0 when the replicas hold
+    the same model bit for bit, as summed gradients and the same Adam
+    steps leave them."""
+    if a.keys() != b.keys():
+        return float("inf")
+    return max((abs(x - y) / max(abs(x), abs(y), 1e-30)
+                for n in a for x, y in zip(a[n], b[n]) if x != y), default=0.0)
+
+
+def within_long_context(r: dict) -> bool:
+    return (r["loss"] <= LONG_CONTEXT_TOL["loss"] and r["max"] <= LONG_CONTEXT_TOL["max"]
+            and r["median"] <= LONG_CONTEXT_TOL["median"]
+            and r["noise"] <= LONG_CONTEXT_TOL["noise"] and r["unmoved"] == 0.0)
+
+
+def _planted(fault: str | None):
+    """A context that plants ``fault`` in this process's port modules (the
+    worker's own copies) and takes it out again."""
+    import contextlib
+    import importlib
+
+    import torch
+
+    # the modules (the package exports functions of the same names)
+    ring_attention = importlib.import_module("tensorflowonspark_tpu_torch.parallel.ring_attention")
+    ulysses = importlib.import_module("tensorflowonspark_tpu_torch.parallel.ulysses")
+
+    @contextlib.contextmanager
+    def plant():
+        if fault == "swapped_heads":
+            orig = ulysses._seq_to_heads
+
+            def swapped(qkv, group):
+                out = orig(qkv, group)
+                h = out.shape[3] // 2
+                return torch.cat([out[:, :, :, h:], out[:, :, :, :h]], dim=3)
+            ulysses._seq_to_heads = swapped
+            try:
+                yield
+            finally:
+                ulysses._seq_to_heads = orig
+        elif fault == "local_positions":
+            orig = ring_attention._global_positions
+            ring_attention._global_positions = lambda block, length: torch.arange(length)
+            try:
+                yield
+            finally:
+                ring_attention._global_positions = orig
+        else:
+            yield
+    return plant()
+
+
+def long_context_worker(args, ctx) -> None:
+    """Phase 24's map_fun, on each of the two agent-launched workers: join
+    the gloo group (two ranks share the one card), build the ``{dp: 1, sp:
+    2}`` mesh, train every arm of :data:`LONG_CONTEXT_ARMS` from the same
+    weights and data, and write the results into the working dir (the
+    chief also its readings against the oracle, the Ulysses arm's losses
+    through ``SummaryWriter`` into the TensorBoard logdir, and its second
+    step under ``ctx.profile_trace()``)."""
+    import contextlib
+    import functools
+    import json
+    import time
+
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.long_context import ring_lm
+    from tensorflowonspark_tpu_torch.observability import SummaryWriter
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (flash_attention,
+                                                                 flash_attention_bwd,
+                                                                 flash_attention_plain)
+    from tensorflowonspark_tpu_torch.parallel import MeshStrategy, comm, make_mesh
+    from tensorflowonspark_tpu_torch.parallel.strategy import adam
+
+    if args["device"] == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("this worker sees no card: it does not train on the CPU")
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+        torch.set_num_threads(1)
+    # NCCL takes one rank a device: the two ranks that share one card join
+    # a gloo group, by the caller's choice; the arithmetic stays on the card
+    ctx.initialize_distributed(device, backend="gloo")
+    cfg, run = args["cfg"], args["run"]
+    out = {"rank": ctx.executor_id, "arms": {}}
+    try:
+        mesh = make_mesh(dp=1, sp=run["sp"], device_type=device.type)
+        t0 = time.perf_counter()
+        oracle = torch.load(args["oracle"], mmap=True)
+        w0 = oracle["w0"]                          # the oracle's initial state dict
+        if ctx.is_chief:                           # its readings run on the card
+            oracle = {"losses": oracle["losses"],
+                      "w": {k: {n: p.to(device) for n, p in ws.items()}
+                            for k, ws in oracle["w"].items()}}
+            w0_dev = {n: p.to(device) for n, p in w0.items()}
+        out["load_s"] = time.perf_counter() - t0
+        batches = long_context_batches(args["seed"], run, cfg["vocab_size"])
+
+        class NoSpGradSum(MeshStrategy):
+            grad_axes = ("dp", "fsdp")
+
+        for name, impl, fault, steps_key, inner in args["arms"]:
+            n = run[steps_key]
+            with _planted(fault):
+                t_setup = time.perf_counter()
+                strategy = (NoSpGradSum if fault == "no_sp_grad_sum" else MeshStrategy)(
+                    mesh=mesh, device=device)
+                t_strategy = time.perf_counter()
+                attention = ring_lm.attention_fn(mesh, impl)
+                if inner == "plain":
+                    attention = functools.partial(attention, attn_fn=flash_attention_plain)
+                model = ring_lm.build_model(cfg, attention,
+                                            {k: v.clone() for k, v in w0.items()})
+                t_model = time.perf_counter()
+                state = strategy.init_state(model, adam(run["lr"]))
+                step = strategy.build_train_step(ring_lm.lm_loss(strategy, run["seq_len"]))
+                zero_launch_counts()
+                losses = []
+                t0 = time.perf_counter()
+                for i, b in enumerate(batches[:n]):
+                    traced = name == "ulysses" and i == 1 and ctx.is_chief
+                    with ctx.profile_trace() if traced else contextlib.nullcontext():
+                        state, metrics = step(state, strategy.shard_batch(b))
+                        losses.append(float(metrics["loss"]))
+                seconds = time.perf_counter() - t0
+                arm = {"losses": losses, "seconds": seconds, "steps": n,
+                       "setup_s": t0 - t_setup,
+                       "setup_split": {"strategy": t_strategy - t_setup,
+                                       "model": t_model - t_strategy,
+                                       "state": t0 - t_model},
+                       "launches": {"flash_attention_fwd": flash_attention.launches,
+                                    "flash_attention_dq": flash_attention_bwd.launches_dq,
+                                    "flash_attention_dkv": flash_attention_bwd.launches_dkv}}
+                if device.type == "cuda":
+                    arm["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+                    torch.cuda.reset_peak_memory_stats(device)
+                # each replica's parameters, leaf by leaf: the ranks must hold
+                # the same model after the broadcast, the summed gradients
+                # and their own Adam steps
+                arm["digest"] = {k: [p.detach().double().sum().item(),
+                                     p.detach().double().norm().item()]
+                                 for k, p in state.module.named_parameters()}
+                if ctx.is_chief:
+                    w = {k: p.detach().float() for k, p in state.module.named_parameters()}
+                    arm["readings"] = long_context_readings(losses, w, oracle, w0_dev,
+                                                            run["lr"])
+                    if name == "ulysses":
+                        with SummaryWriter(ctx.tensorboard_logdir) as sw:
+                            for i, v in enumerate(losses):
+                                sw.scalar("train/loss", v, i + 1)
+                out["arms"][name] = arm
+                del state, model, step
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+        out["host_staged"] = dict(comm.HOST_STAGED)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(ctx.working_dir, f"long_context.{ctx.executor_id}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_long_context(seed: int, card: str, wd: str, cfg: dict | None = None,
+                     run: dict | None = None, device: str = "cuda", gate: bool = True,
+                     arms=LONG_CONTEXT_ARMS) -> dict:
+    """Phase 24: the oracle in this process, then one ``HostAgent`` on
+    localhost with a random authkey (its workers forked from this process's
+    fork server, which never touches CUDA) and, in the reference's call
+    shape, ``TFCluster.run(None, map_fun, args, 2, 0, True,
+    InputMode.TENSORFLOW, logdir, backend=AgentBackend(...))``: two workers
+    train every arm of :data:`LONG_CONTEXT_ARMS`.  Gated (with
+    ``gate``): the sound arms within :data:`LONG_CONTEXT_TOL` of the
+    oracle with both ranks' parameters the same (:func:`replica_drift`
+    0), each planted fault outside on either count, K1-K3 12 times a step
+    on each rank in the Ulysses arm, the event file's scalars equal to its losses and
+    the profiled step's trace naming K1.  Returns the launches and the
+    stages' seconds."""
+    import json
+    import secrets
+
+    from tensorflowonspark_tpu_torch import TFCluster
+    from tensorflowonspark_tpu_torch.agent import AgentBackend, HostAgent
+    from tensorflowonspark_tpu_torch.cluster import InputMode
+    from tensorflowonspark_tpu_torch.observability import (_trace_files, read_scalars,
+                                                          trace_kernel_names)
+
+    cfg = cfg or LONG_CONTEXT
+    run = {**LONG_CONTEXT_RUN, **(run or {})}
+    lwd = os.path.join(wd, f"long_context_{seed}")
+    os.makedirs(lwd, exist_ok=True)
+    stage = {}
+    t0 = time.perf_counter()
+    oracle_path = os.path.join(lwd, "oracle.pt")
+    oracle = long_context_oracle(seed, cfg, run, oracle_path, device)
+    stage["oracle"] = time.perf_counter() - t0
+    log(f"phase 24 oracle (plain causal attention, T {run['seq_len']}, one process): losses "
+        f"{[round(x, 5) for x in oracle['losses']]}, peak {oracle['peak_gib']:.1f} GiB, "
+        f"{stage['oracle']:.1f} s")
+    t0 = time.perf_counter()
+    key = secrets.token_bytes(16)
+    agent = HostAgent(port=0, authkey=key, bind_host="127.0.0.1",
+                      log_dir=os.path.join(lwd, "agent_logs"))
+    addr = agent.start()
+    stage["agent start"] = time.perf_counter() - t0
+    logdir = os.path.join(lwd, "tensorboard")
+    args = {"seed": seed, "cfg": cfg, "run": run, "oracle": oracle_path, "device": device,
+            "arms": arms}
+    worker_env = ({"OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""} if device == "cpu"
+                  else {})
+    try:
+        log("phase 24: the two sp ranks share the one card, so they join a gloo group "
+            "(NCCL takes one rank a device); K1-K3, the GEMMs and the loss run on the card")
+        t0 = time.perf_counter()
+        cluster = TFCluster.run(None, long_context_worker, args, 2, 0, True,
+                                InputMode.TENSORFLOW, logdir, reservation_timeout=300,
+                                backend=AgentBackend([addr], authkey=key, worker_env=worker_env),
+                                working_dir=lwd)
+        stage["boot"] = time.perf_counter() - t0
+        url = cluster.tensorboard_url()
+        log(f"phase 24: cluster.tensorboard_url() = {url!r}"
+            + (" (no tensorboard package on this machine)" if url is None else ""))
+        t0 = time.perf_counter()
+        cluster.shutdown(timeout=1200)
+        stage["train"] = time.perf_counter() - t0
+    finally:
+        agent.stop()
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(lwd, f"long_context.{r}.json")) as f:
+            ranks.append(json.load(f))
+    chief = ranks[0]
+    stage["workers' oracle load"] = chief["load_s"]
+    for name, arm in chief["arms"].items():
+        stage[f"arm {name}"] = arm["setup_s"] + arm["seconds"]
+    failures = []
+    for name, impl, fault, _, inner in arms:
+        arm = chief["arms"][name]
+        r = arm["readings"]
+        drift = replica_drift(arm["digest"], ranks[1]["arms"][name]["digest"])
+        ok = within_long_context(r) and drift == 0.0
+        log(f"phase 24 seed {seed} {name} ({impl}, {inner}{', fault' if fault else ''}, "
+            f"{arm['steps']} steps, {arm['seconds']:.2f} s after {arm['setup_s']:.2f} s of "
+            f"setup {({k: round(v, 2) for k, v in arm['setup_split'].items()})}): losses "
+            f"{[round(x, 5) for x in arm['losses']]}; |loss diff| {r['loss']:.3g}, max "
+            f"{r['max']:.3g} ({r['worst']}), median {r['median']:.3g}, noise "
+            f"{r['noise']:.3g}, unmoved {r['unmoved']:.3g}, replica drift {drift:.3g}; peak "
+            f"{arm.get('peak_gib', 0):.1f} GiB; launches rank 0 {arm['launches']}, rank 1 "
+            f"{ranks[1]['arms'][name]['launches']} -> {'within' if ok else 'OUTSIDE'} "
+            f"{LONG_CONTEXT_TOL}")
+        if ok == bool(fault):
+            failures.append(f"{name} {'passed' if fault else 'failed'} the gate")
+    for rank in ranks:
+        log(f"phase 24 rank {rank['rank']}: collectives copied to the host (gloo takes no "
+            f"send/recv on CUDA tensors): {rank['host_staged']}")
+    launches = {k: sum(rank["arms"]["ulysses"]["launches"][k] for rank in ranks)
+                for k in KERNEL_NAMES}
+    if device == "cuda":
+        steps = chief["arms"]["ulysses"]["steps"]
+        per_rank = [rank["arms"]["ulysses"]["launches"] for rank in ranks]
+        if any(v != 12 * steps for lr in per_rank for v in lr.values()):
+            failures.append(f"the Ulysses arm's launches a rank are {per_rank}, not 12 a step")
+        scalars = [v for path in sorted(os.listdir(logdir)) if "tfevents" in path
+                   for _, _, tag, v in read_scalars(os.path.join(logdir, path))
+                   if tag == "train/loss"]
+        if [round(v, 6) for v in scalars] != [round(v, 6) for v in
+                                             chief["arms"]["ulysses"]["losses"]]:
+            failures.append(f"the event file's losses {scalars} are not the arm's")
+        traces = _trace_files(logdir)
+        k1 = sorted({n for t in traces for n in trace_kernel_names(t)
+                     if "flash_fwd" in n})
+        log(f"phase 24: {len(traces)} trace(s) of the profiled step; K1 in it: {k1}")
+        if not traces or not any("flash_fwd_tma_kernel" in n for n in k1):
+            failures.append("the profiled step's trace does not name K1")
+    log("phase 24 seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in stage.items()))
+    if gate and failures:
+        raise SystemExit("phase 24: " + "; ".join(failures))
+    if failures:
+        log("phase 24 (not gated): " + "; ".join(failures))
+    return {"launches": launches, "stages": stage, "arms": chief["arms"]}
+
+
 # ------------------------------ phase 23: the batch and continual planes
 
 #: phase 23a: BASELINE config 3's scoring half as bulk offline inference
@@ -4707,6 +5136,10 @@ def main() -> int:
                    help="only build the kernels, train phase 13's model at seeds "
                         "--seed..--seed+2 and log phase 23b's offline-gate readings on each, "
                         "and exit (no result)")
+    p.add_argument("--calibrate-long-context", action="store_true",
+                   help="only build the kernels and log phase 24's gate readings (the sound "
+                        "arms, the planted faults, Ulysses over the plain versions) at seeds "
+                        "--seed..--seed+2, and exit (no result)")
     p.add_argument("--calibrate-gpt", action="store_true",
                    help="only build the kernels and log phase 13's and 13b's gate readings "
                         "at seeds --seed..--seed+2, at GPT_LR and at gpt_tiny's own rate "
@@ -4747,6 +5180,16 @@ def main() -> int:
                                              lr=lr)["params"]
                         log(f"calibration Adam {lr:g} seed {seed} "
                             f"{'llama' if variant else 'gpt2'}: {time.perf_counter() - t0:.1f} s")
+        return 0
+
+    if args.calibrate_long_context:
+        build_kernels()
+        card = card_name_and_limit()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+            for seed in range(args.seed, args.seed + 3):
+                t0 = time.perf_counter()
+                run_long_context(seed, card, wd, gate=False, arms=LONG_CONTEXT_CALIBRATION_ARMS)
+                log(f"calibration seed {seed}: {time.perf_counter() - t0:.1f} s")
         return 0
 
     if args.calibrate_serving:
@@ -4830,7 +5273,7 @@ def main() -> int:
     log(f"backward at {dq['shape']} on {card}: dq + dkv kernels {dq['ms'] + dkv['ms']:.6f} ms, "
         f"SDPA backward {dq['library_ms']:.6f} ms (in turns), plain "
         f"{dq['plain_ms'] + dkv['plain_ms']:.6f} ms")
-    for shape in ("gpt_shape", "bert_shape"):
+    for shape in ("gpt_shape", "bert_shape", "ulysses_shape"):
         for e in (flash, dq, dkv):
             b = e[shape]
             log(f"{e['name']} at {b['shape']} on {card}: kernel {b['ms']:.6f} ms, SDPA "
@@ -4954,6 +5397,12 @@ def main() -> int:
                                + continual["launches"]["eval"][k] for k in KERNEL_NAMES}
         torch.cuda.empty_cache()
 
+        # 24. sequence parallelism through the reference's front door: a host
+        # agent, TFCluster.run(None, ...) and two workers training the
+        # long-context LM at BERT-base width over sp = 2 (Ulysses and ring)
+        long_context = timed("24 long context", run_long_context, args.seed, card, wd)
+        torch.cuda.empty_cache()
+
     # 10. the bench
     from tensorflowonspark_tpu_torch import bench_resnet
 
@@ -4982,6 +5431,7 @@ def main() -> int:
                                       "serving_tier": serving_tier[e["name"]],
                                       "rollout_and_disagg_tiers": rest_of_tier[e["name"]],
                                       "batch_and_continual": batch_and_continual[e["name"]],
+                                      "long_context": long_context["launches"][e["name"]],
                                       "bert_cls_training":
                                           new_models["bert_cls"]["launches"][e["name"]]})
     log("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

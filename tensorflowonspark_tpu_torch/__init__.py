@@ -12,6 +12,10 @@ package.
     preds = cluster.inference(rows)
     cluster.shutdown()
 
+or, in the reference's own call shape, ``TFCluster.run(None, map_fun,
+args, num_executors, num_ps, tensorboard, input_mode)`` (``sc`` is
+ignored); ``agent.AgentBackend`` runs the workers on other hosts' agents.
+
 Inside ``map_fun(args, ctx)`` the user pulls data with
 ``ctx.get_data_feed()`` (SPARK mode) or reads its own shard with
 :class:`Dataset` (``Dataset.from_examples`` over TFRecords, TENSORFLOW
@@ -50,6 +54,12 @@ from tensorflowonspark_tpu_torch.pipeline import (Namespace, Pipeline,  # noqa: 
                                                   TFModel, TrainValidationSplit,
                                                   CrossValidator)
 from tensorflowonspark_tpu_torch import gpu_info, metrics, tracing  # noqa: F401,E402
+# ``from tensorflowonspark import TFCluster, TFNode`` maps onto
+# ``from tensorflowonspark_tpu_torch import TFCluster, TFNode`` (module
+# objects with the reference's entry points: TFCluster.run(sc, ...),
+# TFNode.DataFeed, TFManager.start/connect)
+from tensorflowonspark_tpu_torch import (TFCluster, TFManager, TFNode,  # noqa: F401,E402
+                                         TFSparkNode)
 # the batch-inference plane (manifest-driven, resumable bulk predict) and
 # the continual loop (checkpoint publication, offline gate, journaled
 # rollout); their model imports happen inside the worker map_fun

@@ -21,10 +21,12 @@ job after a worker failure; the user's ``map_fun`` resumes from its
 latest checkpoint.
 
 Live membership (``add_workers``/``retire_worker``, which the serving
-tier grows and shrinks by) and the ``/metrics`` HTTP endpoint
-(``metrics_text``/``serve_metrics``) are the JAX package's.  Not ported
-yet (ROADMAP A2r): the agent backend, TensorBoard and the submit-time
-payload preflight.
+tier grows and shrinks by), the ``/metrics`` HTTP endpoint
+(``metrics_text``/``serve_metrics``) and TensorBoard
+(``run(tensorboard=True)``, :meth:`TPUCluster.tensorboard_url`) are the
+JAX package's.  Workers on other hosts run through
+:class:`~tensorflowonspark_tpu_torch.agent.AgentBackend`.  Not ported: the
+submit-time payload preflight.
 """
 
 from __future__ import annotations
@@ -66,19 +68,36 @@ def _worker_entry(executor_id: int, parent_env: dict, env: dict, fn, tf_args,
     per-worker env, before anything in this process initialises CUDA, so
     visibility flags take effect, then runs the node harness
     (``node.run``), mirroring how a Spark task process executes
-    ``TFSparkNode._mapfn``.
+    ``TFSparkNode._mapfn``.  ``TFOS_WORKER_LOG`` (set by the host agent)
+    sends the worker's output to a per-executor log file.
     """
     os.environ.clear()
     os.environ.update(parent_env)
     os.environ.update({k: str(v) for k, v in env.items()})
+    log_path = os.environ.get("TFOS_WORKER_LOG")
+    if log_path:
+        # set by the host agent: this worker's stdout/stderr go, at the fd
+        # level (native output too), to a file the agent serves back
+        import sys
+
+        os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
+        # left open for the process's whole life: fds 1 and 2 point at it
+        f = open(log_path, "ab", buffering=0)
+        os.dup2(f.fileno(), 1)
+        os.dup2(f.fileno(), 2)
+        sys.stdout = os.fdopen(1, "w", buffering=1, closefd=False)
+        sys.stderr = os.fdopen(2, "w", buffering=1, closefd=False)
     logging.basicConfig(level=logging.INFO,
                         format=f"%(asctime)s [node {executor_id}] %(message)s")
     mapfn = tpu_node.run(fn, tf_args, cluster_meta, queues=queues)
     mapfn(executor_id)
 
 
-#: what the workers' fork server imports once, before it forks any
-FORKSERVER_PRELOAD = ["__main__", "torch"]
+#: what the workers' fork server imports once, before it forks any: torch,
+#: and the two of its packages that a worker otherwise imports lazily at its
+#: first checkpoint, state dict or DTensor (seconds a process on the card's
+#: host: phase 24's first model build spent 11.6-15.3 s there)
+FORKSERVER_PRELOAD = ["__main__", "torch", "torch._dynamo", "torch.distributed.tensor"]
 
 
 class LocalProcessBackend:
@@ -241,14 +260,18 @@ class TPUCluster:
             queues=DEFAULT_QUEUES, backend=None, worker_env: dict | None = None,
             working_dir: str | None = None, queue_depth: int = 64,
             default_fs: str = "", queue_shm: bool | None = None,
-            queue_bulk: bool | None = None, monitor: bool = True,
+            queue_bulk: bool | None = None, tensorboard: bool = False,
+            tensorboard_logdir: str | None = None, monitor: bool = True,
             hang_timeout: float = 120.0, step_timeout: float | None = None,
             heartbeat_interval: float = 1.0) -> "TPUCluster":
         """Boot the cluster and block until every node has registered.
 
         Mirrors ``TFCluster.py::run``'s signature and behavior: build the
         job-name template, start the reservation server, launch workers,
-        await reservations, return the handle.
+        await reservations, return the handle.  ``tensorboard=True`` has
+        the chief-designate node serve TensorBoard on
+        ``tensorboard_logdir`` (default ``<working_dir>/tensorboard``);
+        :meth:`tensorboard_url` says where.
 
         Once every node has registered, a steady-state
         :class:`~tensorflowonspark_tpu_torch.health.ClusterMonitor` takes
@@ -299,6 +322,8 @@ class TPUCluster:
             "queue_bulk": queue_bulk,
             "reservation_timeout": reservation_timeout,
             "heartbeat_interval": heartbeat_interval,
+            "tensorboard": tensorboard,
+            "tensorboard_logdir": tensorboard_logdir,
         }
 
         backend = backend or LocalProcessBackend(worker_env=worker_env)
@@ -317,6 +342,7 @@ class TPUCluster:
                 timeout=reservation_timeout, status=status)
         except Exception:
             backend.terminate()
+            _kill_registered_tensorboards(server.reservations.get())
             server.stop()
             _raise_worker_errors(working_dir, num_workers)
             raise
@@ -645,6 +671,9 @@ class TPUCluster:
         if not finished:
             logger.warning("workers still alive after %.0fs; terminating", timeout)
             self.backend.terminate()
+            # SIGTERMed workers never run their finally block, and their
+            # TensorBoard child lives in its own session — kill it from here
+            _kill_registered_tensorboards(self.cluster_info)
         if self._metrics_http is not None:
             with contextlib.suppress(Exception):
                 self._metrics_http.stop()
@@ -679,11 +708,18 @@ class TPUCluster:
             self._metrics_http = None
         with contextlib.suppress(Exception):
             self.backend.terminate()
+        _kill_registered_tensorboards(self.cluster_info)
         for c in self._clients.values():
             with contextlib.suppress(Exception):
                 c.close()
         with contextlib.suppress(Exception):
             self.server.stop()
+
+    def tensorboard_url(self) -> str | None:
+        """Reference: ``TFCluster.py::tensorboard_url``."""
+        from tensorflowonspark_tpu_torch import observability
+
+        return observability.tensorboard_url(self.cluster_info)
 
 
 def run_with_recovery(map_fun, tf_args, num_workers: int, *,
@@ -871,6 +907,23 @@ def _with_log_tails(failure: "tpu_health.ClusterFailure", backend):
         failure.kind, f"{failure}\n{detail}", failure.failed_workers)
     enriched.detected_at = failure.detected_at
     return enriched
+
+
+def _kill_registered_tensorboards(cluster_info) -> None:
+    """Kill TensorBoards via the reservation's ``tb_pid`` (reference parity:
+    ``TFCluster.py::shutdown`` kills TB from the driver).  Needed when a
+    worker is terminated: SIGTERM skips its ``finally`` and the TB child is
+    in its own session.  Only pids registered by nodes on *this* host are
+    touched — a remote node's pid is meaningless here."""
+    import signal
+
+    from tensorflowonspark_tpu_torch.reservation import get_ip_address
+
+    local_hosts = {"127.0.0.1", "localhost", get_ip_address()}
+    for n in cluster_info or []:
+        if n.get("tb_pid") and n.get("host") in local_hosts:
+            with contextlib.suppress(OSError):
+                os.kill(n["tb_pid"], signal.SIGTERM)
 
 
 def _build_cluster_template(num_workers: int, num_ps: int,

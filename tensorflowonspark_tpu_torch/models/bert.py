@@ -32,9 +32,11 @@ recomputation draws the dropout masks the forward drew (:func:`_remat`).
 layers, since eager PyTorch has no compile time for a scan to save.
 
 :func:`params_from_flax` carries the JAX package's parameters across;
-:func:`init_params` draws random ones from a seed with numpy.  Not ported
-yet: mesh anchoring (``act_spec``/``emb_spec``), which waits for the port's
-``DeviceMesh`` (ROADMAP A6).
+:func:`init_params` draws random ones from a seed with numpy.  The flax
+module's mesh anchoring (``act_spec``/``emb_spec``) has no counterpart:
+eager PyTorch has no sharding propagation to anchor
+(``MeshStrategy.anchor_activations``).  A rank holding one block of a
+sequence cut over ``sp`` passes its block's ``position_ids``.
 """
 
 from __future__ import annotations
@@ -214,13 +216,17 @@ class Bert(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None, *,
-                train: bool = False, rng=None):
+                train: bool = False, rng=None, position_ids=None):
+        """``position_ids`` (``[1 or batch, seq]``, default ``arange(seq)``)
+        index the position table: a rank holding one block of a sequence cut
+        over ``sp`` passes its block's global positions."""
         cfg = self.cfg
         T = input_ids.shape[1]
         # flax Embed(dtype=bf16) casts the table, then gathers: gathering
         # first and casting the rows gives the same values
         x = self.tok_emb(input_ids).to(cfg.dtype)
-        pos = torch.arange(T, device=input_ids.device)[None, :]
+        pos = (torch.arange(T, device=input_ids.device)[None, :] if position_ids is None
+               else position_ids)
         x = x + self.pos_emb(pos).to(cfg.dtype)
         if token_type_ids is not None:
             x = x + self.type_emb(token_type_ids).to(cfg.dtype)

@@ -21,8 +21,10 @@ every worker process.  It
 driver feeds over TCP/shm directly, so no second process per executor is
 needed.  A latched SIGTERM (``preemption.py``) flips the heartbeat's phase
 to ``preempted``, as in the JAX package's harness, and a ``TFOS_CHAOS``
-plan (``chaos.py``) mounts on the heartbeat reporter.  Its TensorBoard
-hook is not ported yet (ROADMAP A2r).
+plan (``chaos.py``) mounts on the heartbeat reporter.  With
+``tensorboard=True`` the chief-designate node spawns TensorBoard on the
+cluster's logdir before it registers and carries ``(tb_pid, tb_port)`` in
+its reservation, as the reference's ``TFSparkNode.py::run`` does.
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ class NodeContext:
 
     def __init__(self, executor_id: int, job_name: str, task_index: int,
                  cluster_info: list[dict], default_fs: str = "",
-                 working_dir: str | None = None, mgr: QueueServer | None = None):
+                 working_dir: str | None = None, mgr: QueueServer | None = None,
+                 tensorboard_logdir: str | None = None):
         self.executor_id = self.worker_num = executor_id
         self.job_name = job_name
         self.task_index = task_index
@@ -61,6 +64,8 @@ class NodeContext:
         self.working_dir = working_dir or os.getcwd()
         self.mgr = mgr
         self.num_workers = len(cluster_info)
+        self.tensorboard_logdir = tensorboard_logdir or os.path.join(
+            self.working_dir, "tensorboard")
         self._heartbeat = None  # HeartbeatReporter, attached by node.run
         self._goodput = None    # GoodputRecorder, created by ctx.goodput()
 
@@ -103,12 +108,15 @@ class NodeContext:
             "process_id": self.executor_id,
         }
 
-    def initialize_distributed(self, device=None) -> None:
+    def initialize_distributed(self, device=None, backend: str | None = None) -> None:
         """Join this process to the cluster's ``torch.distributed`` group.
 
-        ``nccl`` when ``device`` is a CUDA device (the default), ``gloo`` for
-        the CPU.  Skipped for a single-process cluster, as the reference
-        skips ``jax.distributed.initialize`` there.
+        ``backend`` as the caller names it; by default ``nccl`` when
+        ``device`` is a CUDA device (the default), ``gloo`` for the CPU.  A
+        caller whose ranks share one card passes ``backend="gloo"`` (NCCL
+        takes one rank a device); nothing switches backends on a failure.
+        Skipped for a single-process cluster, as the reference skips
+        ``jax.distributed.initialize`` there.
         """
         env = self.distributed_env()
         if env["num_processes"] <= 1:
@@ -117,7 +125,7 @@ class NodeContext:
 
         dev = util.resolve_device(device)
         dist.init_process_group(
-            backend="nccl" if dev.type == "cuda" else "gloo",
+            backend=backend or ("nccl" if dev.type == "cuda" else "gloo"),
             init_method=f"tcp://{env['coordinator_address']}",
             world_size=env["num_processes"], rank=env["process_id"])
 
@@ -133,6 +141,21 @@ class NodeContext:
     def absolute_path(self, path: str) -> str:
         """The reference's ``TFNode.hdfs_path(ctx, path)``."""
         return util.hdfs_path(self, path)
+
+    def tensorboard_url(self) -> str | None:
+        """URL of the cluster's TensorBoard, if one was spawned
+        (reference: ``TFCluster.tensorboard_url`` — same data, node side)."""
+        from tensorflowonspark_tpu_torch import observability
+
+        return observability.tensorboard_url(self.cluster_info)
+
+    def profile_trace(self, logdir: str | None = None):
+        """Profiler trace context for a block of this node's training
+        (``torch.profiler`` into the cluster's TensorBoard logdir by
+        default, so the spawned TensorBoard's profile plugin sees it)."""
+        from tensorflowonspark_tpu_torch import observability
+
+        return observability.profile_trace(logdir or self.tensorboard_logdir)
 
     def export_dir(self, subdir: str = "export") -> str:
         return self.absolute_path(subdir)
@@ -170,6 +193,20 @@ class NodeContext:
         return self._goodput
 
 
+def start_cluster_server(ctx: NodeContext, num_devices: int = 1, rdma: bool = False,
+                         device=None):
+    """API-parity shim for the reference's TF1-era
+    ``TFNode.py::start_cluster_server`` (built a ``tf.train.Server`` with
+    protocol ``grpc``/``grpc+verbs``).  Here it joins the node to the
+    cluster's ``torch.distributed`` group on ``device`` (the card unless the
+    caller passes the CPU); ``rdma`` is advisory (NCCL picks its transport).
+    Returns the context so legacy call sites keep working."""
+    if rdma:
+        logger.info("rdma=True is advisory (NCCL picks its own transport)")
+    ctx.initialize_distributed(device=device)
+    return ctx
+
+
 def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
     """Build the per-worker harness: ``_mapfn(executor_id)``.
 
@@ -188,6 +225,7 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
         client = None
         reporter = None
         on_preempt = None
+        tb_proc = None
         try:
             job_name, task_index = _role_for(cluster_meta["cluster_template"], executor_id)
             host = get_ip_address()
@@ -214,6 +252,25 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
             port = util.get_free_port()
             coordinator_port = util.get_free_port()
 
+            # 2b. tensorboard on the chief-designate, like the reference's
+            #     worker:0/chief spawn in TFSparkNode.py::run; (tb_pid,
+            #     tb_port) travel in the reservation → tensorboard_url().
+            tb_port = 0
+            chief_designate = job_name in ("chief", "master") or (
+                job_name == "worker" and task_index == 0
+                and not any(j in ("chief", "master")
+                            for j in cluster_meta["cluster_template"]))
+            if cluster_meta.get("tensorboard") and chief_designate:
+                from tensorflowonspark_tpu_torch import observability
+
+                logdir = cluster_meta.get("tensorboard_logdir") or os.path.join(
+                    cluster_meta.get("working_dir") or os.getcwd(), "tensorboard")
+                # wait_secs>0: don't broadcast a tb_port for a process that
+                # died at boot (port collision etc.) — the URL must work
+                tb = observability.start_tensorboard(logdir, wait_secs=2.0)
+                if tb is not None:
+                    tb_proc, tb_port = tb
+
             # 3. rendezvous
             client = Client(cluster_meta["server_addr"],
                             timeout=cluster_meta.get("reservation_timeout", 600),
@@ -227,6 +284,11 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
                 "coordinator_port": coordinator_port,
                 "addr": addr,
                 "authkey": cluster_meta["authkey"],
+                # the owning node stops TB in its finally; the driver also
+                # kills via tb_pid when it terminates workers (reference:
+                # TFCluster.py::shutdown kills TB from the driver).
+                "tb_pid": tb_proc.pid if tb_proc else 0,
+                "tb_port": tb_port,
             })
             cluster_info = client.await_reservations()
             reporter.set_phase("init")
@@ -235,7 +297,8 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
             ctx = NodeContext(executor_id, job_name, task_index, cluster_info,
                               default_fs=cluster_meta.get("default_fs", ""),
                               working_dir=cluster_meta.get("working_dir"),
-                              mgr=mgr)
+                              mgr=mgr,
+                              tensorboard_logdir=cluster_meta.get("tensorboard_logdir"))
             ctx._heartbeat = reporter
             # a latched SIGTERM surfaces as phase 'preempted' so the driver
             # classifies this exit as a preemption, not a crash.
@@ -288,6 +351,10 @@ def run(fn, tf_args, cluster_meta: dict, queues=DEFAULT_QUEUES):
                 preemption.remove_on_preempted(on_preempt)
             if reporter is not None:
                 reporter.stop()
+            if tb_proc is not None:
+                from tensorflowonspark_tpu_torch import observability
+
+                observability.stop_tensorboard(tb_proc)
             if client is not None:
                 client.close()
 

@@ -1,14 +1,28 @@
-"""Observability: health-event log, TensorBoard scalars, goodput accounting.
+"""Observability: TensorBoard, the profiler, health events, goodput.
 
-Port of the pieces of ``tensorflowonspark_tpu/observability.py`` that the
-node harness, the health monitor and the estimator use: :class:`EventLog`
-(the JSONL stream of cluster lifecycle/health events),
-:class:`SummaryWriter` (TensorBoard event files, with
-:func:`read_scalars` to read them back) and :class:`GoodputRecorder`
-(wall time split into productive step time vs init/data/idle), and
-:class:`LatencyHistogram` (the serving tier's TTFT/end-to-end
-percentiles).  TensorBoard spawning and the profiler helpers are not
-ported yet (ROADMAP A2r).
+Port of ``tensorflowonspark_tpu/observability.py``:
+
+- :func:`start_tensorboard` / :func:`stop_tensorboard` /
+  :func:`tensorboard_url` — the reference's TensorBoard subprocess on the
+  chief-designate node (``TFSparkNode.py::run``), its ``(tb_pid,
+  tb_port)`` carried in the reservation; without the ``tensorboard``
+  package ``start_tensorboard`` warns and returns ``None``, as the JAX
+  package's does;
+- :func:`profile_trace` — a ``torch.profiler`` trace of the enclosed
+  block written under ``<logdir>/plugins/profile`` (the
+  ``*.pt.trace.json`` that TensorBoard's PyTorch profiler plugin reads),
+  :func:`annotate` — ``torch.profiler.record_function``;
+- :func:`start_profiler_server` — ``jax.profiler.start_server``'s job
+  without jax's RPC server: an HTTP endpoint on ``host:port`` that, on
+  ``GET /profile?duration_ms=N``, traces this process for N ms into the
+  logdir and answers with the trace's path (:func:`capture_profile` is the
+  client);
+- :class:`EventLog` (the JSONL stream of cluster lifecycle/health events),
+  :class:`SummaryWriter` (TensorBoard event files, with
+  :func:`read_scalars` to read them back), :class:`GoodputRecorder`
+  (wall time split into productive step time vs init/data/idle) and
+  :class:`LatencyHistogram` (the serving tier's TTFT/end-to-end
+  percentiles).
 """
 
 from __future__ import annotations
@@ -18,11 +32,189 @@ import itertools
 import json
 import logging
 import os
+import subprocess
+import sys
 import threading
 import time
 from collections import defaultdict
 
+from tensorflowonspark_tpu_torch import util
+
 logger = logging.getLogger(__name__)
+
+
+# ------------------------------------------------------------- tensorboard
+
+def start_tensorboard(logdir: str, port: int | None = None,
+                      wait_secs: float = 0.0):
+    """Spawn TensorBoard on ``logdir``; returns ``(proc, port)`` or ``None``.
+
+    Reference: the ``tensorboard`` subprocess spawned for worker:0/chief in
+    ``TFSparkNode.py::run``.  Spawned as ``python -m tensorboard.main`` so it
+    works without a console-script on PATH; returns None (never raises) when
+    tensorboard isn't importable — observability must not kill training.
+    """
+    try:
+        import tensorboard  # noqa: F401 — availability probe
+    except ImportError:
+        logger.warning("tensorboard=True but tensorboard is not installed")
+        return None
+    port = port or util.get_free_port()
+    os.makedirs(logdir, exist_ok=True)
+    env = os.environ.copy()
+    try:
+        import pkg_resources  # noqa: F401 — removed in setuptools>=81
+    except ImportError:
+        shim = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_shims")
+        env["PYTHONPATH"] = shim + os.pathsep + env.get("PYTHONPATH", "")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tensorboard.main", "--logdir", logdir,
+             "--port", str(port), "--host", "0.0.0.0", "--load_fast", "false"],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+            env=env, start_new_session=True)
+    except OSError as e:
+        logger.warning("could not spawn tensorboard: %s", e)
+        return None
+    if wait_secs:
+        time.sleep(wait_secs)
+        if proc.poll() is not None:
+            logger.warning("tensorboard exited immediately (code %s)",
+                           proc.returncode)
+            return None
+    logger.info("tensorboard pid %d serving %s on port %d",
+                proc.pid, logdir, port)
+    return proc, port
+
+
+def stop_tensorboard(proc) -> None:
+    if proc is None:
+        return
+    with contextlib.suppress(OSError):
+        proc.terminate()
+        try:
+            proc.wait(5)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(5)  # reap — a kill without wait leaves a zombie
+
+
+def tensorboard_url(cluster_info) -> str | None:
+    """URL of the cluster's TensorBoard from the reservation records
+    (``tb_port`` registered by the chief-designate node)."""
+    for n in cluster_info:
+        if n.get("tb_port"):
+            return f"http://{n['host']}:{n['tb_port']}"
+    return None
+
+
+# ---------------------------------------------------------------- profiler
+
+def _activities():
+    from torch.profiler import ProfilerActivity
+
+    import torch
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+def profile_dir(logdir: str) -> str:
+    """Where traces of ``logdir`` go: TensorBoard's profile plugin layout."""
+    return os.path.join(logdir, "plugins", "profile")
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """Trace the enclosed block with ``torch.profiler`` (CPU ops, and the
+    card's kernels once this process has initialised CUDA) into
+    ``<logdir>/plugins/profile/<host>_<pid>.<stamp>.pt.trace.json``."""
+    from torch.profiler import profile, tensorboard_trace_handler
+
+    os.makedirs(profile_dir(logdir), exist_ok=True)
+    with profile(activities=_activities(),
+                 on_trace_ready=tensorboard_trace_handler(profile_dir(logdir))):
+        yield
+
+
+def annotate(name: str):
+    """Named sub-trace for the profiler timeline
+    (``torch.profiler.record_function``)."""
+    import torch
+
+    return torch.profiler.record_function(name)
+
+
+def start_profiler_server(port: int | None = None, logdir: str | None = None,
+                          host: str = "127.0.0.1") -> int:
+    """Serve live profiles of this process on ``host:port`` (jax's
+    profiler server has no torch counterpart; this does its job): each
+    ``GET /profile?duration_ms=N`` traces N ms of this process with
+    ``torch.profiler`` into ``logdir`` (default: ``./profiles``) and
+    answers with the trace file's path.  Returns the port; the server
+    thread is a daemon and lives as long as the process."""
+    import http.server
+    import urllib.parse
+
+    logdir = logdir or os.path.abspath("profiles")
+    lock = threading.Lock()                      # one trace at a time
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 — http.server's name
+            url = urllib.parse.urlparse(self.path)
+            if url.path != "/profile":
+                self.send_error(404)
+                return
+            ms = float(urllib.parse.parse_qs(url.query).get("duration_ms", ["1000"])[0])
+            with lock:
+                before = set(_trace_files(logdir))
+                with profile_trace(logdir):
+                    time.sleep(ms / 1000.0)
+                new = sorted(set(_trace_files(logdir)) - before)
+            body = json.dumps({"traces": new}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):  # keep the worker's log clean
+            pass
+
+    server = http.server.ThreadingHTTPServer((host, port or 0), Handler)
+    threading.Thread(target=server.serve_forever, name="profiler-server",
+                     daemon=True).start()
+    port = server.server_address[1]
+    logger.info("profiler server on %s:%d (traces into %s)", host, port, logdir)
+    return port
+
+
+def capture_profile(host: str, port: int, duration_ms: float = 1000.0,
+                    timeout: float = 120.0) -> list[str]:
+    """Ask :func:`start_profiler_server`'s endpoint for a trace of
+    ``duration_ms``; returns the paths of the trace files it wrote."""
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://{host}:{port}/profile?duration_ms={duration_ms}",
+            timeout=timeout) as r:
+        return json.loads(r.read())["traces"]
+
+
+def _trace_files(logdir: str) -> list[str]:
+    root = profile_dir(logdir)
+    if not os.path.isdir(root):
+        return []
+    return [os.path.join(root, f) for f in os.listdir(root) if f.endswith(".pt.trace.json")]
+
+
+def trace_kernel_names(path: str) -> set[str]:
+    """The names of the events of a ``*.pt.trace.json`` trace."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return {e.get("name", "") for e in events}
 
 
 # ------------------------------------------------------------ health events

@@ -13,8 +13,15 @@ In JAX the strategy is a mesh plus ``jit`` shardings and XLA inserts the
 gradient all-reduce.  Here each process holds a replica of the model
 (wrapped in ``DistributedDataParallel`` when the process group has more
 than one member) and its own local batch; DDP averages the gradients over
-the processes during ``backward``.  Meshes, partition rules and
-``FSDPStrategy`` are not ported yet (ROADMAP A6).
+the processes during ``backward``.
+
+:class:`MeshStrategy` and :class:`FSDPStrategy` take the same protocol
+over a :class:`~torch.distributed.device_mesh.DeviceMesh`
+(``parallel/mesh.py``): parameters replicated over the data and sequence
+axes have their gradients summed over ``dp``×``fsdp``×``sp`` after the
+backward, parameters that the partition rules (or FSDP's own rule) shard
+over ``fsdp`` live as FSDP2 (``fully_shard``) shards, and the reported
+loss is the global mean.
 """
 
 from __future__ import annotations
@@ -22,12 +29,16 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import inspect
+import math
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from tensorflowonspark_tpu_torch.parallel import comm
+from tensorflowonspark_tpu_torch.parallel import sharding as sh
+from tensorflowonspark_tpu_torch.parallel.mesh import MeshSpec, group_over, make_mesh
 from tensorflowonspark_tpu_torch.util import resolve_device
 
 
@@ -126,49 +137,36 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-class DataParallelStrategy:
-    """Synchronous data parallelism: one model replica per process.
-
-    The reference's ``MultiWorkerMirroredStrategy``.  ``device`` is where
-    this process's replica lives (``None``: the card, raising without
-    one); ``seed`` is the base of the per-step generators handed to a
-    ``loss_fn`` that takes ``rng``.
-    """
+class _LocalStepStrategy:
+    """What every strategy of the port shares: each process trains on its
+    own batch on ``device`` and steps its own optimizer.  Subclasses say
+    how the model is placed (:meth:`init_state`) and how gradients and the
+    loss are reduced over the processes (the ``_loss_scale``,
+    :meth:`_reduce_gradients` and :meth:`_reduce_loss` hooks)."""
 
     def __init__(self, device=None, seed: int = 0):
         self.device = resolve_device(device)
         self.seed = int(seed)
 
-    @property
-    def num_replicas_in_sync(self) -> int:
-        """tf.distribute parity: the number of processes in the group."""
-        return _world_size()
+    #: the loss is multiplied by this before its backward
+    _loss_scale = 1.0
 
-    # -- state -------------------------------------------------------------
-    def init_state(self, model_or_fn, optimizer_fn) -> TrainState:
-        """Move the model (or the one ``model_or_fn()`` builds) to the
-        device, wrap it in ``DistributedDataParallel`` when the process
-        group has more than one member, and build the optimizer with
-        ``optimizer_fn(parameters)``.  DDP broadcasts rank 0's parameters,
-        so every replica starts from the same weights."""
-        model = model_or_fn if isinstance(model_or_fn, nn.Module) else model_or_fn()
-        model = model.to(self.device)
-        if _world_size() > 1:
-            cuda = self.device.type == "cuda"
-            model = nn.parallel.DistributedDataParallel(
-                model, device_ids=[self.device.index if self.device.index is not None
-                                   else torch.cuda.current_device()] if cuda else None)
-        return TrainState(model=model, optimizer=optimizer_fn(model.parameters()))
+    def _reduce_gradients(self, model: nn.Module) -> None:
+        """Combine the processes' gradients after the backward."""
+
+    def _reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The loss to report, from this process's (detached) loss."""
+        return loss
 
     # -- data --------------------------------------------------------------
     def shard_batch(self, batch):
         """This process's batch (numpy arrays or tensors, nested in
         tuples/lists/dicts) as tensors on the device.
 
-        Each process keeps its local batch and DDP averages the gradients
-        of the local mean losses.  That is the JAX strategy's gradient of
-        the mean over the global sharded batch when every process's batch
-        has the same size."""
+        Each process keeps its local batch and the strategy combines the
+        gradients of the local losses (DDP averages them).  That is the JAX
+        strategy's gradient of the mean over the global sharded batch when
+        every process's batch has the same size."""
         def put(x):
             t = torch.from_numpy(np.asarray(x)) if not torch.is_tensor(x) else x
             return t.to(self.device, non_blocking=True)
@@ -222,7 +220,7 @@ class DataParallelStrategy:
             if accum_steps == 1:
                 gen = step_generator(seed, state.step, device, rank) if takes_rng else None
                 loss, aux, extras = one(state.model, batch, extras, gen)
-                loss.backward()
+                (loss * self._loss_scale).backward()
                 loss = loss.detach()
             else:
                 micro = [_tree_map(lambda x, i=i: split(x)[i], batch)
@@ -236,19 +234,254 @@ class DataParallelStrategy:
                         state.model, "no_sync") else state.model.no_sync())
                     with sync:
                         loss_i, aux, extras = one(state.model, mb, extras, gen)
-                        (loss_i / accum_steps).backward()
+                        (loss_i * (self._loss_scale / accum_steps)).backward()
                     total += loss_i.detach()
                 loss = total / accum_steps
+            self._reduce_gradients(state.model)
             state.optimizer.step()
             state.step += 1
             state.extras = extras
-            return state, {"loss": loss, **aux}
+            return state, {"loss": self._reduce_loss(loss), **aux}
 
         return step
 
 
+class DataParallelStrategy(_LocalStepStrategy):
+    """Synchronous data parallelism: one model replica per process.
+
+    The reference's ``MultiWorkerMirroredStrategy``.  ``device`` is where
+    this process's replica lives (``None``: the card, raising without
+    one); ``seed`` is the base of the per-step generators handed to a
+    ``loss_fn`` that takes ``rng``.
+    """
+
+    @property
+    def num_replicas_in_sync(self) -> int:
+        """tf.distribute parity: the number of processes in the group."""
+        return _world_size()
+
+    # -- state -------------------------------------------------------------
+    def init_state(self, model_or_fn, optimizer_fn) -> TrainState:
+        """Move the model (or the one ``model_or_fn()`` builds) to the
+        device, wrap it in ``DistributedDataParallel`` when the process
+        group has more than one member, and build the optimizer with
+        ``optimizer_fn(parameters)``.  DDP broadcasts rank 0's parameters,
+        so every replica starts from the same weights."""
+        model = model_or_fn if isinstance(model_or_fn, nn.Module) else model_or_fn()
+        model = model.to(self.device)
+        if _world_size() > 1:
+            cuda = self.device.type == "cuda"
+            model = nn.parallel.DistributedDataParallel(
+                model, device_ids=[self.device.index if self.device.index is not None
+                                   else torch.cuda.current_device()] if cuda else None)
+        return TrainState(model=model, optimizer=optimizer_fn(model.parameters()))
+
+
 # tf.distribute-parity alias: the strategy name reference users know.
 MultiWorkerMirroredStrategy = DataParallelStrategy
+
+
+def _coalesced(tensors: list, fn) -> None:
+    """Run the in-place collective ``fn`` on ``tensors`` as one flat buffer
+    a dtype (one call instead of one a tensor), copying the results back."""
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        fn(flat)
+        for t, part in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(part.view_as(t))
+
+
+class MeshStrategy(_LocalStepStrategy):
+    """Training over an explicit mesh: the JAX package's ``MeshStrategy``.
+
+    ``mesh`` is a :func:`~.mesh.make_mesh` mesh (built from ``axis_sizes``
+    over every rank when absent, on ``device``'s type).  Every rank holds
+    the whole model except for the parameters that ``rules``
+    (:class:`~.sharding.PartitionRules` over the parameter names) shard
+    over ``fsdp``: those become FSDP2 shards (``fully_shard`` over the
+    mesh's ``fsdp`` axis, ``dp`` × ``fsdp`` when both are larger than 1).
+    Specs naming another axis raise: tensor parallelism goes through
+    :func:`~.transformer.make_transformer_stage`.
+
+    Each rank's ``loss_fn`` sees its own batch: its ``dp``×``fsdp`` rows
+    and, under ``sp``, its block of the sequence (:meth:`sequence_block`,
+    :meth:`sequence_offset`).  Its loss must be such that the mean over
+    the ranks is the global loss (a local mean over equal local batches
+    is; a sequence block's token-loss sum over the global token count
+    divided by the number of ranks is).  The step backprops ``loss /
+    n``, sums the gradients of every replicated parameter over the ``n``
+    ranks of ``dp``×``fsdp``×``sp`` (:attr:`grad_axes`), and reports that
+    mean; ``tp`` ranks are not summed (their tensor-parallel shards are
+    their own, and the transformer stage's conjugate collectives already
+    complete the replicated parameters' gradients).
+    """
+
+    #: the axes over which the gradients of replicated parameters are summed
+    grad_axes = ("dp", "fsdp", "sp")
+
+    def __init__(self, mesh=None, rules: sh.PartitionRules | None = None, seed: int = 0,
+                 device=None, **axis_sizes):
+        super().__init__(device, seed)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            device_type=self.device.type, **axis_sizes)
+        self.rules = rules
+        self._grad_group = group_over(self.mesh, self.grad_axes)
+        self._n = comm.group_size(self._grad_group)
+        self._loss_scale = 1.0 / self._n
+        self._replicated: list = []
+        self._sharded: list = []
+        self._fsdp_count = 1
+        self._sp = self.axis_size("sp")
+
+    def axis_size(self, axis: str) -> int:
+        return self.mesh.size(self.mesh.mesh_dim_names.index(axis))
+
+    @property
+    def num_replicas_in_sync(self) -> int:
+        """tf.distribute parity: total data-parallel degree."""
+        return self.axis_size("dp") * self.axis_size("fsdp")
+
+    # -- state -------------------------------------------------------------
+    def _fsdp_placements(self, model: nn.Module) -> dict:
+        """``{parameter: Shard(dim)}`` for the parameters the rules shard
+        over ``fsdp``; a spec naming any other axis raises."""
+        from torch.distributed.tensor import Shard
+
+        if self.rules is None:
+            return {}
+        params = dict(model.named_parameters())
+        out = {}
+        for name, spec in self.rules.tree_specs(params).items():
+            axes = {a for entry in spec for a in sh._axes_of(entry)}
+            if axes - {"fsdp"}:
+                raise NotImplementedError(
+                    f"{name}: spec {spec!r} names {sorted(axes - {'fsdp'})}; MeshStrategy "
+                    "places parameters over 'fsdp' only (tensor-parallel layers: "
+                    "parallel.transformer.make_transformer_stage)")
+            if axes:
+                out[params[name]] = Shard(next(d for d, e in enumerate(spec)
+                                               if "fsdp" in sh._axes_of(e)))
+        return out
+
+    def init_state(self, model_or_fn, optimizer_fn) -> TrainState:
+        """Move the model (or the one ``model_or_fn()`` builds) to the
+        device, give every rank the first rank's parameters and buffers,
+        shard what the rules shard (FSDP2), and build the optimizer with
+        ``optimizer_fn(parameters)`` (its state follows each parameter's
+        placement)."""
+        model = model_or_fn if isinstance(model_or_fn, nn.Module) else model_or_fn()
+        model = model.to(self.device)
+        if _world_size() > 1:
+            src = int(self.mesh.mesh.flatten()[0])
+            with torch.no_grad():
+                _coalesced(list(model.parameters()) + list(model.buffers()),
+                           lambda flat: dist.broadcast(flat, src))
+        placements = self._fsdp_placements(model)
+        self._replicated = [p for p in model.parameters() if p not in placements]
+        if placements:
+            from torch.distributed.fsdp import fully_shard
+
+            if self._sp > 1 or self.axis_size("tp") > 1:
+                raise NotImplementedError("fsdp-sharded parameters with sp or tp > 1 "
+                                          "are not supported")
+            axes = ("dp", "fsdp") if self.axis_size("dp") > 1 else ("fsdp",)
+            fully_shard(model, mesh=self.mesh[axes],
+                        shard_placement_fn=lambda p: placements.get(p),
+                        ignored_params=set(self._replicated) or None)
+            # FSDP averages its shards' gradients over these ranks (a divide
+            # factor of 1 would need PREMUL_SUM, which gloo lacks); the step
+            # sums, so they are scaled back by the count after the backward
+            self._fsdp_count = math.prod(self.axis_size(a) for a in axes)
+            # fully_shard put new (DTensor) parameters in place of the old
+            kept = {id(p) for p in self._replicated}
+            self._sharded = [p for p in model.parameters() if id(p) not in kept]
+        return TrainState(model=model, optimizer=optimizer_fn(model.parameters()))
+
+    # -- step --------------------------------------------------------------
+    def _reduce_gradients(self, model: nn.Module) -> None:
+        grads = [p.grad for p in self._replicated if p.grad is not None]
+        if grads and self._n > 1:
+            _coalesced(grads, lambda flat: comm.all_reduce(flat, self._grad_group))
+        with torch.no_grad():
+            for p in self._sharded:
+                if p.grad is not None:
+                    p.grad.mul_(self._fsdp_count)
+
+    def _reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        return comm.all_reduce(loss * self._loss_scale, self._grad_group)
+
+    # -- data --------------------------------------------------------------
+    def batch_sharding(self) -> list:
+        """DTensor placements of a batch over the mesh (dim 0 over dp×fsdp)."""
+        return sh.named_sharding(self.mesh, *sh.batch_pspec())
+
+    def sequence_block(self, x, dim: int = 1):
+        """This rank's block of ``x`` along its sequence ``dim``, cut over
+        ``sp`` (``x`` itself when ``sp`` is 1)."""
+        if self._sp == 1:
+            return x
+        if x.shape[dim] % self._sp:
+            raise ValueError(f"sequence length {x.shape[dim]} does not split over "
+                             f"sp={self._sp}")
+        return x.chunk(self._sp, dim=dim)[self.mesh.get_local_rank("sp")]
+
+    def sequence_offset(self, seq_len: int) -> int:
+        """The global position of this rank's first token in a sequence of
+        ``seq_len`` cut over ``sp``."""
+        return self.mesh.get_local_rank("sp") * (seq_len // self._sp)
+
+    def anchor_activations(self, x):
+        """The JAX package pins activations to the data axes so that XLA's
+        propagation does not shard them like the weights.  Eager PyTorch
+        keeps each rank's activations as its own block, with nothing to
+        propagate: the tree comes back as it is."""
+        return x
+
+    def run(self, fn, *args):
+        """``fn(*args)``: in the JAX package, under the mesh's context."""
+        return fn(*args)
+
+
+class FSDPStrategy(MeshStrategy):
+    """Data parallelism with parameters fully sharded over the same ranks:
+    the mesh is ``fsdp`` over every rank, and each parameter of at least
+    ``min_shard_size`` elements is sharded (FSDP2) on its first dimension
+    that divides by the axis size; smaller ones stay replicated."""
+
+    def __init__(self, devices=None, min_shard_size: int = 2 ** 12, device=None,
+                 seed: int = 0):
+        device = resolve_device(device)
+        mesh = make_mesh(MeshSpec(dp=1, fsdp=-1), devices=devices, device_type=device.type)
+        super().__init__(mesh=mesh, rules=_fsdp_rules(mesh, min_shard_size), seed=seed,
+                         device=device)
+        self.min_shard_size = min_shard_size
+
+
+def _fsdp_rules(mesh, min_shard_size: int) -> sh.PartitionRules:
+    """Shard every large-enough parameter on its first divisible axis."""
+
+    class _AutoFSDP(sh.PartitionRules):
+        def __init__(self):
+            self.n = mesh.size(mesh.mesh_dim_names.index("fsdp"))
+
+        def tree_specs(self, params):
+            def spec_for_leaf(leaf):
+                shape = tuple(getattr(leaf, "shape", ()))
+                if math.prod(shape) < min_shard_size:
+                    return sh.P()
+                for dim, extent in enumerate(shape):
+                    if extent % self.n == 0 and extent >= self.n:
+                        parts = [None] * len(shape)
+                        parts[dim] = "fsdp"
+                        return sh.P(*parts)
+                return sh.P()
+
+            return {name: spec_for_leaf(leaf) for name, leaf in params.items()}
+
+    return _AutoFSDP()
 
 
 def sgd(lr: float, momentum: float = 0.9):

@@ -262,11 +262,9 @@ def _reference_package_imports(package: str) -> list[tuple[str, str]]:
 
 
 #: names the port leaves out, each waiting for its queue item:
-#: ``shard_quantized``, the mesh strategies and the serving package's gang
-#: replica, all for the port's mesh (A6)
+#: ``shard_quantized`` and the serving package's gang replica, both for
+#: A6 part 2
 NOT_PORTED_YET = {("ops", "quant", "shard_quantized"),
-                  ("parallel", "strategy", "FSDPStrategy"),
-                  ("parallel", "strategy", "MeshStrategy"),
                   ("serving", "sharded", "GangShardLost"),
                   ("serving", "sharded", "GangSpec"),
                   ("serving", "sharded", "serve_sharded_replica")}
