@@ -246,7 +246,26 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    positions and a step that skips the ``sp`` gradient sum must not be; the chief's losses come back equal from its
    ``SummaryWriter`` event file, its profiled step's trace names K1, and
    ``cluster.tensorboard_url()`` is printed (``None`` without the
-   ``tensorboard`` package).
+   ``tensorboard`` package);
+25. pipeline and expert parallelism: a second ``HostAgent`` and
+   ``TFCluster.run(None, ...)`` of two workers in a gloo group on the card:
+   GPT-124M (phase 13's widths, bf16 on float32, the flash kernels causal)
+   cut into ``pp`` 2 stages of six ``DecoderBlock``s (a
+   ``torch.func.functional_call`` stage function over the stacked
+   blocks), B 8 x T 1024 in 4 microbatches of 2, Adam 1e-4: 2 steps of
+   GPipe (``PipelineStrategy.build_train_step``, remat) and 2 of 1F1B
+   (``pipeline_value_and_grad``, its ``dx`` backpropagated into the
+   embedding), each held to :data:`PIPELINE_TOL` against the unpipelined
+   model trained in this process over the plain attention, both ranks'
+   replicated parameters the same bit for bit, K1-K3 48 / 24 / 24 times a
+   step on each rank and a hop a tick each way, where replicated gradients
+   summed over ``pp`` and a dropped backward hop must not be; then
+   ``examples/moe/switch_lm.py``'s model at Switch-Base-8's widths (d_model
+   768, d_ff 3072, 8 experts, top-1, capacity 1.25, vocab 32128) over
+   ``ep`` 2, T 512, B 16, float32, 3 steps held to :data:`MOE_TOL` against
+   the same model in this process with every expert local, each rank's
+   rows routed on their own, where a return exchange sent to the wrong
+   shard must not be.
 
 ``python3 chip_smoke.py --calibrate-slice9`` only logs phases 15-18's gate
 readings at three seeds (the examples and the bench at the first);
@@ -254,7 +273,8 @@ readings at three seeds (the examples and the bench at the first);
 phase 19's readings on each; ``--calibrate-continual`` trains it at three
 seeds and logs phase 23b's offline-gate readings (v1's, the fine-tuned
 candidate's and the bad candidate's eval loss) on each;
-``--calibrate-long-context`` logs phase 24's readings at three seeds.
+``--calibrate-long-context`` logs phase 24's readings at three seeds, and
+``--calibrate-parallel`` phase 25's.
 
 Each phase's seconds are printed.  The ResNet, MNIST, Wide&Deep,
 Inception-v3 and U-Net paths run none of the repo's hand-written kernels
@@ -264,7 +284,8 @@ paths of phases 19-22 (cached decode is PyTorch's); the summary's
 ``launches`` is phase 18's (this slice's path through the kernels).  The
 summary's times, bound and yardsticks are at phase 18's shape ([32, 128,
 12, 64] bf16, key padding), with the decoder's causal shape under
-``gpt_shape`` and the BERT QA shape under ``bert_shape``.  The line before the last is the card's name and
+``gpt_shape``, the BERT QA shape under ``bert_shape``, phase 24's under
+``ulysses_shape`` and phase 25's microbatch under ``pipeline_shape``.  The line before the last is the card's name and
 power limit; the line before that is the ``{"kernels": [...]}`` summary;
 the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, with no result line, without a CUDA card or outside a
@@ -393,6 +414,8 @@ def flash_cases(seed: int):
         # the long-context LM's Ulysses arm (phase 24): after the exchange
         # each of the two sp ranks holds the whole sequence and 6 of 12 heads
         ("ulysses_causal_bf16", 1, 4096, 4096, 6, 64, bf16, None, True, None, 2e-2),
+        # phase 25's pipelined GPT-124M: one microbatch of 2 rows, causal
+        ("pipeline_mb_causal_bf16", 2, 1024, 1024, 12, 64, bf16, None, True, None, 2e-2),
         ("bert_f32", 16, 384, 384, 12, 64, f32, bert_lens, False, None, 2e-5),
         ("causal_window_d128", 2, 512, 512, 8, 128, bf16, None, True, 128, 2e-2),
         ("tq_ne_tk", 4, 100, 300, 12, 64, bf16, [300, 250, 17, 299], False, None, 2e-2),
@@ -412,12 +435,14 @@ def flash_cases(seed: int):
 #: the cases timed beside their bound, plain version and SDPA: phase 18's
 #: classification shape (the summary's top level), the decoder's causal
 #: shape (``gpt_shape``), the BERT QA shape of the earlier slices
-#: (``bert_shape``) and the long-context Ulysses shape (``ulysses_shape``)
+#: (``bert_shape``), the long-context Ulysses shape (``ulysses_shape``) and
+#: the pipeline's microbatch (``pipeline_shape``)
 MAIN_CASE, GPT_CASE, BERT_CASE = "bert_cls_bf16", "gpt_causal_bf16", "bert_bf16"
-ULYSSES_CASE = "ulysses_causal_bf16"
-#: plain versions at the GPT and Ulysses shapes take milliseconds a call:
-#: fewer samples
-PLAIN_REPS = {MAIN_CASE: KERNEL_REPS, GPT_CASE: 5, BERT_CASE: KERNEL_REPS, ULYSSES_CASE: 3}
+ULYSSES_CASE, PIPELINE_CASE = "ulysses_causal_bf16", "pipeline_mb_causal_bf16"
+#: plain versions at the GPT, Ulysses and pipeline shapes take milliseconds a
+#: call: fewer samples
+PLAIN_REPS = {MAIN_CASE: KERNEL_REPS, GPT_CASE: 5, BERT_CASE: KERNEL_REPS, ULYSSES_CASE: 3,
+              PIPELINE_CASE: 5}
 
 #: the padded head dims timed against SDPA, at BERT-base's batch and length
 PADDED_HEAD_DIMS = (16, 96)
@@ -499,7 +524,7 @@ def check_flash(seed: int) -> dict:
     return {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES, "design": HOPPER_DESIGN, "launches": None,
             **timed[MAIN_CASE], "gpt_shape": timed[GPT_CASE], "bert_shape": timed[BERT_CASE],
-            "ulysses_shape": timed[ULYSSES_CASE]}
+            "ulysses_shape": timed[ULYSSES_CASE], "pipeline_shape": timed[PIPELINE_CASE]}
 
 
 def visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
@@ -647,7 +672,7 @@ def check_flash_bwd(seed: int) -> list[dict]:
     return [{"name": kname, "route": "cuda", "source": BWD_SOURCE, "replaces": replaces,
              "design": HOPPER_DESIGN, "launches": None, **timed[MAIN_CASE][j],
              "gpt_shape": timed[GPT_CASE][j], "bert_shape": timed[BERT_CASE][j],
-             "ulysses_shape": timed[ULYSSES_CASE][j]}
+             "ulysses_shape": timed[ULYSSES_CASE][j], "pipeline_shape": timed[PIPELINE_CASE][j]}
             for j, (kname, replaces) in enumerate((("flash_attention_dq", DQ_REPLACES),
                                                    ("flash_attention_dkv", DKV_REPLACES)))]
 
@@ -3852,6 +3877,589 @@ def run_long_context(seed: int, card: str, wd: str, cfg: dict | None = None,
     return {"launches": launches, "stages": stage, "arms": chief["arms"]}
 
 
+# ------------------------- phase 25: pipeline and expert parallelism
+
+#: phase 25's pipeline model: phase 13's GPT-124M-class widths (vocab 32000,
+#: hidden 768, 12 layers of 12 heads, FFN 3072, 1024 positions), bf16 on
+#: float32 parameters, no dropout, the flash kernels causal; its 12 blocks
+#: cut into ``pp`` stages; B 8 x T 1024 in ``microbatches`` of 2, Adam at
+#: phase 13's rate, ``steps`` steps of each arm, sound or planted fault
+PIPELINE = {"pp": 2, "microbatches": 4, "lr": GPT_LR, "steps": 2}
+#: the pipeline arms, trained in turn from the same seeded weights and data:
+#: (name, schedule, planted fault or None)
+PIPELINE_ARMS = (("gpipe", "gpipe", None), ("1f1b", "1f1b", None),
+                 ("pp_grad_sum", "gpipe", "pp_grad_sum"),
+                 ("no_backward_hop", "1f1b", "no_backward_hop"))
+#: the MoE arm: ``examples/moe/switch_lm.py`` at the published widths of
+#: Switch-Base-8 (Fedus et al. 2021, ``google/switch-base-8``: d_model 768,
+#: d_ff 3072, 8 experts, top-1, capacity factor 1.25, vocab 32128) at the
+#: example's depth (one attention sublayer of its 4 heads, one MoE FFN, the
+#: embedding tied as the head), float32 as the example; T 512, B 16 (8 a
+#: rank) over ``ep`` 2 (4 experts a rank), Adam 1e-4
+SWITCH_BASE_8 = {"vocab": 32128, "hidden": 768, "num_experts": 8, "top_k": 1,
+                 "capacity_factor": 1.25, "ep": 2, "seq_len": 512, "batch_size": 16,
+                 "aux_weight": 0.01, "lr": 1e-4, "steps": 3, "fault_steps": 2}
+MOE_ARMS = (("moe", None), ("wrong_shard", "wrong_shard"))
+#: the gates against the unpipelined (unsharded) oracle in this process:
+#: each step's |loss diff| and, over the parameters the oracle moved, ||w -
+#: w_oracle|| / ||w_oracle - w0|| (max, median, and max over the replicated
+#: parameters), the key biases (zero in theory) in units of lr x steps
+#: (Adam's bound); the parameters the oracle did not move must not move.
+#: Set from ``--calibrate-parallel`` at seeds 0-2 (PERF.md, "Gate
+#: calibration"): the sound pipeline arms read up to 7.5e-5 / 0.139 / 0.070
+#: / 0.085 / 1.86 (bf16 kernels against the float32 plain attention); the
+#: replicated gradients summed over pp read at least 2.6e-4 / 0.258 (the
+#: tied table) / - / 0.258, the dropped backward hop 6.3e-4 / 1 / 0.42 / 1.
+#: The MoE reads up to 9.5e-7 / 8.1e-6 / 5.1e-7 (float32, the sums in
+#: another order), its return exchange sent to the wrong shard at least
+#: 5.8e-5 / 1.08 / 0.395
+PIPELINE_TOL = {"loss": 1.5e-4, "max": 0.2, "median": 0.1, "replicated": 0.15, "noise": 2.03}
+MOE_TOL = {"loss": 1e-5, "max": 1e-3, "median": 1e-4}
+
+
+def pipeline_batches(seed: int, steps: int, width: dict) -> list:
+    """The first ``steps`` batches of gpt_tiny's "+1" corpus at ``width``
+    (``{"ids": [B, T] int32}``), as the oracle and the workers draw them."""
+    import itertools
+
+    from tensorflowonspark_tpu_torch.examples.gpt import gpt_tiny
+
+    return list(itertools.islice(gpt_tiny.corpus(argparse.Namespace(**width, seed=seed))(),
+                                 steps))
+
+
+def pipelined_gpt(cfg, sd: dict, pp: int):
+    """A stage-stacked GPT over ``sd`` (a ``GPT`` state dict): ``tok_emb``,
+    ``pos_emb`` and ``ln_f`` replicated, and ``stages``, ``num_layers / pp``
+    DecoderBlock-shaped modules whose parameters stack the stages' blocks
+    (stage ``s`` runs layers ``s * per .. (s + 1) * per - 1``)."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+
+    from tensorflowonspark_tpu_torch.models.gpt import GPT, DecoderBlock
+
+    per = cfg.num_layers // pp
+    with torch.device("meta"):
+        model = GPT(dataclasses.replace(cfg, num_layers=0))
+        blocks = nn.ModuleList(DecoderBlock(cfg) for _ in range(per))
+    model.load_state_dict({k: v for k, v in sd.items() if not k.startswith("layers.")},
+                          assign=True)
+    for i, block in enumerate(blocks):
+        for name, _ in list(block.named_parameters()):
+            owner, _, attr = name.rpartition(".")
+            stacked = torch.stack([sd[f"layers.{s * per + i}.{name}"] for s in range(pp)])
+            setattr(block.get_submodule(owner), attr, nn.Parameter(stacked))
+    model.stages = blocks
+    return model
+
+
+def gpt_stage_fn(cfg, per: int):
+    """``stage_fn(params, x)``: ``per`` decoder blocks through
+    ``torch.func.functional_call`` over one stage's parameters (names
+    ``"<block>.<parameter>"``)."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.models.gpt import DecoderBlock
+
+    with torch.device("meta"):
+        template = DecoderBlock(cfg)
+
+    def stage_fn(params, x):
+        blocks = [{} for _ in range(per)]
+        for name, p in params.items():
+            i, _, rest = name.partition(".")
+            blocks[int(i)][rest] = p
+        for block in blocks:
+            x = torch.func.functional_call(template, block, (x,))
+        return x
+
+    return stage_fn
+
+
+def oracle_layer_name(name: str, stage: int, per: int) -> str:
+    """A pipelined model's parameter name in the GPT's state dict."""
+    if not name.startswith("stages."):
+        return name
+    _, i, rest = name.split(".", 2)
+    return f"layers.{stage * per + int(i)}.{rest}"
+
+
+def parallel_oracles(seed: int, gpt_cfg, width: dict, moe: dict, path: str,
+                     device: str) -> dict:
+    """The unsharded runs in this process, saved to ``path`` for the
+    workers: the GPT unpipelined (gpt_tiny's model over phase 13's plain
+    attention, the batches of :func:`pipeline_batches`, Adam) for
+    ``steps``, and the Switch LM with every expert local, each step's loss
+    the mean over the two ranks' blocks of rows, each block routed on its
+    own (``tests/test_moe.py``'s construction)."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.moe import switch_lm
+    from tensorflowonspark_tpu_torch.ops import flash_attention_plain
+    from tensorflowonspark_tpu_torch.parallel.strategy import adam
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ids = [torch.as_tensor(b["ids"], device=device).long()
+           for b in pipeline_batches(seed, PIPELINE["steps"], width)]
+    gpt = gpt_replay(gpt_cfg, ids, seed, flash_attention_plain, torch.device(device),
+                     PIPELINE["lr"])
+    out = {"gpt": {"losses": gpt["losses"],
+                   "w": {n: t.float().cpu() for n, t in gpt["w"].items()}}}
+    del gpt
+    gpt_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    args = argparse.Namespace(**{**moe, "ep": 1})
+    model = switch_lm.build_model(args, seed=seed).to(device)
+    w0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = adam(moe["lr"])(model.parameters())
+    loss_fn = switch_lm.lm_loss(moe["aux_weight"])
+    losses = []
+    for b in switch_lm.make_batches(seed, moe["steps"], moe["batch_size"], moe["seq_len"],
+                                    moe["vocab"]):
+        ids = torch.as_tensor(b["ids"], device=device)
+        opt.zero_grad(set_to_none=True)
+        loss = sum(loss_fn(model, {"ids": block}) for block in ids.chunk(moe["ep"])) / moe["ep"]
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    out["moe"] = {"losses": losses, "w0": {n: t.cpu() for n, t in w0.items()},
+                  "w": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+    del model, opt, w0
+    torch.save(out, path)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda" else 0.0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"gpt_losses": out["gpt"]["losses"], "moe_losses": losses, "gpt_s": gpt_s,
+            "moe_s": time.perf_counter() - t0, "peak_gib": peak}
+
+
+def rank_readings(w: dict, w_or: dict, w0: dict) -> dict:
+    """This rank's parameters ``w`` against the oracle's ``w_or`` (both
+    from ``w0``, by the oracle's names): each moved parameter's relative
+    distance, the zero-in-theory key biases' largest step apart, and the
+    largest move of a parameter the oracle left alone."""
+    moved = {n for n in w if (w_or[n] - w0[n]).norm().item() > 0}
+    zero = {n for n in moved if n.endswith("attn.key.bias")}
+    return {"rel": {n: ((w[n] - w_or[n]).norm() / (w_or[n] - w0[n]).norm()).item()
+                    for n in moved - zero},
+            "zero": max(((w[n] - w_or[n]).abs().max().item() for n in zero), default=0.0),
+            "unmoved": max(((w[n] - w0[n]).abs().max().item() for n in w if n not in moved),
+                           default=0.0)}
+
+
+def merge_readings(ranks: list, losses: list, oracle_losses: list, lr_steps: float,
+                   replicated) -> dict:
+    """The ranks' :func:`rank_readings` as one gate reading; ``replicated``
+    also the largest over the parameters ``replicated(name)`` names."""
+    import numpy as np
+
+    rel = {}
+    for r in ranks:
+        rel.update(r["rel"])
+    worst = max(rel, key=rel.get)
+    return {"loss": max(abs(a - b) for a, b in zip(losses, oracle_losses)),
+            "max": rel[worst], "worst": worst, "median": float(np.median(list(rel.values()))),
+            "replicated": max(v for n, v in rel.items() if replicated(n)),
+            "noise": max(r["zero"] for r in ranks) / lr_steps,
+            "unmoved": max(r["unmoved"] for r in ranks)}
+
+
+def _planted_parallel(fault: str | None):
+    """A context that plants a pipeline or MoE fault in this process's port
+    modules and takes it out again."""
+    import contextlib
+    import importlib
+
+    import torch
+
+    pipeline = importlib.import_module("tensorflowonspark_tpu_torch.parallel.pipeline")
+    moe = importlib.import_module("tensorflowonspark_tpu_torch.parallel.moe")
+    from tensorflowonspark_tpu_torch.parallel import comm
+
+    @contextlib.contextmanager
+    def plant():
+        if fault == "no_backward_hop":
+            orig = pipeline._hop
+
+            def forward_only(x, group, offset):
+                return orig(x, group, offset) if offset > 0 else torch.zeros_like(x)
+            pipeline._hop = forward_only
+            try:
+                yield
+            finally:
+                pipeline._hop = orig
+        elif fault == "wrong_shard":
+            orig = moe._from_experts
+
+            def wrong(x, group):           # each rank's outputs go one shard over
+                return comm.all_to_all_exchange(x.roll(1, dims=0), group, 0, 0)
+            moe._from_experts = wrong
+            try:
+                yield
+            finally:
+                moe._from_experts = orig
+        else:
+            yield
+    return plant()
+
+
+def _digest(params: dict) -> dict:
+    return {n: [p.detach().double().sum().item(), p.detach().double().norm().item()]
+            for n, p in params.items()}
+
+
+def _kernel_launches() -> dict:
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (flash_attention,
+                                                                 flash_attention_bwd)
+
+    return {"flash_attention_fwd": flash_attention.launches,
+            "flash_attention_dq": flash_attention_bwd.launches_dq,
+            "flash_attention_dkv": flash_attention_bwd.launches_dkv}
+
+
+def _pipeline_arm(args, device, w0: dict, oracle: dict, schedule: str, fault) -> dict:
+    """One pipeline arm on this rank: the stage-stacked GPT from ``w0``,
+    ``steps`` GPipe steps through ``PipelineStrategy.build_train_step`` or
+    1F1B steps through ``pipeline_value_and_grad`` (its ``dx``
+    backpropagated into the embedding), and this rank's readings."""
+    import torch
+    import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch.parallel import PipelineStrategy, comm
+    from tensorflowonspark_tpu_torch.parallel.pipeline import (_broadcast_from, _coalesced,
+                                                               pipeline_value_and_grad)
+    from tensorflowonspark_tpu_torch.parallel.strategy import MeshStrategy, adam
+
+    cfg, run, pp = args["gpt_cfg"], args["pipeline"], args["pipeline"]["pp"]
+    per = cfg.num_layers // pp
+    n = run["steps"]
+    batches = pipeline_batches(args["seed"], n, args["width"])
+
+    class SumOverPP(PipelineStrategy):
+        """The planted fault: replicated gradients summed over ``pp``."""
+
+        def _reduce_gradients(self, model):
+            trained = [p for p in self._replicated if p.requires_grad]
+            for p in trained:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            _coalesced([p.grad for p in trained],
+                       lambda flat: comm.all_reduce(flat, self._pp_group))
+            MeshStrategy._reduce_gradients(self, model)
+
+    with _planted_parallel(fault):
+        t_setup = time.perf_counter()
+        strat = (SumOverPP if fault == "pp_grad_sum" else PipelineStrategy)(
+            gpt_stage_fn(cfg, per), num_stages=pp, num_microbatches=run["microbatches"],
+            device=device)
+        state = strat.init_state(pipelined_gpt(cfg, {k: v.clone() for k, v in w0.items()}, pp),
+                                 adam(run["lr"]))
+        model = state.module
+        V = cfg.vocab_size
+
+        def embed(ids):
+            x = F.embedding(ids, model.tok_emb.weight).to(cfg.dtype)
+            return x + model.pos_emb[:ids.shape[1]].to(cfg.dtype)
+
+        def xent(h, table, ids):
+            logits = torch.einsum("bth,vh->btv", h.float(), table.float())
+            return F.cross_entropy(logits[:, :-1].reshape(-1, V), ids[:, 1:].reshape(-1))
+
+        def gpipe_loss(model, batch):
+            h = strat.apply(strat.split(model)[0], embed(batch["ids"]))
+            return xent(model.ln_f(h), model.tok_emb.weight, batch["ids"])
+
+        def head_fn(hp, y, ids):
+            h = torch.func.functional_call(model.ln_f, {"weight": hp["ln_f.weight"],
+                                                        "bias": hp["ln_f.bias"]}, (y,))
+            return xent(h, hp["tok_emb.weight"], ids)
+
+        def one_f_one_b(state, batch):
+            ids = batch["ids"]
+            state.optimizer.zero_grad(set_to_none=True)
+            stages, head = strat.split(model)
+            x = embed(ids)
+            loss, d_stages, d_head, dx = pipeline_value_and_grad(
+                strat.mesh, strat.stage_fn, head_fn, stages, head, x.detach(), ids,
+                num_microbatches=run["microbatches"])
+            x.backward(dx)                          # the embedding's part
+            for k, p in stages.items():
+                p.grad = d_stages[k]
+            for k, p in head.items():
+                p.grad = d_head[k] if p.grad is None else p.grad + d_head[k]
+            state.optimizer.step()
+            return state, {"loss": loss}
+
+        step = strat.build_train_step(gpipe_loss) if schedule == "gpipe" else one_f_one_b
+        staged0 = comm.HOST_STAGED["send_recv"]
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+        zero_launch_counts()
+        losses, step_s = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            ids = torch.as_tensor(b["ids"], device=device).long()
+            ts = time.perf_counter()
+            state, metrics = step(state, {"ids": ids})
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - ts)
+        seconds = time.perf_counter() - t0
+        launches = _kernel_launches()
+        hops = comm.HOST_STAGED["send_recv"] - staged0
+    stage = strat.mesh.get_local_rank("pp")
+    w = {oracle_layer_name(k, stage, per): p.detach().float()[0] if k.startswith("stages.")
+         else p.detach().float() for k, p in model.named_parameters()}
+    ref = {k: oracle["w"][k].to(device) for k in w}
+    w0r = {k: w0[k].to(device) for k in w}
+    mb_bytes = (args["width"]["batch_size"] // run["microbatches"]) * args["width"]["seq_len"] \
+        * cfg.hidden_size * torch.finfo(cfg.dtype).bits // 8
+    ticks = run["microbatches"] + (pp - 1) * (1 if schedule == "gpipe" else 2)
+    out = {"losses": losses, "step_s": step_s, "seconds": seconds, "steps": n,
+           "setup_s": t0 - t_setup, "launches": launches, "hops": hops,
+           "hops_expected": 2 * ticks * n if device.type == "cuda" else 0,
+           "hop_bytes_a_step": 2 * ticks * mb_bytes,
+           # idle ticks of a stage over all: (S-1)/(M+S-1) GPipe, (2S-2)/(M+2S-2) 1F1B
+           "bubble": (ticks - run["microbatches"]) / ticks,
+           "digest": _digest({k: p for k, p in model.named_parameters()
+                              if not k.startswith("stages.")}),
+           "readings": rank_readings(w, ref, w0r)}
+    if device.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    del state, model, strat, w, ref, w0r
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_arm(args, device, oracle: dict, fault) -> dict:
+    """The Switch LM over the ``{ep: 2}`` mesh on this rank: MeshStrategy
+    with the expert rules, each rank its 8 rows of a batch."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.moe import switch_lm
+    from tensorflowonspark_tpu_torch.parallel import MeshStrategy, comm, make_mesh
+    from tensorflowonspark_tpu_torch.parallel.strategy import adam
+
+    moe = args["moe"]
+    n = moe["steps"] if fault is None else moe["fault_steps"]
+    with _planted_parallel(fault):
+        t_setup = time.perf_counter()
+        mesh = make_mesh(ep=moe["ep"], dp=1, device_type=device.type)
+        strat = MeshStrategy(mesh=mesh, rules=switch_lm.expert_rules(), device=device)
+        state = strat.init_state(switch_lm.build_model(argparse.Namespace(**moe), mesh,
+                                                       seed=args["seed"]), adam(moe["lr"]))
+        step = strat.build_train_step(switch_lm.lm_loss(moe["aux_weight"]))
+        staged0 = dict(comm.HOST_STAGED)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+        losses, step_s = [], []
+        t0 = time.perf_counter()
+        for b in switch_lm.make_batches(args["seed"], n, moe["batch_size"], moe["seq_len"],
+                                        moe["vocab"]):
+            rows = strat.shard_batch(switch_lm.rows_block(mesh, b))
+            ts = time.perf_counter()
+            state, metrics = step(state, rows)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - ts)
+        seconds = time.perf_counter() - t0
+    ep_rank, experts = mesh.get_local_rank("ep"), moe["num_experts"] // moe["ep"]
+    w, ref, w0 = {}, {}, {}
+    for k, p in state.module.named_parameters():
+        w[k] = p.detach().float()
+        cut = slice(ep_rank * experts, (ep_rank + 1) * experts) if k in ("moe.win", "moe.wout") \
+            else slice(None)
+        ref[k], w0[k] = (oracle[s][k][cut].to(device) for s in ("w", "w0"))
+    out = {"losses": losses, "step_s": step_s, "seconds": seconds, "steps": n,
+           "setup_s": t0 - t_setup, "experts_here": experts,
+           "digest": _digest({k: p for k, p in state.module.named_parameters()
+                              if k not in ("moe.win", "moe.wout")}),
+           "readings": rank_readings(w, ref, w0)}
+    if device.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    del state, strat, w, ref, w0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_worker(args, ctx) -> None:
+    """Phase 25's map_fun, on each of the two agent-launched workers: join
+    the gloo group (both ranks share the one card), train every pipeline
+    arm of :data:`PIPELINE_ARMS` over ``pp`` 2 and every MoE arm of
+    :data:`MOE_ARMS` over ``ep`` 2, and write the results into the working
+    dir."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.examples.gpt import gpt_tiny
+    from tensorflowonspark_tpu_torch.parallel import comm
+    from tensorflowonspark_tpu_torch.util import strict_matmul_precision
+
+    if args["device"] == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("this worker sees no card: it does not train on the CPU")
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+        torch.set_num_threads(1)
+    strict_matmul_precision()                # float32 products as the oracle's (no TF32)
+    ctx.initialize_distributed(device, backend="gloo")
+    out = {"rank": ctx.executor_id, "arms": {}}
+    try:
+        t0 = time.perf_counter()
+        oracle = torch.load(args["oracle"], mmap=True)
+        w0 = gpt_tiny.build_model(args["gpt_cfg"], args["seed"]).state_dict()
+        out["load_s"] = time.perf_counter() - t0
+        for name, schedule, fault in PIPELINE_ARMS:
+            out["arms"][name] = _pipeline_arm(args, device, w0, oracle["gpt"], schedule, fault)
+        del w0
+        for name, fault in MOE_ARMS:
+            out["arms"][name] = _moe_arm(args, device, oracle["moe"], fault)
+        out["host_staged"] = dict(comm.HOST_STAGED)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(ctx.working_dir, f"parallel.{ctx.executor_id}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_parallel_training(seed: int, card: str, wd: str, width: dict | None = None,
+                          moe: dict | None = None, device: str = "cuda",
+                          gate: bool = True) -> dict:
+    """Phase 25: the oracles in this process, then one ``HostAgent`` on
+    localhost and ``TFCluster.run(None, parallel_worker, args, 2, 0, False,
+    InputMode.TENSORFLOW, backend=AgentBackend(...))``: two workers train
+    GPT-124M over ``pp`` 2 (GPipe and 1F1B, two planted faults) and
+    Switch-Base-8 over ``ep`` 2 (one planted fault).  Gated (with
+    ``gate``): each sound arm within its tolerance of the oracle with both
+    ranks' replicated parameters the same bit for bit, each fault outside,
+    K1-K3 48 / 24 / 24 times a step on each pipeline rank and a hop a tick
+    each way.  Returns the launches and the stages' seconds."""
+    import secrets
+
+    from tensorflowonspark_tpu_torch import TFCluster
+    from tensorflowonspark_tpu_torch.agent import AgentBackend, HostAgent
+    from tensorflowonspark_tpu_torch.cluster import InputMode
+    from tensorflowonspark_tpu_torch.examples.gpt import gpt_tiny
+
+    width = {**GPT_WIDTH, **(width or {})}
+    moe = {**SWITCH_BASE_8, **(moe or {})}
+    gpt_cfg = gpt_tiny.model_config(gpt_args(seed, wd, **width))
+    pwd = os.path.join(wd, f"parallel_{seed}")
+    os.makedirs(pwd, exist_ok=True)
+    stage = {}
+    t0 = time.perf_counter()
+    oracle_path = os.path.join(pwd, "oracle.pt")
+    oracle = parallel_oracles(seed, gpt_cfg, width, moe, oracle_path, device)
+    stage["oracles"] = time.perf_counter() - t0
+    log(f"phase 25 oracles in one process: GPT unpipelined (plain attention, "
+        f"{PIPELINE['steps']} steps) losses {[round(x, 5) for x in oracle['gpt_losses']]} in "
+        f"{oracle['gpt_s']:.1f} s; Switch LM, every expert local, losses "
+        f"{[round(x, 5) for x in oracle['moe_losses']]} in {oracle['moe_s']:.1f} s; peak "
+        f"{oracle['peak_gib']:.1f} GiB")
+    args = {"seed": seed, "gpt_cfg": gpt_cfg, "width": width, "pipeline": PIPELINE,
+            "moe": moe, "oracle": oracle_path, "device": device}
+    worker_env = ({"OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""} if device == "cpu"
+                  else {})
+    t0 = time.perf_counter()
+    key = secrets.token_bytes(16)
+    agent = HostAgent(port=0, authkey=key, bind_host="127.0.0.1",
+                      log_dir=os.path.join(pwd, "agent_logs"))
+    addr = agent.start()
+    try:
+        cluster = TFCluster.run(None, parallel_worker, args, 2, 0, False,
+                                InputMode.TENSORFLOW, reservation_timeout=300,
+                                backend=AgentBackend([addr], authkey=key, worker_env=worker_env),
+                                working_dir=pwd)
+        stage["boot"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cluster.shutdown(timeout=1200)
+        stage["train"] = time.perf_counter() - t0
+    finally:
+        agent.stop()
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(pwd, f"parallel.{r}.json")) as f:
+            ranks.append(json.load(f))
+    stage["workers' setup"] = ranks[0]["load_s"]
+    failures = []
+    per_step = {"flash_attention_fwd": 48, "flash_attention_dq": 24, "flash_attention_dkv": 24}
+    for name, schedule, fault in PIPELINE_ARMS:
+        arms = [rank["arms"][name] for rank in ranks]
+        stage[f"arm {name}"] = arms[0]["setup_s"] + arms[0]["seconds"]
+        r = merge_readings([a["readings"] for a in arms], arms[0]["losses"],
+                           oracle["gpt_losses"], PIPELINE["lr"] * arms[0]["steps"],
+                           lambda n: not n.startswith("layers."))
+        drift = replica_drift(arms[0]["digest"], arms[1]["digest"])
+        ok = (within(r, PIPELINE_TOL) and r["unmoved"] == 0.0 and drift == 0.0
+              and arms[0]["losses"] == arms[1]["losses"])
+        want = ({k: v * arms[0]["steps"] for k, v in per_step.items()} if device == "cuda"
+                else dict.fromkeys(per_step, 0))
+        log(f"phase 25 seed {seed} {name} ({schedule}{', fault' if fault else ''}, pp "
+            f"{PIPELINE['pp']}, M {PIPELINE['microbatches']}, bubble {arms[0]['bubble']:.3f}, "
+            f"{arms[0]['steps']} steps): losses {[round(x, 5) for x in arms[0]['losses']]}; "
+            f"step s rank 0 {[round(x, 3) for x in arms[0]['step_s']]}, rank 1 "
+            f"{[round(x, 3) for x in arms[1]['step_s']]} after {arms[0]['setup_s']:.2f} s of "
+            f"setup; hops {arms[0]['hops']} a rank ({arms[0]['hop_bytes_a_step'] / 1e6:.2f} MB "
+            f"a rank a step); peak {arms[0].get('peak_gib', 0):.1f} / "
+            f"{arms[1].get('peak_gib', 0):.1f} GiB; |loss diff| {r['loss']:.3g}, max "
+            f"{r['max']:.3g} ({r['worst']}), median {r['median']:.3g}, replicated "
+            f"{r['replicated']:.3g}, noise {r['noise']:.3g}, "
+            f"unmoved {r['unmoved']:.3g}, replica drift {drift:.3g}; launches rank 0 "
+            f"{arms[0]['launches']}, rank 1 {arms[1]['launches']} -> "
+            f"{'within' if ok else 'OUTSIDE'} {PIPELINE_TOL}")
+        if ok == bool(fault):
+            failures.append(f"{name} {'passed' if fault else 'failed'} the gate")
+        if fault is None and any(a["launches"] != want for a in arms):
+            failures.append(f"{name}: launches {[a['launches'] for a in arms]}, not {want}")
+        if fault is None and any(a["hops"] != a["hops_expected"] for a in arms):
+            failures.append(f"{name}: {[a['hops'] for a in arms]} hops copied to the host, "
+                            f"not {arms[0]['hops_expected']}")
+    for name, fault in MOE_ARMS:
+        arms = [rank["arms"][name] for rank in ranks]
+        stage[f"arm {name}"] = arms[0]["setup_s"] + arms[0]["seconds"]
+        r = merge_readings([a["readings"] for a in arms], arms[0]["losses"],
+                           oracle["moe_losses"], moe["lr"] * arms[0]["steps"],
+                           lambda n: n not in ("moe.win", "moe.wout"))
+        drift = replica_drift(arms[0]["digest"], arms[1]["digest"])
+        ok = (within(r, MOE_TOL) and r["unmoved"] == 0.0 and drift == 0.0
+              and arms[0]["losses"] == arms[1]["losses"])
+        log(f"phase 25 seed {seed} {name} (Switch-Base-8 widths, ep {moe['ep']}, "
+            f"{arms[0]['experts_here']} experts a rank{', fault' if fault else ''}, "
+            f"{arms[0]['steps']} steps): losses {[round(x, 5) for x in arms[0]['losses']]}; "
+            f"step s rank 0 {[round(x, 3) for x in arms[0]['step_s']]}, rank 1 "
+            f"{[round(x, 3) for x in arms[1]['step_s']]} after {arms[0]['setup_s']:.2f} s of "
+            f"setup; peak {arms[0].get('peak_gib', 0):.1f} / {arms[1].get('peak_gib', 0):.1f} "
+            f"GiB; |loss diff| {r['loss']:.3g}, max {r['max']:.3g} ({r['worst']}), median "
+            f"{r['median']:.3g}, replicated {r['replicated']:.3g}, unmoved {r['unmoved']:.3g}, "
+            f"replica drift {drift:.3g} -> "
+            f"{'within' if ok else 'OUTSIDE'} {MOE_TOL}")
+        if ok == bool(fault):
+            failures.append(f"{name} {'passed' if fault else 'failed'} the gate")
+    for rank in ranks:
+        log(f"phase 25 rank {rank['rank']}: collectives copied to the host (gloo takes no "
+            f"send/recv on CUDA tensors): {rank['host_staged']}")
+    launches = {k: sum(rank["arms"][name]["launches"][k] for rank in ranks
+                       for name, _, fault in PIPELINE_ARMS if fault is None)
+                for k in KERNEL_NAMES}
+    log("phase 25 seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in stage.items()))
+    if gate and failures:
+        raise SystemExit("phase 25: " + "; ".join(failures))
+    if failures:
+        log("phase 25 (not gated): " + "; ".join(failures))
+    return {"launches": launches, "stages": stage,
+            "arms": {name: ranks[0]["arms"][name] for name in ranks[0]["arms"]}}
+
+
 # ------------------------------ phase 23: the batch and continual planes
 
 #: phase 23a: BASELINE config 3's scoring half as bulk offline inference
@@ -5140,6 +5748,10 @@ def main() -> int:
                    help="only build the kernels and log phase 24's gate readings (the sound "
                         "arms, the planted faults, Ulysses over the plain versions) at seeds "
                         "--seed..--seed+2, and exit (no result)")
+    p.add_argument("--calibrate-parallel", action="store_true",
+                   help="only build the kernels and log phase 25's gate readings (the sound "
+                        "arms and the planted faults) at seeds --seed..--seed+2, and exit "
+                        "(no result)")
     p.add_argument("--calibrate-gpt", action="store_true",
                    help="only build the kernels and log phase 13's and 13b's gate readings "
                         "at seeds --seed..--seed+2, at GPT_LR and at gpt_tiny's own rate "
@@ -5189,6 +5801,16 @@ def main() -> int:
             for seed in range(args.seed, args.seed + 3):
                 t0 = time.perf_counter()
                 run_long_context(seed, card, wd, gate=False, arms=LONG_CONTEXT_CALIBRATION_ARMS)
+                log(f"calibration seed {seed}: {time.perf_counter() - t0:.1f} s")
+        return 0
+
+    if args.calibrate_parallel:
+        build_kernels()
+        card = card_name_and_limit()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+            for seed in range(args.seed, args.seed + 3):
+                t0 = time.perf_counter()
+                run_parallel_training(seed, card, wd, gate=False)
                 log(f"calibration seed {seed}: {time.perf_counter() - t0:.1f} s")
         return 0
 
@@ -5273,7 +5895,7 @@ def main() -> int:
     log(f"backward at {dq['shape']} on {card}: dq + dkv kernels {dq['ms'] + dkv['ms']:.6f} ms, "
         f"SDPA backward {dq['library_ms']:.6f} ms (in turns), plain "
         f"{dq['plain_ms'] + dkv['plain_ms']:.6f} ms")
-    for shape in ("gpt_shape", "bert_shape", "ulysses_shape"):
+    for shape in ("gpt_shape", "bert_shape", "ulysses_shape", "pipeline_shape"):
         for e in (flash, dq, dkv):
             b = e[shape]
             log(f"{e['name']} at {b['shape']} on {card}: kernel {b['ms']:.6f} ms, SDPA "
@@ -5403,6 +6025,13 @@ def main() -> int:
         long_context = timed("24 long context", run_long_context, args.seed, card, wd)
         torch.cuda.empty_cache()
 
+        # 25. pipeline and expert parallelism: two workers train GPT-124M over
+        # pp = 2 (GPipe and 1F1B, K1-K3 inside the stages) and Switch-Base-8
+        # over ep = 2
+        parallel = timed("25 pipeline and expert parallelism", run_parallel_training,
+                         args.seed, card, wd)
+        torch.cuda.empty_cache()
+
     # 10. the bench
     from tensorflowonspark_tpu_torch import bench_resnet
 
@@ -5432,6 +6061,7 @@ def main() -> int:
                                       "rollout_and_disagg_tiers": rest_of_tier[e["name"]],
                                       "batch_and_continual": batch_and_continual[e["name"]],
                                       "long_context": long_context["launches"][e["name"]],
+                                      "pipeline": parallel["launches"][e["name"]],
                                       "bert_cls_training":
                                           new_models["bert_cls"]["launches"][e["name"]]})
     log("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

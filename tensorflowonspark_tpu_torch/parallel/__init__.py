@@ -8,9 +8,10 @@ ranks of the process group, partition rules as DTensor placements, the
 data-parallel (DDP), mesh and FSDP (FSDP2) strategies with their
 optax-exact optimizers, the vocab-sharded embedding tables over an
 embedding process group (the reference's parameter servers), ring and
-Ulysses sequence-parallel attention, and the tp×sp transformer stage.
-The collectives and their autograd transposes are in :mod:`.comm`.  Not
-ported yet (ROADMAP A6 part 2): ``pipeline`` and ``moe``.
+Ulysses sequence-parallel attention, the tp×sp transformer stage, GPipe
+and 1F1B pipelines over ``pp`` and the expert-parallel MoE layer over
+``ep``.  The collectives and their autograd transposes are in
+:mod:`.comm`.
 """
 
 from tensorflowonspark_tpu_torch.parallel.mesh import (AXES, MeshSpec,  # noqa: F401
@@ -31,3 +32,6 @@ from tensorflowonspark_tpu_torch.parallel.transformer import (  # noqa: F401
     make_transformer_stage)
 from tensorflowonspark_tpu_torch.parallel.ulysses import (  # noqa: F401
     ulysses_attention, ulysses_self_attention)
+from tensorflowonspark_tpu_torch.parallel.pipeline import (  # noqa: F401
+    PipelineStrategy, pipeline_apply, pipeline_value_and_grad, stack_stage_params)
+from tensorflowonspark_tpu_torch.parallel.moe import make_moe_layer, moe_apply  # noqa: F401

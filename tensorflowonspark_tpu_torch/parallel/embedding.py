@@ -23,8 +23,9 @@ same loss, as the JAX mesh replicates the data over ``ep``.  So each
 rank's gradient of the looked-up rows is already the whole ``dL/demb``,
 and the all-reduce's backward is the identity (:class:`_SumOverGroup`):
 an all-reduce of the gradient would scale every table gradient by the
-group's size.  Mixing a data-parallel axis with the embedding group waits
-for the port's ``DeviceMesh`` (ROADMAP A6).
+group's size.  On an ``ep`` x ``dp`` mesh (``mesh_from_num_ps``) the
+embedding group is the mesh's ``ep`` group, one a ``dp`` shard, and a
+table's gradients are summed over ``dp`` only.
 
 Every gather and scatter here is plain PyTorch: the JAX package lowers them
 through XLA, not Pallas.  Updates with duplicate ids are deterministic on

@@ -17,10 +17,11 @@ the processes during ``backward``.
 
 :class:`MeshStrategy` and :class:`FSDPStrategy` take the same protocol
 over a :class:`~torch.distributed.device_mesh.DeviceMesh`
-(``parallel/mesh.py``): parameters replicated over the data and sequence
-axes have their gradients summed over ``dp``×``fsdp``×``sp`` after the
-backward, parameters that the partition rules (or FSDP's own rule) shard
-over ``fsdp`` live as FSDP2 (``fully_shard``) shards, and the reported
+(``parallel/mesh.py``): parameters replicated over the data, sequence and
+expert axes have their gradients summed over ``dp``×``fsdp``×``sp``×``ep``
+after the backward, parameters that the partition rules (or FSDP's own
+rule) shard over ``fsdp`` live as FSDP2 (``fully_shard``) shards, those
+they cut over ``ep`` or ``pp`` as each rank's block, and the reported
 loss is the global mean.
 """
 
@@ -53,12 +54,16 @@ def _rank() -> int:
 @dataclasses.dataclass
 class TrainState:
     """Model (a DDP wrapper when the group has more than one process),
-    optimizer, step count and extras (e.g. BatchNorm statistics)."""
+    optimizer, step count and extras (e.g. BatchNorm statistics).
+    ``blocks`` names the parameters each rank holds a block of
+    (``{name: (mesh, spec)}``, :class:`MeshStrategy`'s ``ep`` and ``pp``
+    cuts): a checkpoint holds them whole, each rank writing its block."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     extras: dict = dataclasses.field(default_factory=dict)
+    blocks: dict = dataclasses.field(default_factory=dict)
 
     @property
     def module(self) -> nn.Module:
@@ -75,6 +80,14 @@ class TrainState:
         from torch.distributed.checkpoint.state_dict import get_state_dict
 
         model_sd, optim_sd = get_state_dict(self.module, self.optimizer)
+        states = optim_sd.get("state", {})
+        for name, (mesh, spec) in self.blocks.items():
+            local = model_sd[name]
+            model_sd[name] = _whole(local, mesh, spec)
+            if name in states:                       # a new dict: the live one stays
+                states[name] = {k: _whole(v, mesh, spec) if torch.is_tensor(v)
+                                and v.shape == local.shape else v
+                                for k, v in states[name].items()}
         return {"model": model_sd, "optim": optim_sd, "step": self.step,
                 "extras": self.extras}
 
@@ -86,10 +99,37 @@ class TrainState:
         # a checkpoint drops empty containers: an optimizer without state
         # (plain SGD) restores without its "state" key, a state without
         # extras without "extras"
-        set_state_dict(self.module, self.optimizer, model_state_dict=saved["model"],
-                       optim_state_dict={"state": {}, **saved["optim"]})
+        model_sd, optim_sd = dict(saved["model"]), {"state": {}, **saved["optim"]}
+        states = optim_sd["state"] = dict(optim_sd["state"])
+        for name, (mesh, spec) in self.blocks.items():
+            whole = _full(model_sd[name])
+            model_sd[name] = sh.local_block(whole, mesh, spec)
+            if name in states:
+                states[name] = {k: sh.local_block(_full(v), mesh, spec) if torch.is_tensor(v)
+                                and v.shape == whole.shape else v
+                                for k, v in states[name].items()}
+        set_state_dict(self.module, self.optimizer, model_state_dict=model_sd,
+                       optim_state_dict=optim_sd)
         self.step = int(saved["step"])
         self.extras = dict(saved.get("extras") or {})
+
+
+def _whole(local: torch.Tensor, mesh, spec):
+    """This rank's block ``local`` as a DTensor of the whole tensor, cut as
+    ``spec`` says (``sharding.local_block``'s layout)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = list(local.shape)
+    for d, entry in enumerate(spec):
+        for axis in sh._axes_of(entry):
+            shape[d] *= mesh.size(mesh.mesh_dim_names.index(axis))
+    return DTensor.from_local(local.detach(), mesh, sh.named_sharding(mesh, *spec),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def step_generator(seed: int, step: int, device, rank: int = 0,
@@ -300,27 +340,34 @@ class MeshStrategy(_LocalStepStrategy):
     ``mesh`` is a :func:`~.mesh.make_mesh` mesh (built from ``axis_sizes``
     over every rank when absent, on ``device``'s type).  Every rank holds
     the whole model except for the parameters that ``rules``
-    (:class:`~.sharding.PartitionRules` over the parameter names) shard
-    over ``fsdp``: those become FSDP2 shards (``fully_shard`` over the
-    mesh's ``fsdp`` axis, ``dp`` × ``fsdp`` when both are larger than 1).
+    (:class:`~.sharding.PartitionRules` over the parameter names) cut:
+    over ``fsdp`` they become FSDP2 shards (``fully_shard`` over the
+    mesh's ``fsdp`` axis, ``dp`` × ``fsdp`` when both are larger than 1);
+    over ``ep`` (expert stacks) or ``pp`` (pipeline stages) each rank keeps
+    its block (:func:`~.sharding.local_block`) as a plain parameter.
     Specs naming another axis raise: tensor parallelism goes through
     :func:`~.transformer.make_transformer_stage`.
 
-    Each rank's ``loss_fn`` sees its own batch: its ``dp``×``fsdp`` rows
-    and, under ``sp``, its block of the sequence (:meth:`sequence_block`,
+    Each rank's ``loss_fn`` sees its own batch: its rows over ``dp`` ×
+    ``fsdp`` (× ``ep``, whose ranks are more data parallelism outside the
+    experts, as the JAX package's ``moe_apply`` cuts tokens) and, under
+    ``sp``, its block of the sequence (:meth:`sequence_block`,
     :meth:`sequence_offset`).  Its loss must be such that the mean over
     the ranks is the global loss (a local mean over equal local batches
     is; a sequence block's token-loss sum over the global token count
     divided by the number of ranks is).  The step backprops ``loss /
     n``, sums the gradients of every replicated parameter over the ``n``
-    ranks of ``dp``×``fsdp``×``sp`` (:attr:`grad_axes`), and reports that
-    mean; ``tp`` ranks are not summed (their tensor-parallel shards are
-    their own, and the transformer stage's conjugate collectives already
-    complete the replicated parameters' gradients).
+    ranks of ``dp``×``fsdp``×``sp``×``ep`` (:attr:`grad_axes`) and those of
+    a block over the same axes but its own, and reports that mean; ``tp``
+    ranks are not summed (their tensor-parallel shards are their own, and
+    the transformer stage's conjugate collectives already complete the
+    replicated parameters' gradients).
     """
 
     #: the axes over which the gradients of replicated parameters are summed
-    grad_axes = ("dp", "fsdp", "sp")
+    grad_axes = ("dp", "fsdp", "sp", "ep")
+    #: axes whose parameters each rank keeps as its block (not FSDP2 shards)
+    block_axes = ("pp", "ep")
 
     def __init__(self, mesh=None, rules: sh.PartitionRules | None = None, seed: int = 0,
                  device=None, **axis_sizes):
@@ -329,9 +376,12 @@ class MeshStrategy(_LocalStepStrategy):
             device_type=self.device.type, **axis_sizes)
         self.rules = rules
         self._grad_group = group_over(self.mesh, self.grad_axes)
+        self._mesh_group = group_over(self.mesh, tuple(self.mesh.mesh_dim_names))
         self._n = comm.group_size(self._grad_group)
         self._loss_scale = 1.0 / self._n
         self._replicated: list = []
+        self._blocks: list = []             # (gradient group, block parameters)
+        self._block_specs: dict = {}        # the blocks' names: (mesh, spec)
         self._sharded: list = []
         self._fsdp_count = 1
         self._sp = self.axis_size("sp")
@@ -345,42 +395,72 @@ class MeshStrategy(_LocalStepStrategy):
         return self.axis_size("dp") * self.axis_size("fsdp")
 
     # -- state -------------------------------------------------------------
-    def _fsdp_placements(self, model: nn.Module) -> dict:
-        """``{parameter: Shard(dim)}`` for the parameters the rules shard
-        over ``fsdp``; a spec naming any other axis raises."""
-        from torch.distributed.tensor import Shard
-
+    def _rule_specs(self, model: nn.Module) -> dict:
+        """``{name: spec}`` of the parameters the rules cut; a spec naming
+        an axis other than ``fsdp`` and :attr:`block_axes`, or ``fsdp``
+        with one of them, raises."""
         if self.rules is None:
             return {}
-        params = dict(model.named_parameters())
         out = {}
-        for name, spec in self.rules.tree_specs(params).items():
+        for name, spec in self.rules.tree_specs(dict(model.named_parameters())).items():
             axes = {a for entry in spec for a in sh._axes_of(entry)}
-            if axes - {"fsdp"}:
+            if axes - {"fsdp", *self.block_axes} or ("fsdp" in axes and len(axes) > 1):
                 raise NotImplementedError(
-                    f"{name}: spec {spec!r} names {sorted(axes - {'fsdp'})}; MeshStrategy "
-                    "places parameters over 'fsdp' only (tensor-parallel layers: "
-                    "parallel.transformer.make_transformer_stage)")
+                    f"{name}: spec {spec!r} names {sorted(axes)}; MeshStrategy places "
+                    f"parameters over 'fsdp' or over one of {self.block_axes} (tensor-parallel "
+                    "layers: parallel.transformer.make_transformer_stage)")
             if axes:
-                out[params[name]] = Shard(next(d for d, e in enumerate(spec)
-                                               if "fsdp" in sh._axes_of(e)))
+                out[name] = spec
         return out
+
+    def _cut_blocks(self, model: nn.Module, specs: dict) -> None:
+        """Replace each parameter cut over a block axis by this rank's
+        block, and group the blocks by the ranks their gradients are summed
+        over (every rank creates the same groups in the same order)."""
+        by_axes: dict = {}
+        self._block_specs = {}
+        for name, spec in specs.items():
+            axes = {a for entry in spec for a in sh._axes_of(entry)}
+            if not axes & set(self.block_axes):
+                continue
+            owner, _, attr = name.rpartition(".")
+            module = model.get_submodule(owner)
+            old = getattr(module, attr)
+            block = sh.local_block(old.detach(), self.mesh, spec).clone()
+            setattr(module, attr, nn.Parameter(block, requires_grad=old.requires_grad))
+            self._block_specs[name] = (self.mesh, spec)
+            sum_axes = tuple(a for a in self.grad_axes if a not in axes)
+            by_axes.setdefault(sum_axes, []).append(getattr(module, attr))
+        self._blocks = [(group_over(self.mesh, axes), params)
+                        for axes, params in by_axes.items()]
 
     def init_state(self, model_or_fn, optimizer_fn) -> TrainState:
         """Move the model (or the one ``model_or_fn()`` builds) to the
         device, give every rank the first rank's parameters and buffers,
-        shard what the rules shard (FSDP2), and build the optimizer with
-        ``optimizer_fn(parameters)`` (its state follows each parameter's
-        placement)."""
+        keep this rank's blocks of what the rules cut over ``pp`` or
+        ``ep``, shard what they cut over ``fsdp`` (FSDP2), and build the
+        optimizer with ``optimizer_fn(parameters)`` (its state follows each
+        parameter's placement)."""
         model = model_or_fn if isinstance(model_or_fn, nn.Module) else model_or_fn()
         model = model.to(self.device)
-        if _world_size() > 1:
+        if comm.group_size(self._mesh_group) > 1:
             src = int(self.mesh.mesh.flatten()[0])
             with torch.no_grad():
                 _coalesced(list(model.parameters()) + list(model.buffers()),
-                           lambda flat: dist.broadcast(flat, src))
-        placements = self._fsdp_placements(model)
-        self._replicated = [p for p in model.parameters() if p not in placements]
+                           lambda flat: dist.broadcast(flat, src, group=self._mesh_group))
+        specs = self._rule_specs(model)
+        self._cut_blocks(model, specs)
+        params = dict(model.named_parameters())
+        fsdp = {name: next(d for d, e in enumerate(spec) if "fsdp" in sh._axes_of(e))
+                for name, spec in specs.items() if any("fsdp" in sh._axes_of(e) for e in spec)}
+        placements = {}
+        if fsdp:
+            from torch.distributed.tensor import Shard
+
+            placements = {params[name]: Shard(d) for name, d in fsdp.items()}
+        in_blocks = {id(p) for _, ps in self._blocks for p in ps}
+        self._replicated = [p for p in model.parameters()
+                            if p not in placements and id(p) not in in_blocks]
         if placements:
             from torch.distributed.fsdp import fully_shard
 
@@ -398,13 +478,15 @@ class MeshStrategy(_LocalStepStrategy):
             # fully_shard put new (DTensor) parameters in place of the old
             kept = {id(p) for p in self._replicated}
             self._sharded = [p for p in model.parameters() if id(p) not in kept]
-        return TrainState(model=model, optimizer=optimizer_fn(model.parameters()))
+        return TrainState(model=model, optimizer=optimizer_fn(model.parameters()),
+                          blocks=dict(self._block_specs))
 
     # -- step --------------------------------------------------------------
     def _reduce_gradients(self, model: nn.Module) -> None:
-        grads = [p.grad for p in self._replicated if p.grad is not None]
-        if grads and self._n > 1:
-            _coalesced(grads, lambda flat: comm.all_reduce(flat, self._grad_group))
+        for group, params in [(self._grad_group, self._replicated), *self._blocks]:
+            grads = [p.grad for p in params if p.grad is not None]
+            if grads and comm.group_size(group) > 1:
+                _coalesced(grads, lambda flat, g=group: comm.all_reduce(flat, g))
         with torch.no_grad():
             for p in self._sharded:
                 if p.grad is not None:

@@ -16,6 +16,9 @@ table's rows), ``inception_imagenet`` a 75 px pass and
 and ``cluster_serving`` through one worker, each against solo greedy runs.
 ``ring_lm`` (ring and Ulysses, two gloo workers at sp 2) starts from the
 JAX example's flax init and is held to the JAX example's losses.
+``switch_lm`` trains its MoE LM on two gloo workers at ep 2 (two of the
+four experts a rank) in the same child process, and its eval loss must
+fall.
 """
 
 import os
@@ -95,16 +98,18 @@ RING_LM = {"vocab": 32, "hidden": 32, "seq_len": 64, "batch_size": 4, "max_steps
 #: what the JAX example fixes (and the port's example with it): its depth,
 #: heads, Adam rate, and the seed of the data
 RING_LM_FIXED = {"num_layers": 2, "num_heads": 4, "lr": 3e-3, "seed": 0}
-#: the driver that runs ``ring_lm``'s ``main`` once for each command line
-#: it is given as JSON, in one process (one torch import, one fork server)
-RING_LM_DRIVER = """import json, sys
-
-from tensorflowonspark_tpu_torch.examples.long_context.ring_lm import main
+#: the driver that runs an example module's ``main`` once for each
+#: ``[module, command line]`` it is given as JSON, in one process (one torch
+#: import, one fork server)
+RING_LM_DRIVER = """import importlib, json, sys
 
 if __name__ == "__main__":
-    for argv in json.loads(sys.argv[1]):
-        main(argv)
+    for module, argv in json.loads(sys.argv[1]):
+        importlib.import_module(module).main(argv)
 """
+#: ``switch_lm``'s command line in that process: the JAX example's defaults
+#: (ep 2, 4 experts, top-2, 30 steps)
+SWITCH_LM = ["--cpu", "--ep", "2", "--max_steps", "30"]
 
 
 def _jax_ring_lm():
@@ -169,9 +174,10 @@ def ring_lm_runs(tmp_path_factory):
     """From flax's init of the JAX example's model at key 0 (carried over
     as the port trunk's state dict in an npz): ``ring_lm``'s command line
     ``--cpu --sp 2`` (two gloo workers through ``TFCluster.run``) for
-    ``ring`` and then ``ulysses`` in one child process, while the JAX
-    example's run (:func:`_jax_ring_lm_train`) goes on here.  Returns the
-    JAX run, the child process and each impl's results."""
+    ``ring`` and then ``ulysses``, then ``switch_lm``'s, in one child
+    process, while the JAX example's run (:func:`_jax_ring_lm_train`) goes
+    on here.  Returns the JAX run, the child process and each run's
+    results."""
     import json
 
     import flax
@@ -193,9 +199,12 @@ def ring_lm_runs(tmp_path_factory):
     init_path = wd / "init.npz"
     np.savez(init_path, **{k[len("bert."):]: v.numpy()
                            for k, v in params_from_flax({"bert": held}).items()})
-    argvs = [["--cpu", "--sp", "2", "--sp_impl", impl,
-              *(f"--{k}={v}" for k, v in RING_LM.items()), "--init_params", str(init_path),
-              "--model_dir", str(wd / impl)] for impl in ("ring", "ulysses")]
+    argvs = [["tensorflowonspark_tpu_torch.examples.long_context.ring_lm",
+              ["--cpu", "--sp", "2", "--sp_impl", impl,
+               *(f"--{k}={v}" for k, v in RING_LM.items()), "--init_params", str(init_path),
+               "--model_dir", str(wd / impl)]] for impl in ("ring", "ulysses")]
+    argvs.append(["tensorflowonspark_tpu_torch.examples.moe.switch_lm",
+                  [*SWITCH_LM, "--model_dir", str(wd / "switch_lm")]])
     (wd / "driver.py").write_text(RING_LM_DRIVER)
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
     env["PYTHONPATH"] = ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")
@@ -211,6 +220,8 @@ def ring_lm_runs(tmp_path_factory):
             proc.wait()
     results = {impl: json.loads((wd / impl / "ring_lm.json").read_text())
                for impl in ("ring", "ulysses") if (wd / impl / "ring_lm.json").exists()}
+    if (wd / "switch_lm" / "switch_lm.json").exists():
+        results["switch_lm"] = json.loads((wd / "switch_lm" / "switch_lm.json").read_text())
     return want, (proc.returncode, out, err), results
 
 
@@ -234,4 +245,17 @@ def test_ring_lm_matches_the_jax_example(ring_lm_runs, impl):
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-4)
     np.testing.assert_allclose([got["baseline"], got["final"]],
                                [want["baseline"], want["final"]], rtol=2e-4)
+    assert got["final"] < got["baseline"]
+
+
+def test_switch_lm_trains_its_moe_over_ep_2(ring_lm_runs):
+    """``switch_lm --cpu --ep 2`` (:func:`ring_lm_runs`' child process):
+    two gloo workers, two of the four experts a rank, and the eval loss
+    falls over the 30 steps."""
+    _, (rc, out, err), results = ring_lm_runs
+    assert rc == 0, (out + err)[-4000:]
+    for line in ("switch_lm: baseline", "2 of 4 experts a rank", "switch_lm: done"):
+        assert line in out, (line, (out + err)[-4000:])
+    got = results["switch_lm"]
+    assert got["step"] == 30 and got["experts_a_rank"] == 2
     assert got["final"] < got["baseline"]

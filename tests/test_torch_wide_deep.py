@@ -11,7 +11,17 @@ optimizers (``parallel/strategy.py``) against the JAX package on the CPU.
   ``torch.optim.Adagrad`` (accumulator from 0, eps outside) must not be;
 - three steps of ``rmsprop(exponential_decay(...), decay=0.9, eps=1.0,
   momentum=0.9)`` against optax on a small parameter tree: the same bound,
-  where ``torch.optim.RMSprop`` must miss it; the schedule's values.
+  where ``torch.optim.RMSprop`` must miss it; the schedule's values;
+- the example's ``--num_ps 2`` over 4 ranks (a gloo group of CPU
+  processes, ``tests/torch_model_parallel_worker.py`` suite ``wide_deep``):
+  the ``{ep: 2, dp: 2}`` mesh, each rank's rows (its ``dp`` shard's stream),
+  and one adagrad step's loss and weights against the JAX example's step
+  on its ``mesh_from_num_ps(2)`` mesh of 4 CPU devices over the same global
+  batch, from flax's init: the same bound.  The global batch is the port's
+  (both ``dp`` shards' ``--batch_size`` rows, each from its own stream, as
+  the example's docstring says), where the JAX example would draw one
+  batch of ``--batch_size`` rows and cut it over ``dp``: what the case
+  holds the port to is the JAX step's arithmetic over that batch.
 """
 
 import flax
@@ -22,8 +32,10 @@ import pytest
 import torch
 
 from tensorflowonspark_tpu.models import WideDeep as FlaxWideDeep
+from tensorflowonspark_tpu_torch.examples.wide_deep import wide_deep_criteo as wdc
 from tensorflowonspark_tpu_torch.models import wide_deep as pw
 from tensorflowonspark_tpu_torch.parallel import adagrad, exponential_decay, rmsprop
+from tests.torch_world import run_world
 
 TOL = 1e-5
 VOCABS, EMBED, MLP, NUM_DENSE, BATCH = (50, 30, 20), 4, (16, 8), 5, 6
@@ -185,3 +197,90 @@ def test_exponential_decay_is_optax_s():
         assert sched(count) == pytest.approx(float(want(count)), rel=1e-6)
     with pytest.raises(ValueError, match="transition_steps"):
         exponential_decay(0.1, 0, 0.5)
+
+
+#: the example's flags for the ``ep`` x ``dp`` case: 4 ranks, ``--num_ps 2``
+EP_DP_ARGS = {"num_ps": 2, "vocab_size": 24, "embed_dim": 4, "batch_size": 8, "steps": 1,
+              "lr": 0.05, "seed": 0}
+
+
+def _ep_dp_cases():
+    """flax's init of the JAX example's model (key 0, on its init batch),
+    carried over as the whole model's state dict."""
+    import argparse
+
+    args = argparse.Namespace(**EP_DP_ARGS)
+    model = FlaxWideDeep(vocab_sizes=[args.vocab_size] * wdc.NUM_CATEGORICAL,
+                         embed_dim=args.embed_dim)
+    d, c, _ = wdc._batch(np.random.default_rng(17), [args.vocab_size] * wdc.NUM_CATEGORICAL,
+                         args.batch_size)
+    boxed = model.init(jax.random.key(0), d, c)["params"]
+    init = {k: v.numpy() for k, v in pw.params_from_flax(jax.tree.map(
+        np.asarray, flax.core.meta.unbox(boxed))).items()}
+    return {"wide_deep": {"args": EP_DP_ARGS, "init": init}}, model, boxed
+
+
+def _jax_example_step(model, boxed):
+    """The JAX example's step on ``mesh_from_num_ps(2)`` over 4 devices,
+    from flax's init ``boxed`` (with its partitioning): tables over ep, the
+    global batch (each dp shard's rows) over dp."""
+    import argparse
+
+    from jax.sharding import NamedSharding, PartitionSpec as JP
+
+    from tensorflowonspark_tpu.parallel.mesh import mesh_from_num_ps
+    from tensorflowonspark_tpu.parallel.sharding import flax_shardings
+
+    args = argparse.Namespace(**EP_DP_ARGS)
+    mesh = mesh_from_num_ps(args.num_ps, devices=jax.devices()[:4])
+    shards = [next(wdc.batches(args, 17 + d)) for d in range(mesh.shape["dp"])]
+    dense, cat, label = (np.concatenate([b[i] for b in shards]) for i in range(3))
+    tx = optax.adagrad(args.lr)
+    with mesh:
+        placed = jax.device_put(flax.core.meta.unbox(boxed),
+                                flax.core.meta.unbox(flax_shardings(mesh, boxed)))
+        tables = sum(1 for leaf in jax.tree.leaves(placed) if "ep" in str(leaf.sharding.spec))
+        rows = NamedSharding(mesh, JP(("dp", "fsdp")))
+
+        @jax.jit
+        def step(params, state, d, c, y):
+            def loss_fn(p):
+                return optax.sigmoid_binary_cross_entropy(
+                    model.apply({"params": p}, d, c), y).mean()
+            loss, grads = jax.value_and_grad(loss_fn)(params)
+            updates, state = tx.update(grads, state, params)
+            return optax.apply_updates(params, updates), loss
+        new, loss = step(placed, tx.init(placed), *(jax.device_put(a, rows)
+                                                     for a in (dense, cat, label)))
+    return {"loss": float(loss), "tables_on_ep": tables, "shards": shards,
+            "params": pw.params_from_flax(jax.tree.map(np.asarray, jax.device_get(new)))}
+
+
+@pytest.fixture(scope="module")
+def ep_dp_runs(tmp_path_factory):
+    cases, model, boxed = _ep_dp_cases()
+    return run_world("wide_deep", cases, lambda: _jax_example_step(model, boxed),
+                     tmp_path_factory.mktemp("torch_wide_deep_ep_dp")), cases
+
+
+def test_num_ps_2_of_4_ranks_matches_the_jax_example_mesh(ep_dp_runs):
+    """``--num_ps 2`` over 4 ranks: the mesh is ``{ep: 2, dp: 2}``; rank r
+    (dp index r // 2) trains on its dp shard's stream (seed 17 + r // 2)
+    and holds half of every table's rows; the mean of the dp shards' losses
+    and every weight after one step (tables all-gathered over ep) match the
+    JAX example's step over the global batch of both shards."""
+    (want, got), cases = ep_dp_runs
+    assert want["tables_on_ep"] == 2 * wdc.NUM_CATEGORICAL
+    for r, rank in enumerate(got):
+        assert rank["seed"] == 17 + r // 2
+        assert rank["deep_rows"] == EP_DP_ARGS["vocab_size"] // 2
+        for a, b in zip(rank["rows"], want["shards"][r // 2]):
+            np.testing.assert_array_equal(a, b)
+    loss = np.mean([got[0]["losses"][0], got[2]["losses"][0]])
+    assert abs(loss - want["loss"]) <= TOL * abs(want["loss"])
+    init = cases["wide_deep"]["init"]
+    for rank in got:
+        worst = max(_rel(rank["params"][n], want["params"][n], init[n]) for n in init)
+        assert worst <= TOL
+    assert got[0]["params"]["emb.3.weight"].shape == (EP_DP_ARGS["vocab_size"],
+                                                       EP_DP_ARGS["embed_dim"])
