@@ -265,7 +265,30 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    ``ep`` 2, T 512, B 16, float32, 3 steps held to :data:`MOE_TOL` against
    the same model in this process with every expert local, each rank's
    rows routed on their own, where a return exchange sent to the wrong
-   shard must not be.
+   shard must not be;
+26. mesh-sharded serving (on phase 25's agent): 26a, ``TFCluster.run(None,
+   ..., InputMode.SPARK, backend=AgentBackend(...))`` of two ranks that form
+   one gang's gloo world (``serving.sharded.build_gang_mesh``) and cut
+   phase 13's weights (float32) into Megatron tp 2 shards
+   (``default_shard_params``; int8 through ``ops.shard_quantized``): phase
+   19's 12 requests (budgets cut to 16 tokens) through
+   ``ContinuousBatcher(..., tp=...)`` in 4 slots, plain, paged with a
+   prefix hit, speculative with the 2-layer draft (itself tp-sharded), and
+   int8, every stream equal on both ranks to the tp ``greedy_generate``
+   token for token and to the unsharded solo greedy under phase 19's tie
+   rule; a decode step timed beside the one-card batcher's, with the
+   collectives and host-staged bytes a step, the same step behind the
+   gang's barrier, and each collective alone at the step's shapes; layer
+   0's row-parallel sum dropped on one rank must change a stream, and a
+   member that acks
+   without stepping must make the leader raise ``GangShardLost`` within
+   the group's 5 s timeout.  26b, ``ServingCluster.run(tier_builder, 2,
+   mesh={"tp": 2}, replace_failed=True)``: two gangs of two workers on the
+   card serve the same requests to 2 streaming clients while
+   ``TFOS_CHAOS`` kills executor 1 (gang 0's member) at its 4th step; every
+   stream equals 26a's tp oracle, one ``replica_dead`` names shards
+   ``[0, 1]``, a request is requeued, nothing is lost, and the cold
+   replacement gang serves 4 more requests exactly.
 
 ``python3 chip_smoke.py --calibrate-slice9`` only logs phases 15-18's gate
 readings at three seeds (the examples and the bench at the first);
@@ -273,13 +296,15 @@ readings at three seeds (the examples and the bench at the first);
 phase 19's readings on each; ``--calibrate-continual`` trains it at three
 seeds and logs phase 23b's offline-gate readings (v1's, the fine-tuned
 candidate's and the bad candidate's eval loss) on each;
-``--calibrate-long-context`` logs phase 24's readings at three seeds, and
-``--calibrate-parallel`` phase 25's.
+``--calibrate-long-context`` logs phase 24's readings at three seeds,
+``--calibrate-parallel`` phase 25's, and ``--calibrate-sharded`` trains
+phase 13's model at ``--seed`` and logs phase 26's at phase 19's whole
+budgets.
 
 Each phase's seconds are printed.  The ResNet, MNIST, Wide&Deep,
 Inception-v3 and U-Net paths run none of the repo's hand-written kernels
 (their convolutions and GEMMs are cuDNN's and cuBLAS's), nor do the serving
-paths of phases 19-22 (cached decode is PyTorch's); the summary's
+paths of phases 19-22 and 26 (cached decode is PyTorch's); the summary's
 ``launches_by_path`` shows each kernel's launches on every path, and
 ``launches`` is phase 18's (this slice's path through the kernels).  The
 summary's times, bound and yardsticks are at phase 18's shape ([32, 128,
@@ -295,6 +320,7 @@ checkout.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -2721,7 +2747,7 @@ def check_serving(seed: int, card: str, trained: dict, gate: bool = True,
         f"launches on the serving path {launches} (the cached decode is PyTorch)")
     if gate and bad:
         raise SystemExit(f"the serving engine's gate failed: {bad}")
-    return {**launches, "captured": captured}
+    return {**launches, "captured": captured, "main": main, "solo": want}
 
 
 def run_cluster_serving(seed: int, card: str, wd: str, device: str = "cuda",
@@ -4332,11 +4358,29 @@ def parallel_worker(args, ctx) -> None:
         json.dump(out, f)
 
 
-def run_parallel_training(seed: int, card: str, wd: str, width: dict | None = None,
+@contextlib.contextmanager
+def host_agent(log_dir: str):
+    """One ``HostAgent`` on localhost with a random authkey, for the length
+    of the block: ``(address, authkey)``."""
+    import secrets
+
+    from tensorflowonspark_tpu_torch.agent import HostAgent
+
+    key = secrets.token_bytes(16)
+    agent = HostAgent(port=0, authkey=key, bind_host="127.0.0.1", log_dir=log_dir)
+    addr = agent.start()
+    try:
+        yield addr, key
+    finally:
+        agent.stop()
+
+
+def run_parallel_training(seed: int, card: str, wd: str, agent=None, width: dict | None = None,
                           moe: dict | None = None, device: str = "cuda",
                           gate: bool = True) -> dict:
     """Phase 25: the oracles in this process, then one ``HostAgent`` on
-    localhost and ``TFCluster.run(None, parallel_worker, args, 2, 0, False,
+    localhost (``agent``'s ``(address, authkey)``, else one started here)
+    and ``TFCluster.run(None, parallel_worker, args, 2, 0, False,
     InputMode.TENSORFLOW, backend=AgentBackend(...))``: two workers train
     GPT-124M over ``pp`` 2 (GPipe and 1F1B, two planted faults) and
     Switch-Base-8 over ``ep`` 2 (one planted fault).  Gated (with
@@ -4344,10 +4388,8 @@ def run_parallel_training(seed: int, card: str, wd: str, width: dict | None = No
     ranks' replicated parameters the same bit for bit, each fault outside,
     K1-K3 48 / 24 / 24 times a step on each pipeline rank and a hop a tick
     each way.  Returns the launches and the stages' seconds."""
-    import secrets
-
     from tensorflowonspark_tpu_torch import TFCluster
-    from tensorflowonspark_tpu_torch.agent import AgentBackend, HostAgent
+    from tensorflowonspark_tpu_torch.agent import AgentBackend
     from tensorflowonspark_tpu_torch.cluster import InputMode
     from tensorflowonspark_tpu_torch.examples.gpt import gpt_tiny
 
@@ -4371,21 +4413,18 @@ def run_parallel_training(seed: int, card: str, wd: str, width: dict | None = No
     worker_env = ({"OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""} if device == "cpu"
                   else {})
     t0 = time.perf_counter()
-    key = secrets.token_bytes(16)
-    agent = HostAgent(port=0, authkey=key, bind_host="127.0.0.1",
-                      log_dir=os.path.join(pwd, "agent_logs"))
-    addr = agent.start()
-    try:
+    with contextlib.ExitStack() as stack:
+        if agent is None:
+            agent = stack.enter_context(host_agent(os.path.join(pwd, "agent_logs")))
         cluster = TFCluster.run(None, parallel_worker, args, 2, 0, False,
                                 InputMode.TENSORFLOW, reservation_timeout=300,
-                                backend=AgentBackend([addr], authkey=key, worker_env=worker_env),
+                                backend=AgentBackend([agent[0]], authkey=agent[1],
+                                                     worker_env=worker_env),
                                 working_dir=pwd)
         stage["boot"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         cluster.shutdown(timeout=1200)
         stage["train"] = time.perf_counter() - t0
-    finally:
-        agent.stop()
     ranks = []
     for r in range(2):
         with open(os.path.join(pwd, f"parallel.{r}.json")) as f:
@@ -4458,6 +4497,561 @@ def run_parallel_training(seed: int, card: str, wd: str, width: dict | None = No
         log("phase 25 (not gated): " + "; ".join(failures))
     return {"launches": launches, "stages": stage,
             "arms": {name: ranks[0]["arms"][name] for name in ranks[0]["arms"]}}
+
+
+# ------------------------------------ phase 26: mesh-sharded serving (slice 16)
+
+#: phase 26: a tp 2 gang of GPT-124M (phase 13's weights, float32) on the
+#: card, its two ranks in one gloo world; 4 slots; phase 19's 12 requests
+#: with their budgets cut to ``max_new`` tokens (cut for time: a gang's
+#: decode step is ~0.1 s on one H100, and the tp oracle decodes each
+#: request alone, its 12 prompt lengths all differing; ``--calibrate-
+#: sharded`` keeps phase 19's budgets); the gang's collectives time out
+#: after ``step_timeout`` s (``serve_gang_step_timeout``), the planted
+#: ack-without-step fault's after ``fault_timeout``; the dropped
+#: row-parallel sum is ``fault_layer``'s MLP, over ``fault_requests``
+#: requests (the near-init model barely feels half of one MLP output: on
+#: the card one stream of the first 4 changed); 26b's two gangs serve
+#: ``clients`` streams and lose member executor 1 at its ``kill_at_step``-th
+#: step, then ``after_heal`` requests follow the heal (a cold replacement
+#: gang); a decode step is timed over ``decode_steps`` steps, and each
+#: collective at its shapes over ``collective_reps`` calls
+SHARDED = {"tp": 2, "slots": 4, "max_new": 16, "step_timeout": 60.0, "fault_timeout": 5.0,
+           "fault_requests": 12, "fault_layer": 0, "clients": 2, "kill_at_step": 4,
+           "decode_steps": 8, "collective_reps": 20, "after_heal": 4}
+
+
+def _collective_counter():
+    """Patch ``torch.distributed.all_reduce`` / ``all_gather`` in this
+    process to count calls and the bytes each copies through the host
+    (gloo stages a CUDA tensor's input to the host and its output back):
+    returns ``(counts, undo)``."""
+    import torch.distributed as dist
+
+    counts = {"calls": 0, "bytes": 0}
+    ar, ag = dist.all_reduce, dist.all_gather
+
+    def all_reduce(t, *a, **k):
+        counts["calls"] += 1
+        counts["bytes"] += 2 * t.numel() * t.element_size()
+        return ar(t, *a, **k)
+
+    def all_gather(parts, t, *a, **k):
+        counts["calls"] += 1
+        counts["bytes"] += (1 + len(parts)) * t.numel() * t.element_size()
+        return ag(parts, t, *a, **k)
+
+    dist.all_reduce, dist.all_gather = all_reduce, all_gather
+
+    def undo():
+        dist.all_reduce, dist.all_gather = ar, ag
+    return counts, undo
+
+
+def decode_step_readings(b, prompts, steps: int) -> dict:
+    """A decode step of ``b`` with every slot decoding: the median ms of
+    ``steps`` steps (each ends in the host read of its tokens), and the
+    collectives and host-staged bytes a step."""
+    for p in prompts:
+        b.submit(p, steps + 4)
+    while b._pending or b._inflight is not None or b.decode_steps == 0:
+        b.step()
+    counts, undo = _collective_counter()
+    times = []
+    try:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            b.step()
+            times.append(time.perf_counter() - t0)
+    finally:
+        undo()
+    b.run()
+    return {"ms": statistics.median(times) * 1e3, "rows": len(prompts),
+            "collectives": counts["calls"] / steps, "bytes": counts["bytes"] / steps}
+
+
+def barrier_step_readings(b, barrier, prompts, steps: int) -> dict:
+    """A decode step of gang leader ``b`` as the tier's serve loop drives
+    it: the step descriptor posted to every member before the step (which
+    replays it on its own batcher), the members' acks and token digests
+    collected after it.  The median ms of ``steps`` steps with every slot
+    decoding (the leader's host clock, post to last ack)."""
+    deltas = {}
+
+    def on_token(brid, tok):
+        deltas.setdefault(brid, []).append(int(tok))
+
+    barrier.hello()
+    for p in prompts:
+        b.submit(p, steps + 4, on_token=on_token)
+        barrier.mirror({"prompt": p, "max_new_tokens": steps + 4})
+    seq = 0
+
+    def step():
+        nonlocal seq
+        seq += 1
+        for brid in barrier.step(b, seq):
+            b.result(brid, pop=True)
+        barrier.collect(seq, 0, dict(deltas))
+        deltas.clear()
+
+    while b._pending or b._inflight is not None or b.decode_steps == 0:
+        step()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        times.append(time.perf_counter() - t0)
+    return {"ms": statistics.median(times) * 1e3, "rows": len(prompts)}
+
+
+def collective_readings(tp, device, rows: int, hidden: int, vocab: int, reps: int) -> dict:
+    """The median ms of one gang collective at a decode step's shapes: the
+    all-reduce of ``[rows, 1, hidden]`` float32 (the lookup's and each
+    row-parallel sum) and the all-gather of this rank's ``[rows, 1, vocab /
+    tp]`` logits, each over ``reps`` calls ended by a device sync.  Three
+    ways: gloo on the card's tensors (the path the model takes: gloo stages
+    them through host memory), the same staged by hand (a copy down, gloo on
+    the host tensor, a copy up), and gloo on host tensors alone."""
+    import torch
+    import torch.distributed as dist
+
+    def reduce(x):
+        dist.all_reduce(x, group=tp.group)
+
+    def gather(x):
+        dist.all_gather([torch.empty_like(x) for _ in range(tp.size)], x, group=tp.group)
+
+    def staged(fn):
+        def run(x):
+            h = x.cpu()
+            fn(h)
+            x.copy_(h)
+        return run
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    out = {}
+    for name, fn, width in (("all_reduce", reduce, hidden), ("all_gather", gather,
+                                                              vocab // tp.size)):
+        for way, dev, call in (("card", device, fn), ("staged", device, staged(fn)),
+                               ("host", torch.device("cpu"), fn)):
+            x = torch.ones((rows, 1, width), device=dev)
+            times = []
+            for _ in range(reps + 2):
+                sync()
+                t0 = time.perf_counter()
+                call(x)
+                sync()
+                times.append(time.perf_counter() - t0)
+            out[f"{name} {way}"] = statistics.median(times[2:]) * 1e3
+    return out
+
+
+def _dropped_row_sum(layer):
+    """Phase 26's planted fault on one rank: ``layer``'s row-parallel
+    product still joins its all-reduce (the ranks stay in step) but keeps
+    this rank's partial sum."""
+    from tensorflowonspark_tpu_torch.models import gpt
+    from tensorflowonspark_tpu_torch.parallel import comm
+
+    import torch.nn.functional as F
+
+    row = gpt._row
+
+    def planted(lin, x, dtype, tp):
+        if lin is not layer:
+            return row(lin, x, dtype, tp)
+        y = F.linear(x.to(dtype), gpt._weight(lin, dtype))
+        comm.reduce_from_group(y, tp.group)
+        return y + lin.bias.to(dtype)
+    return planted, row
+
+
+def sharded_serving_worker(args, ctx) -> None:
+    """Phase 26a's map_fun, on each of the two agent-launched ranks: join
+    the gang's gloo world (``serving.sharded.build_gang_mesh``, both ranks
+    on the one card), cut phase 13's weights into this rank's tp shards
+    (``default_shard_params``; int8 through ``shard_quantized``), compute
+    the tp ``greedy_generate`` oracle of every request, serve the schedule
+    through the batcher under each regime, time a decode step, then the two
+    planted faults, and write the results into the working dir."""
+    import dataclasses
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.bert_train import kernel_launches
+    from tensorflowonspark_tpu_torch.models import gpt
+    from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher, DraftModel
+    from tensorflowonspark_tpu_torch.ops import quantize_params
+    from tensorflowonspark_tpu_torch.parallel.mesh import axis_group
+    from tensorflowonspark_tpu_torch.serving.replica import on_device
+    from tensorflowonspark_tpu_torch.serving.sharded import (GangBarrier, GangShardLost,
+                                                             GangSpec, _member_loop,
+                                                             build_gang_mesh,
+                                                             default_shard_params)
+    from tensorflowonspark_tpu_torch.util import strict_matmul_precision
+
+    c = SHARDED
+    if args["device"] == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("this worker sees no card: it does not serve on the CPU")
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+        torch.set_num_threads(1)
+    strict_matmul_precision()
+    rank = ctx.executor_id
+    out = {"rank": rank, "regimes": {}}
+    t0 = time.perf_counter()
+    mesh = build_gang_mesh(GangSpec({"tp": c["tp"]}), ctx, device_type=device.type,
+                           step_timeout=c["step_timeout"])
+    tp = gpt.TensorParallel(axis_group(mesh, "tp"))
+    out["world_s"] = time.perf_counter() - t0
+    cfg = args["cfg"]
+    whole = torch.load(args["weights"], map_location="cpu", weights_only=True)
+
+    def shard(c_, p):
+        return on_device(default_shard_params(c_, p, mesh), device)
+
+    params = {"float32": shard(cfg, whole), "int8": shard(cfg, quantize_params(whole))}
+    dcfg = dataclasses.replace(cfg, num_layers=SERVE_DRAFT_LAYERS)
+    draft = shard(dcfg, {n: t for n, t in whole.items() if not n.startswith("layers.")
+                         or int(n.split(".")[1]) < SERVE_DRAFT_LAYERS})
+    out["shard_shapes"] = {n: list(v.shape) for n, v in params["float32"].items()
+                           if n.startswith(("tok_emb", "layers.0."))}
+    out["setup_s"] = time.perf_counter() - t0
+    sched = [(at, np.asarray(p, np.int64), n) for at, p, n in args["schedule"]]
+    t0 = time.perf_counter()
+    oracle = {k: [gpt.greedy_generate(cfg, v, p[None, :], n, tp=tp)[0, len(p):].cpu().numpy()
+                  for _, p, n in sched] for k, v in params.items()}
+    out["oracle"] = {k: [s.tolist() for s in v] for k, v in oracle.items()}
+    out["oracle_s"] = time.perf_counter() - t0
+    regimes = {"plain": ("float32", {}), "paged": ("float32", {"kv_page_tokens": SERVE_PAGE}),
+               "draft": ("float32", {"speculative_k": SERVE_SPEC_K}), "int8": ("int8", {})}
+    for name, (kind, kw) in regimes.items():
+        t0 = time.perf_counter()
+        b = ContinuousBatcher(cfg, params[kind], max_batch=c["slots"], tp=tp, **kw)
+        if name == "draft":
+            b.set_draft(DraftModel(dcfg, draft, window=SERVE_DRAFT_WINDOW, tp=tp))
+        streams = drive_batcher(b, sched)
+        out["regimes"][name] = {
+            "streams": [s.tolist() for s in streams], "seconds": time.perf_counter() - t0,
+            "equal_tp_oracle": sum(np.array_equal(s, w) for s, w in zip(streams, oracle[kind])),
+            "prefix": b.prefix_stats(), "spec": [b.spec_accepted, b.spec_proposed],
+            "draft_dispatches": b.draft_dispatches,
+            "dispatches": [b.prefill_dispatches, b.decode_dispatches, b.decode_steps]}
+    rows = [p for _, p, _ in sched[:c["slots"]]]
+    out["step"] = decode_step_readings(
+        ContinuousBatcher(cfg, params["float32"], max_batch=c["slots"], tp=tp), rows,
+        c["decode_steps"])
+    # the same step behind the gang's barrier, as the tier serves it
+    member = next(x for x in ctx.cluster_info if x["executor_id"] == 1)
+    b = ContinuousBatcher(cfg, params["float32"], max_batch=c["slots"], tp=tp)
+    if rank == 1:
+        _member_loop(args, ctx, 0, 1, b)
+    else:
+        barrier = GangBarrier([member], boot_timeout=60.0, step_timeout=c["step_timeout"])
+        try:
+            out["barrier_step"] = barrier_step_readings(b, barrier, rows, c["decode_steps"])
+        finally:
+            barrier.stop()
+    out["collectives"] = collective_readings(tp, device, c["slots"], cfg.hidden_size,
+                                             cfg.vocab_size, c["collective_reps"])
+    out["launches"] = kernel_launches()
+    # planted fault 1: one layer's row-parallel sum dropped on rank 1
+    n = c["fault_requests"]
+    b = ContinuousBatcher(cfg, params["float32"], max_batch=c["slots"], tp=tp)
+    if rank == 1:
+        gpt._row, row = _dropped_row_sum(b.model.layers[c["fault_layer"]].mlp_down)
+    try:
+        streams = drive_batcher(b, sched[:n])
+    finally:
+        if rank == 1:
+            gpt._row = row
+    out["dropped_row_sum"] = {
+        "equal_tp_oracle": sum(np.array_equal(s, w) for s, w in zip(streams, oracle["float32"])),
+        "of": n, "streams": [s.tolist() for s in streams]}
+    # planted fault 2: the member acks each step without stepping; the
+    # leader's step must raise GangShardLost within the group's timeout
+    step = datetime.timedelta(seconds=c["fault_timeout"])
+    for group in {dist.group.WORLD, tp.group}:
+        dist.distributed_c10d._set_pg_timeout(step, group)
+    b = ContinuousBatcher(cfg, params["float32"], max_batch=c["slots"], tp=tp)
+    if rank == 1:
+        b.step = lambda: []
+        _member_loop(args, ctx, 0, 1, b)
+    else:
+        barrier = GangBarrier([member], boot_timeout=60.0, step_timeout=c["fault_timeout"])
+        _, p, budget = sched[0]
+        item = {"prompt": p, "max_new_tokens": budget}
+        try:
+            barrier.hello()
+            b.submit(p, budget)
+            barrier.mirror(item)
+            t0 = time.perf_counter()
+            try:
+                barrier.step(b, 1)
+                out["ack_without_step"] = {"raised": None, "seconds": time.perf_counter() - t0}
+            except GangShardLost as e:
+                out["ack_without_step"] = {"raised": f"{type(e).__name__}: {e}"[:400],
+                                           "seconds": time.perf_counter() - t0}
+        finally:
+            barrier.stop()
+    # the world is broken on purpose now: no teardown collective
+    with open(os.path.join(ctx.working_dir, f"sharded.{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _events(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def run_sharded_serving(seed: int, card: str, wd: str, trained: dict, serving: dict,
+                        agent=None, device: str = "cuda", worker_env: dict | None = None,
+                        gate: bool = True, max_new: int | None = SHARDED["max_new"]) -> dict:
+    """Phase 26 on phase 13's weights (float32), phase 19's schedule
+    (``serving["main"]``, budgets cut to ``max_new``; ``None`` keeps them)
+    and its solo greedy streams (``serving["solo"]``, cut alike).
+
+    26a: ``TFCluster.run(None, sharded_serving_worker, args, 2, 0, False,
+    InputMode.SPARK, backend=AgentBackend(...))`` on ``agent`` (phase 25's,
+    else one started here): both ranks' streams under each regime equal
+    the tp ``greedy_generate`` oracle exactly, and the unsharded solo greedy
+    (float32; int8 against the unsharded int8 greedy in this process) under
+    phase 19's tie rule (:data:`SERVE_TIE_TOL`); the dropped row-parallel
+    sum must change a stream, the ack-without-step member must make the
+    leader raise ``GangShardLost`` within ``fault_timeout`` (+ 5 s).  The
+    one-card batcher's decode step is timed here, beside the gang's, the
+    gang's behind its barrier and each of its collectives.
+
+    26b: ``ServingCluster.run(tier_builder, 2, mesh={"tp": 2},
+    replace_failed=True)``: two gangs (4 workers on the card), ``clients``
+    streams of the schedule's requests with executor 1 (gang 0's member)
+    killed at its ``kill_at_step``-th step, then ``after_heal`` requests
+    once the cold replacement gang has registered: every stream equal to
+    26a's tp oracle, one ``replica_dead`` naming shards ``[0, 1]``, a
+    requeue, nothing lost, and the healed gang serving.  Returns the
+    kernels' launches (none: the serving path is PyTorch's) and the
+    readings."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_tpu_torch import TFCluster
+    from tensorflowonspark_tpu_torch.agent import AgentBackend
+    from tensorflowonspark_tpu_torch.cluster import InputMode
+    from tensorflowonspark_tpu_torch.models import gpt
+    from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher
+    from tensorflowonspark_tpu_torch.ops import quantize_params
+    from tensorflowonspark_tpu_torch.serving import ServingCluster
+
+    c = SHARDED
+    f32 = serving_config(trained)
+    params = trained["params"]
+    # the budgets cut to max_new: a greedy rollout's first tokens are the
+    # shorter rollout, so the solo streams cut alike stay the oracle
+    main = [(at, p, n if max_new is None else min(n, max_new))
+            for at, p, n in serving["main"]]
+    solo = [s[:n] for s, (_, _, n) in zip(serving["solo"], main)]
+    swd = os.path.join(wd, f"sharded_{seed}")
+    os.makedirs(swd, exist_ok=True)
+    path = os.path.join(swd, "weights.pt")
+    torch.save({n: t.detach().cpu() for n, t in params.items()}, path)
+    stage, bad = {}, []
+    # 26a
+    args = {"cfg": f32, "weights": path, "device": device,
+            "schedule": [(at, p.tolist(), n) for at, p, n in main]}
+    worker_env = dict(worker_env or {})
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if agent is None:
+            agent = stack.enter_context(host_agent(os.path.join(swd, "agent_logs")))
+        cluster = TFCluster.run(None, sharded_serving_worker, args, 2, 0, False,
+                                InputMode.SPARK, reservation_timeout=300,
+                                backend=AgentBackend([agent[0]], authkey=agent[1],
+                                                     worker_env=worker_env),
+                                working_dir=swd)
+        stage["26a boot"] = time.perf_counter() - t0
+        files = [os.path.join(swd, f"sharded.{r}.json") for r in range(2)]
+        deadline = time.monotonic() + 900
+        while not all(map(os.path.exists, files)) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        cluster.shutdown(timeout=120)
+    stage["26a ranks"] = time.perf_counter() - t0 - stage["26a boot"]
+    ranks = []
+    for f in files:
+        with open(f) as fh:
+            ranks.append(json.load(fh))
+    r0 = ranks[0]
+    oracle = r0["oracle"]
+    for k in ("setup_s", "world_s", "oracle_s"):
+        stage[f"26a {k}"] = r0[k]
+    if any(r["oracle"] != oracle for r in ranks):
+        bad.append("the ranks' tp oracles differ")
+    qparams = quantize_params(params)
+    model32, model8 = gpt._model(f32, params), gpt._model(f32, qparams)
+    t0 = time.perf_counter()
+    solo8 = solo_streams(f32, qparams, main)
+    stage["26a int8 solo oracle"] = time.perf_counter() - t0
+    for name in ("plain", "paged", "draft", "int8"):
+        kind = "int8" if name == "int8" else "float32"
+        regs = [r["regimes"][name] for r in ranks]
+        streams = [np.asarray(s) for s in regs[0]["streams"]]
+        exact = all(rg["equal_tp_oracle"] == len(main) for rg in regs) \
+            and regs[0]["streams"] == regs[1]["streams"]
+        ties = tie_readings(streams, solo8 if kind == "int8" else solo, main,
+                            model8 if kind == "int8" else model32)
+        div = [(i, j, m) for i, j, m in ties if j is not None]
+        within = all(m <= SERVE_TIE_TOL for _, _, m in div)
+        ok = exact and within
+        if name == "paged":
+            ok &= regs[0]["prefix"]["hit"] > 0
+        if name == "draft":
+            ok &= regs[0]["draft_dispatches"] > 0
+        stage[f"26a {name}"] = regs[0]["seconds"]
+        log(f"phase 26a {name} (tp {c['tp']}, {kind}, {c['slots']} slots) on {card}: "
+            f"{regs[0]['equal_tp_oracle']}/{regs[1]['equal_tp_oracle']} of {len(main)} streams "
+            f"(rank 0 / rank 1) equal the tp greedy_generate; {len(main) - len(div)}/"
+            f"{len(main)} identical to the unsharded solo greedy, first divergences (request, "
+            f"token, top-two margin) {[(i, j, round(m, 5)) for i, j, m in div]} -> "
+            f"{'within' if within else 'OUTSIDE'} {SERVE_TIE_TOL}; {regs[0]['seconds']:.2f} s; "
+            f"prefill/decode calls/steps {regs[0]['dispatches']}, prefix {regs[0]['prefix']}, "
+            f"spec {regs[0]['spec']}, draft calls {regs[0]['draft_dispatches']}")
+        if not ok:
+            bad.append(f"26a {name}")
+    # the one-card batcher's decode step on the same rows, beside the gang's
+    one = decode_step_readings(ContinuousBatcher(f32, params, max_batch=c["slots"]),
+                               [p for _, p, _ in main[:c["slots"]]], c["decode_steps"])
+    step, coll = r0["step"], r0["collectives"]
+    log(f"phase 26a decode step, {step['rows']} rows, on {card}: tp {c['tp']} gang "
+        f"{step['ms']:.3f} ms (rank 1 {ranks[1]['step']['ms']:.3f}), behind the gang's "
+        f"barrier {r0['barrier_step']['ms']:.3f} ms, one card {one['ms']:.3f} ms (eager, "
+        f"this process); the gang's collectives {step['collectives']:.1f} a step "
+        f"({step['collectives'] / step['rows']:.2f} a token), {step['bytes'] / 1e6:.4f} MB a "
+        f"step through host memory ({step['bytes'] / step['rows'] / 1e3:.2f} KB a token)")
+    log(f"phase 26a one collective at the step's shapes on {card}, median of "
+        f"{c['collective_reps']} (ms; gloo on the card's tensors / staged by hand / on host "
+        f"tensors): all-reduce [{c['slots']}, 1, {f32.hidden_size}] "
+        f"{coll['all_reduce card']:.3f} / {coll['all_reduce staged']:.3f} / "
+        f"{coll['all_reduce host']:.3f}; all-gather [{c['slots']}, 1, "
+        f"{f32.vocab_size // c['tp']}] {coll['all_gather card']:.3f} / "
+        f"{coll['all_gather staged']:.3f} / {coll['all_gather host']:.3f}; a step's "
+        f"{step['collectives'] - 1:.0f} all-reduces and one all-gather on the card's tensors "
+        f"{(step['collectives'] - 1) * coll['all_reduce card'] + coll['all_gather card']:.3f} "
+        f"ms of its {step['ms']:.3f}")
+    fault = [r["dropped_row_sum"] for r in ranks]
+    log(f"phase 26a planted fault, layer {c['fault_layer']}'s row-parallel sum dropped on "
+        f"rank 1: {fault[0]['equal_tp_oracle']}/{fault[0]['of']} streams equal the tp oracle "
+        f"(the ranks' streams {'equal' if fault[0]['streams'] == fault[1]['streams'] else 'differ'})")
+    if fault[0]["equal_tp_oracle"] == fault[0]["of"]:
+        bad.append("26a: a dropped row-parallel sum (planted fault) changed no stream")
+    ack = r0.get("ack_without_step") or {}
+    log(f"phase 26a planted fault, a member that acks without stepping: the leader "
+        f"{'raised ' + ack['raised'] if ack.get('raised') else 'did NOT raise'} after "
+        f"{ack.get('seconds', float('nan')):.2f} s (group timeout {c['fault_timeout']} s)")
+    if not (ack.get("raised") or "").startswith("GangShardLost") \
+            or ack["seconds"] > c["fault_timeout"] + 5:
+        bad.append("26a: an ack without a step did not raise GangShardLost in time")
+    launches = {k: sum(int(r["launches"][k]) for r in ranks) for k in KERNEL_NAMES}
+    # 26b
+    reqs = [(p.tolist(), n) for _, p, n in main]
+    want = {i: oracle["float32"][i] for i in range(len(reqs))}
+    env = {**worker_env, "TFOS_CHAOS": f"kill node=1 at_step={c['kill_at_step']}"}
+    twd = os.path.join(swd, "tier")
+    t0 = time.perf_counter()
+    tier = ServingCluster.run(tier_builder, 2, max_batch=c["slots"],
+                              replica_args={"tier_cfg": f32, "tier_weights": path},
+                              mesh={"tp": c["tp"]}, replace_failed=True, device=device,
+                              worker_env=env, working_dir=twd, reservation_timeout=600,
+                              client_timeout=600)
+    boot = stage["26b gang boot"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        threads, recs = stream_clients(tier.address, tier.authkey,
+                                       [(i, p, n) for i, (p, n) in enumerate(reqs)],
+                                       c["clients"], 600)
+        for t in threads:
+            t.join(600)
+        stage["26b traffic"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        while not any(e["kind"] == "replica_replaced"
+                      for e in _events(os.path.join(twd, "serving_events.jsonl"))) \
+                and time.perf_counter() - t0 < 300:
+            time.sleep(0.2)
+        stage["26b heal wait"] = time.perf_counter() - t0
+        after = [(len(reqs) + k, *reqs[k]) for k in range(c["after_heal"])]
+        want.update({i: oracle["float32"][k] for k, (i, _, _) in enumerate(after)})
+        threads, recs2 = stream_clients(tier.address, tier.authkey, after, c["clients"], 600)
+        for t in threads:
+            t.join(600)
+        m = tier.metrics()
+        dead = tier.scheduler.dead_replicas()
+        nodes = m.get("nodes", {})
+    finally:
+        t0 = time.perf_counter()
+        tier.shutdown(timeout=300)
+        stage["26b shutdown"] = time.perf_counter() - t0
+    recs += recs2
+    errors = [r["error"] for r in recs if r["error"]]
+    equal = sum(r["tokens"] == want[r["i"]] for r in recs if r["i"] is not None)
+    events = _events(os.path.join(twd, "serving_events.jsonl"))
+    died = [e for e in events if e["kind"] == "replica_dead"]
+    replaced = [e for e in events if e["kind"] == "replica_replaced"]
+    healed = replaced[0]["replacement"] if replaced else None
+    t_kill = None
+    for root, _, names in os.walk(twd):
+        if "chaos.1.0" in names:
+            with open(os.path.join(root, "chaos.1.0")) as f:
+                t_kill = float(f.read())
+    requeued = [e["t"] for e in events if e["kind"] == "request_requeued"]
+    started = [e["t"] for e in events if e["kind"] == "heal_started"]
+    readings = {
+        "boot_s": boot, "equal": equal, "of": len(recs), "errors": errors,
+        "requeued": m["requeued"], "dead": sorted(dead),
+        "replica_dead": [(e["replica"], e.get("shards")) for e in died],
+        "kill_to_dead_s": None if t_kill is None or not died else died[0]["t"] - t_kill,
+        "kill_to_requeue_s": None if t_kill is None or not requeued else requeued[0] - t_kill,
+        "heal_s": replaced[0]["t"] - started[0] if replaced and started else None,
+        "healed": healed, "served": {e: r["served"] for e, r in m["replicas"].items()}}
+    # each gang leader's barrier (post to last ack: the step, its token
+    # flush and the members' acks), from its heartbeat
+    barrier = {}
+    for eid, node in nodes.items():
+        for _, h in ((node.get("metrics") or {}).get("tfos_gang_barrier_seconds")
+                     or {}).get("samples", []):
+            if h["count"]:
+                barrier[eid] = (h["count"], h["sum"], h["sum"] / h["count"] * 1e3)
+    readings["barrier"] = barrier
+    counted, reported = tier_launches(nodes)
+    log(f"phase 26b ServingCluster.run(mesh={{'tp': {c['tp']}}}), 2 gangs on {card}: gang "
+        f"boot {boot:.1f} s; {equal}/{len(recs)} streams equal 26a's tp oracle "
+        f"({len(reqs)} + {c['after_heal']} after the heal), errors {errors}; requeued "
+        f"{m['requeued']}; dead executors {sorted(dead)}; replica_dead events "
+        f"{readings['replica_dead']}; kill to dead {readings['kill_to_dead_s']} s, to the "
+        f"first requeue {readings['kill_to_requeue_s']} s; heal (cold gang {healed}, "
+        f"heal_started to replica_replaced) {readings['heal_s']} s; served by gang "
+        f"{readings['served']}; each leader's barriers (count, s, mean ms: every step, "
+        f"prefills too) {barrier} beside 26a's {r0['barrier_step']['ms']:.3f} ms decode step "
+        f"behind the barrier; kernel launches {counted} reported by {reported}")
+    if equal != len(recs) or errors or m["requeued"] < 1 or sorted(dead) != [0, 1] \
+            or readings["replica_dead"] != [(0, [0, 1])] or healed is None \
+            or not readings["served"].get(healed):
+        bad.append("26b")
+    launches = {k: launches[k] + counted[k] for k in KERNEL_NAMES}
+    log("phase 26 seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in stage.items()))
+    log(f"phase 26 gate: {'passed' if not bad else 'FAILED: ' + ', '.join(bad)}; kernel "
+        f"launches on the sharded serving path {launches}")
+    if gate and bad:
+        raise SystemExit(f"phase 26: {bad}")
+    return {"launches": launches, "stages": stage, "tier": readings, "step": step,
+            "barrier_step": r0["barrier_step"], "collectives": coll, "one_card_step": one}
 
 
 # ------------------------------ phase 23: the batch and continual planes
@@ -5752,6 +6346,10 @@ def main() -> int:
                    help="only build the kernels and log phase 25's gate readings (the sound "
                         "arms and the planted faults) at seeds --seed..--seed+2, and exit "
                         "(no result)")
+    p.add_argument("--calibrate-sharded", action="store_true",
+                   help="only build the kernels, train phase 13's model at --seed, run phase "
+                        "19's schedule solo and log phase 26's readings (26a and 26b, the "
+                        "planted faults) at phase 19's whole budgets, and exit (no result)")
     p.add_argument("--calibrate-gpt", action="store_true",
                    help="only build the kernels and log phase 13's and 13b's gate readings "
                         "at seeds --seed..--seed+2, at GPT_LR and at gpt_tiny's own rate "
@@ -5828,6 +6426,25 @@ def main() -> int:
                 del out
                 torch.cuda.empty_cache()
                 log(f"calibration seed {seed}: {time.perf_counter() - t0:.1f} s")
+        return 0
+
+    if args.calibrate_sharded:
+        build_kernels()
+        card = card_name_and_limit()
+        from tensorflowonspark_tpu_torch.examples.gpt import gpt_tiny
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+            t0 = time.perf_counter()
+            out = gpt_tiny.train(gpt_args(args.seed, os.path.join(wd, "gpt")),
+                                 torch.device("cuda"))
+            main, _ = serving_schedules(args.seed, out["cfg"].vocab_size)
+            solo = solo_streams(serving_config(out), out["params"], main)
+            log(f"calibration: phase 13's model and phase 19's solo streams in "
+                f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            run_sharded_serving(args.seed, card, wd, out, {"main": main, "solo": solo},
+                                gate=False, max_new=None)
+            log(f"calibration seed {args.seed}: phase 26 in {time.perf_counter() - t0:.1f} s")
         return 0
 
     if args.calibrate_continual:
@@ -6007,7 +6624,6 @@ def main() -> int:
         # journal (tier A); disaggregated prefill/decode pools (tier B)
         rest_of_tier = timed("22 rollout and disagg tiers", run_rest_of_tier, args.seed, card,
                              wd, gpt_train, serving_tier)
-        del gpt_train["params"]
         torch.cuda.empty_cache()
         continual = rest_of_tier["rollout"]["continual"]
         phase_s["23b continual loop (in 22)"] = rest_of_tier["rollout"]["continual_s"]
@@ -6025,11 +6641,20 @@ def main() -> int:
         long_context = timed("24 long context", run_long_context, args.seed, card, wd)
         torch.cuda.empty_cache()
 
-        # 25. pipeline and expert parallelism: two workers train GPT-124M over
-        # pp = 2 (GPipe and 1F1B, K1-K3 inside the stages) and Switch-Base-8
-        # over ep = 2
-        parallel = timed("25 pipeline and expert parallelism", run_parallel_training,
-                         args.seed, card, wd)
+        with host_agent(os.path.join(wd, "agent_logs")) as agent:
+            # 25. pipeline and expert parallelism: two workers train GPT-124M
+            # over pp = 2 (GPipe and 1F1B, K1-K3 inside the stages) and
+            # Switch-Base-8 over ep = 2
+            parallel = timed("25 pipeline and expert parallelism", run_parallel_training,
+                             args.seed, card, wd, agent)
+            torch.cuda.empty_cache()
+
+            # 26. mesh-sharded serving: a tp 2 gang of phase 13's GPT-124M
+            # through the batcher (26a, on the agent), then two gangs behind
+            # ServingCluster.run(mesh=...) with a member killed (26b)
+            sharded = timed("26 sharded serving", run_sharded_serving, args.seed, card, wd,
+                            gpt_train, serving, agent)
+        del gpt_train["params"]
         torch.cuda.empty_cache()
 
     # 10. the bench
@@ -6062,6 +6687,7 @@ def main() -> int:
                                       "batch_and_continual": batch_and_continual[e["name"]],
                                       "long_context": long_context["launches"][e["name"]],
                                       "pipeline": parallel["launches"][e["name"]],
+                                      "sharded_serving": sharded["launches"][e["name"]],
                                       "bert_cls_training":
                                           new_models["bert_cls"]["launches"][e["name"]]})
     log("phase seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

@@ -57,9 +57,9 @@ from tensorflowonspark_tpu_torch import gpu_info, metrics, tracing  # noqa: F401
 # ``from tensorflowonspark import TFCluster, TFNode`` maps onto
 # ``from tensorflowonspark_tpu_torch import TFCluster, TFNode`` (module
 # objects with the reference's entry points: TFCluster.run(sc, ...),
-# TFNode.DataFeed, TFManager.start/connect)
+# TFNode.DataFeed, TFManager.start/connect, compat.*)
 from tensorflowonspark_tpu_torch import (TFCluster, TFManager, TFNode,  # noqa: F401,E402
-                                         TFSparkNode)
+                                         TFSparkNode, compat)
 # the batch-inference plane (manifest-driven, resumable bulk predict) and
 # the continual loop (checkpoint publication, offline gate, journaled
 # rollout); their model imports happen inside the worker map_fun

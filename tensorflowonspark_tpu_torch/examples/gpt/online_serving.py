@@ -16,6 +16,12 @@ churn and failover).
 Run:
 
     python -m tensorflowonspark_tpu_torch.examples.gpt.online_serving --cpu [--requests 12] [--kill]
+    python -m tensorflowonspark_tpu_torch.examples.gpt.online_serving --cpu --tp 2 \
+        --warm_standbys 0 --kill
+
+``--tp 2`` makes each replica a gang of two processes, each holding a
+Megatron tp shard of the model (``serving/sharded.py``); ``--kill`` then
+SIGKILLs a gang member, and the whole gang fails over.
 
 Without ``--cpu`` the replicas and the oracle run on the card, and
 ``--graphs`` arms the tier's capture cache (each replica's serve steps
@@ -73,7 +79,7 @@ def make_requests(n: int, vocab: int, seed: int, prompt=(3, 9), budget=(6, 14)):
 
 def run(args: dict, reqs, *, replicas: int = 2, slots: int = 2, clients: int = 3,
         warm_standbys: int = 0, kill_at_step: int | None = None, kill_node: int = 1,
-        graphs: bool = False,
+        graphs: bool = False, mesh: dict | None = None,
         device=None, working_dir: str | None = None, timeout: float = 300.0,
         worker_env: dict | None = None, builder=None) -> dict:
     """Serve ``reqs`` through a ``ServingCluster`` from ``clients`` threads
@@ -82,10 +88,12 @@ def run(args: dict, reqs, *, replicas: int = 2, slots: int = 2, clients: int = 3
     replica ``kill_node`` at that decode step (``TFOS_CHAOS``); with a warm standby
     the second half of the requests then waits for the promoted standby's
     ``standby_ready`` (the heal), so the standby serves some of them.
+    ``mesh`` (e.g. ``{"tp": 2}``) makes each replica a gang of
+    mesh-sharded processes, ``kill_node`` then any shard.
     Returns the streams by request, each request's TTFT and end-to-end
-    seconds, the wall of the traffic, the tier's ``metrics()``, and each
-    replica's last heartbeat metrics (``nodes``).  ``builder`` replaces
-    :func:`model_builder`."""
+    seconds, the wall of the traffic, the tier's ``metrics()``, each
+    replica's last heartbeat metrics (``nodes``) and the executor ids
+    the tier lost (``dead``).  ``builder`` replaces :func:`model_builder`."""
     from tensorflowonspark_tpu_torch.serving import ServingCluster
 
     env = dict(worker_env or {})
@@ -93,7 +101,7 @@ def run(args: dict, reqs, *, replicas: int = 2, slots: int = 2, clients: int = 3
         env["TFOS_CHAOS"] = f"kill node={int(kill_node)} at_step={int(kill_at_step)}"
     serving = ServingCluster.run(builder or model_builder, replicas, max_batch=slots,
                                  replica_args=args, warm_standbys=warm_standbys,
-                                 aot_cache=True if graphs else None, device=device,
+                                 aot_cache=True if graphs else None, mesh=mesh, device=device,
                                  worker_env=env or None, working_dir=working_dir,
                                  reservation_timeout=timeout, client_timeout=timeout)
     results, ttft, e2e, errors = {}, {}, {}, []
@@ -140,12 +148,13 @@ def run(args: dict, reqs, *, replicas: int = 2, slots: int = 2, clients: int = 3
         while not _telemetry_settled(stats := serving.metrics()) \
                 and time.monotonic() < deadline:
             time.sleep(0.2)
+        dead = serving.scheduler.dead_replicas()
     finally:
         serving.shutdown(timeout=timeout)
     if errors:
         raise errors[0]
     return {"results": results, "ttft": ttft, "e2e": e2e, "wall": wall, "metrics": stats,
-            "nodes": stats.get("nodes", {})}
+            "nodes": stats.get("nodes", {}), "dead": dead}
 
 
 def counter(node: dict, name: str, **labels) -> float:
@@ -186,6 +195,9 @@ def main(argv=None):
                    help="SIGKILL replica 1 mid-run (TFOS_CHAOS): failover and a promotion")
     p.add_argument("--graphs", action="store_true",
                    help="capture each replica's serve steps as CUDA graphs (the card only)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel gang size: each replica a gang of this many "
+                        "processes (no warm standbys)")
     p.add_argument("--seed", type=int, default=0)
     for name, value in DEFAULTS.items():
         p.add_argument(f"--{name}", type=int, default=value)
@@ -200,7 +212,8 @@ def main(argv=None):
     worker_env = {"OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""} if a.cpu else None
     out = run(args, reqs, replicas=a.replicas, slots=a.slots, clients=a.clients,
               warm_standbys=a.warm_standbys, kill_at_step=4 if a.kill else None,
-              graphs=a.graphs, device=device.type, worker_env=worker_env)
+              graphs=a.graphs, mesh={"tp": a.tp} if a.tp > 1 else None,
+              device=device.type, worker_env=worker_env)
     results, stats = out["results"], out["metrics"]
     assert len(results) == len(reqs), (len(results), len(reqs))
     for i, want in enumerate(oracle(args, reqs, device)):
@@ -211,8 +224,9 @@ def main(argv=None):
     if a.kill:
         dead = [e for e, r in stats["replicas"].items() if not r["alive"]]
         assert dead, "kill was requested but no replica died"
-        print(f"online_serving: replica {dead} died mid-run; zero requests lost; "
-              f"standby {stats.get('standby')}", flush=True)
+        print(f"online_serving: replica {dead} died mid-run (executors "
+              f"{sorted(out['dead'])}); zero requests lost; standby {stats.get('standby')}",
+              flush=True)
     print("online_serving: done", flush=True)
 
 

@@ -10,18 +10,16 @@ vocab rows over each ``ep`` group
 synchronous semantics and no parameter server to run.  ``--num_ps`` must
 divide the cluster's size.
 
-``--batch_size`` counts the rows of one ``dp`` shard, not of the whole
-step: each ``dp`` shard draws its own ``--batch_size`` rows a step from the
-stream of ``default_rng(17 + its dp index)`` (every rank of an embedding
-group on the same rows, as the lookup needs), so a step trains on ``dp`` x
-``--batch_size`` rows.  This differs from the JAX example, whose one
-process draws one batch of ``--batch_size`` rows from ``default_rng(17)``
-and cuts it over ``dp``; here a ``dp`` shard stands where a JAX executor
-does, with that executor's seed, and ``--num_ps 1`` keeps the port's
-earlier data-parallel runs as they were.  The step's loss is the mean over
-those rows: the dense MLP's gradients are averaged over ``dp`` × ``ep``,
-each table's over ``dp`` only (each ``ep`` rank owns its rows and already
-holds their whole gradient).
+``--batch_size`` is the global batch, as in the JAX example: every rank
+draws the same ``--batch_size`` rows a step from ``default_rng(17)`` (the
+stream the JAX example's executor 0 draws when one process owns the mesh
+and a mesh-wide sharding takes its host batch as the global one) and
+trains on its ``dp`` block of them (``parallel.sharding.shard_batch``), so
+every rank of an embedding group sees the same rows, as the lookup needs.
+``dp`` must divide ``--batch_size``.  The step's loss is the mean over the
+global batch: each rank's loss is its block's mean, the dense MLP's
+gradients are averaged over ``dp`` × ``ep``, each table's over ``dp`` only
+(each ``ep`` rank owns its rows and already holds their whole gradient).
 
 As the JAX example: ``TPUCluster.run`` in ``InputMode.TENSORFLOW``, the
 synthetic click rule of :func:`_batch` (``dense[0] > 0.6`` and feature 0 in
@@ -65,10 +63,9 @@ def _batch(rng, vocab_sizes, batch_size):
     return dense, cat, label
 
 
-def batches(args, data_seed: int):
-    """The batches a data shard trains on, as numpy: the stream of
-    ``default_rng(data_seed)``, whose first draw the JAX example spends on
-    its init batch."""
+def batches(args, data_seed: int = 17):
+    """The global batches, as numpy: the stream of ``default_rng(data_seed)``,
+    whose first draw the JAX example spends on its init batch."""
     import numpy as np
 
     vocab_sizes = [args.vocab_size] * NUM_CATEGORICAL
@@ -78,10 +75,21 @@ def batches(args, data_seed: int):
         yield _batch(rng, vocab_sizes, args.batch_size)
 
 
-def data_seed(mesh) -> int:
-    """The seed of this rank's batches: 17 + its ``dp`` index (17 with no
-    mesh: a single worker)."""
-    return 17 + (0 if mesh is None else mesh.get_local_rank("dp"))
+def local_batches(args, mesh):
+    """This rank's block of each global batch (:func:`batches`): its ``dp``
+    block (the whole batch with no mesh, a single worker).  Raises when
+    ``dp`` does not divide ``--batch_size``."""
+    if mesh is None:
+        yield from batches(args)
+        return
+    from tensorflowonspark_tpu_torch.parallel.sharding import shard_batch
+
+    dp = mesh.size(mesh.mesh_dim_names.index("dp"))
+    if args.batch_size % dp:
+        raise ValueError(f"--batch_size {args.batch_size} does not split over dp={dp} "
+                         "(the global batch is cut over the mesh's dp axis)")
+    for batch in batches(args):
+        yield tuple(t.numpy() for t in shard_batch(mesh, batch))
 
 
 def gradient_reducer(model, mesh):
@@ -210,7 +218,7 @@ def main_fun(args, ctx):
             if mngr and (step == args.steps or args.save_every and step % args.save_every == 0):
                 mngr.save(step, {"model": full_state_dict(model)}, force=True)
 
-        stats = train(model, args, device, batches(args, data_seed(mesh)),
+        stats = train(model, args, device, local_batches(args, mesh),
                       reduce=gradient_reducer(model, mesh), report=report)
         if mngr:
             mngr.close()
@@ -234,7 +242,7 @@ if __name__ == "__main__":
                    help="the ep axis: embedding-group size (the reference's PS count); it "
                         "must divide cluster_size, the rest of which is dp")
     p.add_argument("--batch_size", type=int, default=256,
-                   help="rows a step of each dp shard (the JAX example's: of the whole step)")
+                   help="rows a step (the global batch, cut over dp)")
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--lr", type=float, default=0.05)
     p.add_argument("--vocab_size", type=int, default=1000)

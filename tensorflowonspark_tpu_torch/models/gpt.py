@@ -36,6 +36,19 @@ first, which evicts keys the block's early positions need, so past the
 window its multi-layer prefill (and the tokens after it) is not (ROADMAP
 queue C).
 
+Tensor parallelism: ``GPT(cfg, tp=TensorParallel(group))`` is the module
+over one rank's Megatron shards (``parallel.sharding.gpt_partition_rules``,
+in ``nn.Linear``'s ``[out, in]`` layout): ``num_heads/tp`` query heads and
+``num_kv_heads/tp`` K/V heads (the cache and the paged pool hold those
+only), ``intermediate_size/tp`` MLP units and ``vocab_size/tp`` rows of the
+tied table.  The biases are held whole, as the JAX package annotates only
+kernels: a column-parallel rank adds its slice, a row-parallel bias is
+added once after the all-reduce.  The lookup masks the ids outside this
+rank's rows and all-reduces; the tied head's ``[B, T, V/tp]`` logits are
+all-gathered.  The collectives are Megatron's pair from ``parallel/comm.py``
+(``copy_to_group`` before a column-parallel product, ``reduce_from_group``
+after a row-parallel one).  Without ``tp`` the module is the whole model.
+
 ``remat=True`` checkpoints each block (``torch.utils.checkpoint``);
 ``scan_layers`` is a parameter layout of the JAX package only
 (:func:`params_from_flax` reads both).  Generation functions take the
@@ -57,8 +70,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tensorflowonspark_tpu_torch.models.bert import _dense, _dropout, _remat
+from tensorflowonspark_tpu_torch.models.bert import _dropout, _remat
 from tensorflowonspark_tpu_torch.ops.quant import _QuantArray
+from tensorflowonspark_tpu_torch.parallel import comm
 
 NEG_INF = -1e30
 
@@ -168,6 +182,56 @@ class GPTConfig:
         return self.hidden_size // self.num_heads
 
 
+class TensorParallel:
+    """The tensor-parallel group a :class:`GPT` runs over: its process
+    group, size and this rank's index in it.  Every rank of the group runs
+    the same calls in the same order (the collectives pair up by order)."""
+
+    def __init__(self, group):
+        self.group = group
+        self.size = comm.group_size(group)
+        self.rank = comm.group_rank(group)
+
+    def local(self, n: int, what: str) -> int:
+        """This rank's share of ``n`` (heads, units, rows); raises when the
+        group does not divide it."""
+        if n % self.size:
+            raise ValueError(f"{what} ({n}) does not divide over tp={self.size}")
+        return n // self.size
+
+
+def _local(n: int, tp: TensorParallel | None, what: str) -> int:
+    return n if tp is None else tp.local(n, what)
+
+
+def _weight(layer: nn.Linear, dtype):
+    """A Dense weight in ``dtype``; an ``ops.quant`` weight is dequantized
+    here, at the call."""
+    w = layer.weight
+    return w.dequantize(dtype) if isinstance(w, _QuantArray) else w.to(dtype)
+
+
+def _column(layer: nn.Linear, x, dtype, tp: TensorParallel | None):
+    """flax ``nn.Dense(dtype=...)`` (input, weight and bias in ``dtype``);
+    under ``tp`` column-parallel: this rank's output units, and its slice
+    of the whole bias."""
+    b = layer.bias
+    if tp is not None:
+        x = comm.copy_to_group(x, tp.group)
+        b = b.chunk(tp.size)[tp.rank]
+    return F.linear(x.to(dtype), _weight(layer, dtype), b.to(dtype))
+
+
+def _row(layer: nn.Linear, x, dtype, tp: TensorParallel | None):
+    """flax ``nn.Dense(dtype=...)``; under ``tp`` row-parallel: this rank's
+    partial product over its input units, summed over the group, then the
+    bias once."""
+    if tp is None:
+        return F.linear(x.to(dtype), _weight(layer, dtype), layer.bias.to(dtype))
+    y = comm.reduce_from_group(F.linear(x.to(dtype), _weight(layer, dtype)), tp.group)
+    return y + layer.bias.to(dtype)
+
+
 def _rope(x, positions, base: float):
     """Rotary embedding: rotate feature pairs (rotate-half) of ``x [B, T,
     H, D]`` by position-dependent angles (``positions [T]``, or ``[B, T]``
@@ -259,29 +323,33 @@ def _store(cfg: GPTConfig, cache: dict, name: str, x, idx, per_row: bool):
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, tp: TensorParallel | None = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         H, D = cfg.num_heads, cfg.head_dim
         Hkv = cfg.num_kv_heads or H
         if H % Hkv:
             raise ValueError(
                 f"num_heads ({H}) must be divisible by num_kv_heads ({Hkv})")
-        self.query = nn.Linear(cfg.hidden_size, H * D)
-        self.key = nn.Linear(cfg.hidden_size, Hkv * D)
-        self.value = nn.Linear(cfg.hidden_size, Hkv * D)
-        self.out = nn.Linear(H * D, cfg.hidden_size)
+        # this rank's heads: whole K/V groups, so query head h still reads
+        # K/V head h // G
+        self.heads = _local(H, tp, "num_heads")
+        self.kv_heads = _local(Hkv, tp, "num_kv_heads")
+        self.query = nn.Linear(cfg.hidden_size, self.heads * D)
+        self.key = nn.Linear(cfg.hidden_size, self.kv_heads * D)
+        self.value = nn.Linear(cfg.hidden_size, self.kv_heads * D)
+        self.out = nn.Linear(self.heads * D, cfg.hidden_size)
 
     def forward(self, x, *, train: bool = False, rng=None, cache: dict | None = None):
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         B, T, _ = x.shape
-        H, D = cfg.num_heads, cfg.head_dim
-        Hkv = cfg.num_kv_heads or H
+        H, Hkv, D = self.heads, self.kv_heads, cfg.head_dim
         G = H // Hkv  # query heads per K/V head (1 = MHA, H = MQA)
         decode = cache is not None
-        q = _dense(self.query, x, cfg.dtype).view(B, T, H, D)
-        k = _dense(self.key, x, cfg.dtype).view(B, T, Hkv, D)
-        v = _dense(self.value, x, cfg.dtype).view(B, T, Hkv, D)
+        q = _column(self.query, x, cfg.dtype, tp).view(B, T, H, D)
+        k = _column(self.key, x, cfg.dtype, tp).view(B, T, Hkv, D)
+        v = _column(self.value, x, cfg.dtype, tp).view(B, T, Hkv, D)
 
         per_row = cfg.per_row_positions and decode
         idx = cache["index"] if decode else None
@@ -375,32 +443,35 @@ class CausalSelfAttention(nn.Module):
                 causal &= ar[None, :] > ar[:, None] - cfg.sliding_window
             ctx = grouped_attention(q, k, v, causal)
         ctx = ctx.to(cfg.dtype).reshape(B, T, H * D)
-        return _dense(self.out, ctx, cfg.dtype)
+        return _row(self.out, ctx, cfg.dtype, tp)
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, tp: TensorParallel | None = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         self.ln1 = _Norm(cfg)
-        self.attn = CausalSelfAttention(cfg)
+        self.attn = CausalSelfAttention(cfg, tp)
         self.ln2 = _Norm(cfg)
+        units = _local(cfg.intermediate_size, tp, "intermediate_size")
         if cfg.mlp == "swiglu":
-            self.mlp_gate = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.mlp_up = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.mlp_down = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+            self.mlp_gate = nn.Linear(cfg.hidden_size, units)
+        self.mlp_up = nn.Linear(cfg.hidden_size, units)
+        self.mlp_down = nn.Linear(units, cfg.hidden_size)
 
     def forward(self, x, *, train: bool = False, rng=None, cache: dict | None = None):
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         y = self.ln1(x).to(cfg.dtype)
         y = self.attn(y, train=train, rng=rng, cache=cache)
         x = x + _dropout(y, cfg.dropout_rate, train, rng)
         y = self.ln2(x).to(cfg.dtype)
         if cfg.mlp == "swiglu":
-            y = F.silu(_dense(self.mlp_gate, y, cfg.dtype)) * _dense(self.mlp_up, y, cfg.dtype)
+            y = (F.silu(_column(self.mlp_gate, y, cfg.dtype, tp))
+                 * _column(self.mlp_up, y, cfg.dtype, tp))
         else:
-            y = F.gelu(_dense(self.mlp_up, y, cfg.dtype), approximate="tanh")
-        y = _dense(self.mlp_down, y, cfg.dtype)
+            y = F.gelu(_column(self.mlp_up, y, cfg.dtype, tp), approximate="tanh")
+        y = _row(self.mlp_down, y, cfg.dtype, tp)
         return x + _dropout(y, cfg.dropout_rate, train, rng)
 
 
@@ -409,16 +480,19 @@ class GPT(nn.Module):
 
     ``cache=`` (from :func:`init_cache`) runs the incremental path: the call
     consumes the next token(s), writes the cache in place, and positions
-    continue from the cache's counters."""
+    continue from the cache's counters.  ``tp`` (a :class:`TensorParallel`)
+    builds the module over this rank's shards (module docstring); the
+    logits are whole on every rank."""
 
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, tp: TensorParallel | None = None):
         super().__init__()
         self.cfg = cfg
-        self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.tp = tp
+        self.tok_emb = nn.Embedding(_local(cfg.vocab_size, tp, "vocab_size"), cfg.hidden_size)
         if cfg.pos_encoding == "learned":
             self.pos_emb = nn.Parameter(torch.zeros(cfg.max_position_embeddings,
                                                     cfg.hidden_size))
-        self.layers = nn.ModuleList(DecoderBlock(cfg) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(DecoderBlock(cfg, tp) for _ in range(cfg.num_layers))
         self.ln_f = _Norm(cfg)
 
     def hidden(self, input_ids, *, train: bool = False, rng=None, cache: dict | None = None):
@@ -427,7 +501,7 @@ class GPT(nn.Module):
         labels)`` to train without materialising ``[B, T, V]`` logits."""
         cfg = self.cfg
         T = input_ids.shape[1]
-        x = F.embedding(input_ids, self._table()).to(cfg.dtype)
+        x = self._lookup(input_ids).to(cfg.dtype)
         if cfg.pos_encoding == "learned":
             positions = torch.arange(T, device=input_ids.device)
             if cache is not None:
@@ -451,12 +525,31 @@ class GPT(nn.Module):
 
     def forward(self, input_ids, *, train: bool = False, rng=None, cache: dict | None = None):
         x = self.hidden(input_ids, train=train, rng=rng, cache=cache)
-        return torch.einsum("bth,vh->btv", x.float(), self._table().float())
+        return self.gather_vocab(torch.einsum("bth,vh->btv", x.float(), self._table().float()))
 
     def _table(self):
-        """The tied table, dequantized when a custom predicate quantized it."""
+        """The tied table (this rank's rows under ``tp``), dequantized when a
+        custom predicate quantized it."""
         table = self.tok_emb.weight
         return table.dequantize() if isinstance(table, _QuantArray) else table
+
+    def _lookup(self, ids):
+        """Embedding rows of ``ids``; under ``tp`` each rank looks up the
+        ids in its rows (zeros elsewhere) and the group sums them."""
+        table = self._table()
+        if self.tp is None:
+            return F.embedding(ids, table)
+        rows = table.shape[0]
+        local = ids - self.tp.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = torch.where(mine[..., None], F.embedding(local.clamp(0, rows - 1), table), 0.0)
+        return comm.reduce_from_group(x, self.tp.group)
+
+    def gather_vocab(self, logits):
+        """Logits over this rank's vocab rows ``[..., V/tp]`` as the whole
+        ``[..., V]`` (every rank's block, in rank order); the identity
+        without ``tp``."""
+        return logits if self.tp is None else comm.gather_from_group(logits, self.tp.group, -1)
 
 
 # ------------------------------------------------------------------ weights
@@ -596,24 +689,26 @@ def _device_of(params) -> torch.device:
     return leaf.device
 
 
-def _model(cfg: GPTConfig, params) -> GPT:
-    """An inference ``GPT(cfg)`` over ``params`` (no weights allocated)."""
+def _model(cfg: GPTConfig, params, tp: TensorParallel | None = None) -> GPT:
+    """An inference ``GPT(cfg, tp)`` over ``params`` (no weights allocated;
+    under ``tp`` this rank's shards)."""
     with torch.device("meta"):
-        model = GPT(cfg)
+        model = GPT(cfg, tp)
     return bind(model, params).eval()
 
 
 # ------------------------------------------------------------------ decoding
 
-def init_cache(cfg: GPTConfig, params, batch: int) -> dict:
+def init_cache(cfg: GPTConfig, params, batch: int, tp: TensorParallel | None = None) -> dict:
     """Allocate the static KV cache for ``batch`` rows on ``params``'
     device, zeroed; under ``kv_page_tokens`` the block tables start at the
     unallocated sentinel (``kv_pool_pages``) — zeros would alias every row
     onto physical page 0.  A per-row cache has one scratch slot a row past
-    the end, and a paged pool one scratch row, for the dropped writes."""
+    the end, and a paged pool one scratch row, for the dropped writes.
+    Under ``tp`` it holds this rank's K/V heads only."""
     dev = _device_of(params)
     per_row = cfg.per_row_positions
-    Hkv, D = cfg.num_kv_heads or cfg.num_heads, cfg.head_dim
+    Hkv, D = _local(cfg.num_kv_heads or cfg.num_heads, tp, "num_kv_heads"), cfg.head_dim
     C = _cache_rows(cfg) + (1 if per_row else 0)
 
     def counter():
@@ -678,7 +773,8 @@ def _prompt(prompt_ids, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _generate(cfg: GPTConfig, params, prompt_ids, max_new_tokens: int, next_token_fn):
+def _generate(cfg: GPTConfig, params, prompt_ids, max_new_tokens: int, next_token_fn,
+              tp: TensorParallel | None = None):
     """Shared decode loop: prefill once, then single-token steps against
     the KV cache; ``next_token_fn(logits [B, V], step) -> [B]`` picks each
     next token.  Returns ``[B, T0 + max_new_tokens]`` ids."""
@@ -687,8 +783,8 @@ def _generate(cfg: GPTConfig, params, prompt_ids, max_new_tokens: int, next_toke
     if max_new_tokens <= 0:
         return prompt
     _check_length(cfg, T0, max_new_tokens)
-    model = _model(cfg, params)
-    cache = init_cache(cfg, params, B)
+    model = _model(cfg, params, tp)
+    cache = init_cache(cfg, params, B, tp)
     out = torch.empty((B, max_new_tokens), dtype=prompt.dtype, device=prompt.device)
     tok = next_token_fn(model(prompt, cache=cache)[:, -1], 0)
     out[:, 0] = tok
@@ -698,10 +794,13 @@ def _generate(cfg: GPTConfig, params, prompt_ids, max_new_tokens: int, next_toke
     return torch.cat([prompt, out], dim=1)
 
 
-def greedy_generate(cfg: GPTConfig, params, prompt_ids, max_new_tokens: int):
-    """Greedy decode (argmax each step); see :func:`_generate`."""
+def greedy_generate(cfg: GPTConfig, params, prompt_ids, max_new_tokens: int, *,
+                    tp: TensorParallel | None = None):
+    """Greedy decode (argmax each step); see :func:`_generate`.  Under
+    ``tp`` every rank of the group calls it on its shards and gets the
+    whole ids."""
     return _generate(cfg, params, prompt_ids, max_new_tokens,
-                     lambda logits, i: torch.argmax(logits, dim=-1))
+                     lambda logits, i: torch.argmax(logits, dim=-1), tp)
 
 
 @torch.no_grad()

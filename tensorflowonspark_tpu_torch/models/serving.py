@@ -44,6 +44,15 @@ hash of (seed, n, vocab index) for the request's n-th token, on the
 device: no generator state, no host round trip.  JAX's threefry stream
 (``fold_in(key(seed), n)``) cannot be reproduced in PyTorch, so sampled
 tokens differ from the JAX package's while keeping its contract.
+
+Over tensor-parallel shards (``tp=``, a ``models.gpt.TensorParallel``) every
+rank of the group runs its own batcher over its shards, and the ranks are
+driven by the same calls in the same order (``serving/sharded.py``'s
+step descriptor).  The host decides admission, buckets, pages, the prefix
+cache, speculation and sampling from values that are equal on every rank
+(the logits are gathered whole), so the decisions are too; only the model
+calls carry collectives.  Over gloo the batcher runs eagerly: a CUDA graph
+cannot capture a gloo collective.
 """
 
 from __future__ import annotations
@@ -244,16 +253,18 @@ class DraftModel:
     agrees, so an untrained or wrong draft costs acceptance, never
     exactness.  ``window + k`` must fit the draft's
     ``max_position_embeddings`` (checked at ``set_draft``).  The draft
-    runs on its state dict's device.
+    runs on its state dict's device; under ``tp`` over its shards, in the
+    target batcher's group.
     """
 
-    def __init__(self, cfg: GPTConfig, params, window: int = 64):
+    def __init__(self, cfg: GPTConfig, params, window: int = 64, tp=None):
         if window < 1:
             raise ValueError(f"draft window must be >= 1, got {window}")
         self.cfg = cfg
         self.params = params
         self.window = int(window)
-        self.model = _gpt._model(cfg, params)    # full forward — no decode cache
+        self.tp = tp
+        self.model = _gpt._model(cfg, params, tp)    # full forward — no decode cache
         self.device = _gpt._device_of(params)
         self.dispatches = 0
         self._aot = None               # set by ContinuousBatcher.set_draft
@@ -285,7 +296,7 @@ class DraftModel:
         out = []
         for _ in range(k):
             h = self.model.hidden(buf)[rows, lens - 1]                 # [B, H]
-            nxt = torch.argmax(h.float() @ table.T, dim=-1)
+            nxt = torch.argmax(self.model.gather_vocab(h.float() @ table.T), dim=-1)
             buf[rows, lens] = nxt                    # lens <= window + k - 1 < L
             lens = lens + 1
             out.append(nxt)
@@ -310,6 +321,12 @@ class ContinuousBatcher:
     ``aot_cache`` keeps its own copy of the weights (one more model's
     worth of device memory); without one it reads the caller's tensors.
 
+    ``tp`` (a ``models.gpt.TensorParallel``): ``params`` are this rank's
+    Megatron shards (``parallel.sharding.gpt_partition_rules``, quantized
+    ones through ``ops.shard_quantized``), and every rank of the group
+    drives its own batcher with the same calls (module docstring).  A gloo
+    group takes no ``aot_cache``.
+
     Usage::
 
         b = ContinuousBatcher(cfg, params, max_batch=8, eos_id=50256)
@@ -333,7 +350,13 @@ class ContinuousBatcher:
                  kv_pool_pages: int | None = None,
                  prefix_cache: bool = True,
                  prefill_only: bool = False,
-                 aot_cache=None):
+                 aot_cache=None, tp=None):
+        if aot_cache is not None and tp is not None \
+                and torch.distributed.get_backend(tp.group) == "gloo":
+            raise ValueError(
+                "aot_cache over a gloo tp group: a CUDA graph cannot capture a gloo "
+                "collective (gloo stages through the host), so a tp batcher over gloo "
+                "runs eagerly — drop aot_cache")
         if cfg.rolling_kv_cache:
             raise ValueError("ContinuousBatcher requires a full-length "
                              "cache (rolling_kv_cache=False)")
@@ -420,8 +443,10 @@ class ContinuousBatcher:
         self.device = _gpt._device_of(params)
         self.max_batch = int(max_batch)
         self.eos_id = eos_id
-        self.model = _gpt._model(self.cfg, params)
-        self.cache = init_cache(self.cfg, params, self.max_batch)
+        #: the tensor-parallel group (None: the whole model in this process)
+        self.tp = tp
+        self.model = _gpt._model(self.cfg, params, tp)
+        self.cache = init_cache(self.cfg, params, self.max_batch, tp)
         self.slots: list[_Slot | None] = [None] * self.max_batch
         #: PREFILL-ONLY mode (a disaggregated prefill pool): admission and
         #: prefill as usual, but a seated request never decode-steps; its
@@ -659,6 +684,10 @@ class ContinuousBatcher:
                 f"draft/target vocab mismatch: draft vocab_size={draft.cfg.vocab_size} vs "
                 f"target {self.cfg.vocab_size} — draft proposals index the target's token "
                 "space, so the tokenizers must be identical")
+        if getattr(draft.tp, "group", None) is not getattr(self.tp, "group", None):
+            raise ValueError(
+                "draft and target run over different tp groups: a tp batcher's draft "
+                "proposes over its shards in the target's group (DraftModel(..., tp=))")
         if draft.window + self.spec_k > draft.cfg.max_position_embeddings:
             raise ValueError(
                 f"draft window {draft.window} + speculative_k {self.spec_k} exceeds the "
@@ -999,7 +1028,8 @@ class ContinuousBatcher:
 
     def _zeros(self, rows: int) -> dict:
         # init_cache reads only the device off its parameters
-        return init_cache(self.cfg, {"device": torch.empty(0, device=self.device)}, rows)
+        return init_cache(self.cfg, {"device": torch.empty(0, device=self.device)}, rows,
+                          self.tp)
 
     def _fresh_chunk_cache(self) -> dict:
         """The chunked admission's own 1-row cache, zeroed in place."""

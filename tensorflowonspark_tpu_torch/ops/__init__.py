@@ -9,5 +9,5 @@ from tensorflowonspark_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention_reference)
 from tensorflowonspark_tpu_torch.ops.quant import (  # noqa: F401
     Int4Array, Int4PackedArray, Int8Array, quantize_int4, quantize_int8,
-    quantize_params, tree_nbytes)
+    quantize_params, shard_quantized, tree_nbytes)
 from tensorflowonspark_tpu_torch.ops.xent import tied_softmax_xent  # noqa: F401

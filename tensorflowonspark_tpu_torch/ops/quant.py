@@ -1,7 +1,6 @@
 """Int8 and int4 weight-only quantization for memory-bound decoding.
 
-Port of ``tensorflowonspark_tpu/ops/quant.py`` (all of it but
-``shard_quantized``, which waits for the port's mesh).  Decoding reads
+Port of ``tensorflowonspark_tpu/ops/quant.py``.  Decoding reads
 every weight once a token, so its speed is bounded by the bytes of the
 weights; int8 halves them against bf16, int4 quarters them.
 
@@ -19,6 +18,12 @@ package's ``[1, out]``, with the same values.  :class:`Int4PackedArray`
 packs nibble pairs along the last axis with the same bytes as the JAX
 package's ``_pack_nibbles``.
 
+Sharding (:func:`shard_quantized`) follows from that layout flip: the
+scale's contraction axis, which stays whole, is the last one here, and a
+packed buffer the shard count does not divide is the input axis of a
+row-parallel weight (the JAX package's is the output axis of a
+column-parallel one).
+
 Usage::
 
     from tensorflowonspark_tpu_torch.ops import quantize_params
@@ -28,6 +33,7 @@ Usage::
 
 from __future__ import annotations
 
+import math
 from collections.abc import Mapping
 from typing import Callable
 
@@ -120,18 +126,33 @@ class Int4PackedArray(_QuantArray):
 
     Logical elements ``2i`` and ``2i+1`` of the last axis live in the low
     and high nibble of packed byte ``i``; an odd last dim is zero-padded
-    at pack time and cut off at unpack.  ``shape`` is the logical shape."""
+    at pack time and cut off at unpack.  ``shape`` is the logical shape.
 
-    def __init__(self, q, scale, logical_shape):
+    ``blocks`` (set by :func:`shard_quantized`): ``(dim, parts, index)``
+    cuts, applied in order, of a buffer held whole on every rank because
+    its packed last axis does not divide over the shards; ``dequantize``
+    returns this rank's block and ``shape`` is that block's."""
+
+    def __init__(self, q, scale, logical_shape, blocks=()):
         super().__init__(q, scale)
         self.logical_shape = tuple(int(d) for d in logical_shape)
+        self.blocks = tuple(blocks)
 
     @property
     def shape(self):
-        return self.logical_shape
+        shape = list(self.logical_shape)
+        for dim, parts, _ in self.blocks:
+            shape[dim] //= parts
+        return tuple(shape)
 
     def _replace(self, q, scale):
-        return Int4PackedArray(q, scale, (*q.shape[:-1], self.logical_shape[-1]))
+        return Int4PackedArray(q, scale, (*q.shape[:-1], self.logical_shape[-1]), self.blocks)
+
+    def dequantize(self, dtype=None):
+        w = super().dequantize(dtype)
+        for dim, parts, index in self.blocks:
+            w = w.chunk(parts, dim=dim)[index]
+        return w
 
     def _values(self):
         # repeat each byte, shift by the element's parity, sign-extend the
@@ -208,6 +229,58 @@ def quantize_params(params, predicate: Callable | None = None, bits: int = 8):
         return quantize_int4(leaf) if bits == 4 else quantize_int8(leaf)
 
     return _map_tree(visit, params)
+
+
+def _cut(t, cuts, name: str):
+    """``t``'s block under ``cuts``: ``(dim, parts, index)`` in order, as
+    ``parallel.sharding.local_block`` cuts a tensor."""
+    for dim, parts, index in cuts:
+        if t.shape[dim] % parts:
+            raise ValueError(f"{name}: dim {dim} of size {t.shape[dim]} does not split "
+                             f"over {parts} shards")
+        t = t.chunk(parts, dim=dim)[index]
+    return t
+
+
+def shard_quantized(params: dict, shardings: dict, mesh) -> dict:
+    """This rank's block of a quantized state dict on ``mesh``
+    (tensor-parallel int8 or int4 decode).
+
+    ``shardings`` is ``PartitionRules.tree_shardings(mesh, ...)`` over the
+    *unquantized* state dict (the same names): DTensor placements a leaf,
+    one a mesh axis.  Eager PyTorch runs each rank on its own block, so the
+    result holds plain blocks, as ``parallel.sharding.local_block`` cuts
+    them, where the JAX package places global arrays.  ``q`` takes its
+    weight's cuts verbatim; ``scale`` (``[out, 1]``) the same cuts but on
+    its contraction axis (−1), which stays whole.  A packed int4 buffer
+    whose packed last axis the shard count does not divide (a row-parallel
+    weight's input axis) is kept whole and cut at ``dequantize``
+    (:attr:`Int4PackedArray.blocks`).  Plain leaves take their cuts
+    unchanged.  A cut that does not divide raises."""
+    from torch.distributed.tensor import Shard
+
+    out = {}
+    for name, leaf in params.items():
+        cuts = [(p.dim % max(getattr(leaf, "ndim", 0), 1), mesh.size(m), mesh.get_local_rank(m))
+                for m, p in enumerate(shardings.get(name, ()))
+                if isinstance(p, Shard) and mesh.size(m) > 1]
+        if not isinstance(leaf, _QuantArray):
+            out[name] = _cut(leaf, cuts, name)
+            continue
+        last = leaf.ndim - 1
+        scale = _cut(leaf.scale, [c for c in cuts if c[0] != last], name)
+        if isinstance(leaf, Int4PackedArray):
+            tail = [c for c in cuts if c[0] == last]
+            whole = bool(tail) and leaf.q.shape[-1] % math.prod(p for _, p, _ in tail) != 0
+            q_cuts = [c for c in cuts if c[0] != last] if whole else cuts
+            logical = list(leaf.logical_shape)
+            for dim, parts, _ in q_cuts:
+                logical[dim] //= parts
+            out[name] = Int4PackedArray(_cut(leaf.q, q_cuts, name), scale, logical,
+                                        leaf.blocks + (tuple(tail) if whole else ()))
+            continue
+        out[name] = leaf._replace(_cut(leaf.q, cuts, name), scale)
+    return out
 
 
 def tree_nbytes(params) -> int:

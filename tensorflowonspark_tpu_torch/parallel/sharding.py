@@ -143,6 +143,23 @@ class PartitionRules:
                 for name, spec in self.tree_specs(params).items()}
 
 
+def gpt_partition_rules() -> PartitionRules:
+    """Megatron tensor parallelism for the port's ``models.gpt.GPT``, the
+    counterpart of the JAX ``GPT``'s partitioning annotations under
+    ``flax_shardings``, written in ``nn.Linear``'s ``[out, in]`` layout:
+    the tied table's vocab rows over ``tp``; ``query``, ``key``,
+    ``value``, ``mlp_up`` and ``mlp_gate`` column-parallel (output units,
+    dim 0); ``out`` and ``mlp_down`` row-parallel (input units, dim 1); the
+    biases, norms and the position table replicated."""
+    return PartitionRules([
+        (r"tok_emb/weight", P("tp", None)),
+        (r"layers/\d+/attn/(query|key|value)/weight", P("tp", None)),
+        (r"layers/\d+/(mlp_up|mlp_gate)/weight", P("tp", None)),
+        (r"layers/\d+/(attn/out|mlp_down)/weight", P(None, "tp")),
+        (r".*", P()),
+    ])
+
+
 def _named_leaves(params: dict, prefix: str = ""):
     for k, v in params.items():
         name = f"{prefix}.{k}" if prefix else str(k)

@@ -31,8 +31,9 @@ membership, promotes standbys first), ``client`` (``ServeClient``;
 ``failover_wait=`` rides through driver failovers), ``aot``
 (``AOTExecutableCache``: each serve-step site of the batcher captured
 once as a CUDA graph), ``journal`` (the write-ahead control-plane
-journal) and ``failover`` (``resume_driver``/``resume_rollouts``).  Not
-ported yet: ``sharded`` (ROADMAP A6).
+journal), ``failover`` (``resume_driver``/``resume_rollouts``) and
+``sharded`` (mesh-sharded gangs: a tp model instance cut across worker
+processes that the tier routes to as one replica).
 """
 
 from tensorflowonspark_tpu_torch.serving.aot import AOTExecutableCache  # noqa: F401
@@ -52,6 +53,8 @@ from tensorflowonspark_tpu_torch.serving.rollout import (ModelRegistry,  # noqa:
                                                          ModelVersion, RolloutController,
                                                          RolloutError, RolloutPolicy,
                                                          apply_adapter)
+from tensorflowonspark_tpu_torch.serving.sharded import (GangShardLost, GangSpec,  # noqa: F401
+                                                         serve_sharded_replica)
 from tensorflowonspark_tpu_torch.serving.scheduler import (PRIORITIES,  # noqa: F401
                                                            DeadlineExceeded, ReplicaFailed,
                                                            ReplicaScheduler, RequestRejected,

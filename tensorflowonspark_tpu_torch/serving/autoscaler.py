@@ -271,7 +271,7 @@ class Autoscaler:
         actual retire): least-loaded alive non-draining replica, highest
         id on ties (newest goes first, keeping the founding members
         warm); None while at/below the floor.  Returns ``(eid,
-        capacity_weight)``."""
+        weight)``."""
         candidates = [(r["outstanding"], -eid, eid, r.get("weight", 1))
                       for eid, r in m["replicas"].items()
                       if r["alive"] and not r["draining"]

@@ -1,8 +1,9 @@
 """Disaggregated prefill/decode: specialized gang pools with KV-page handoff.
 
 Port of ``tensorflowonspark_tpu/serving/disagg.py``.  Every pool member is
-a single-process replica here (mesh-sharded gangs wait for the port's
-mesh, ROADMAP A6); a session's K/V pages cross processes as host arrays
+a single-process replica here (gangs in disaggregated pools are not ported
+yet: the tier refuses them, ROADMAP A6 part 2, item 8); a session's K/V
+pages cross processes as host arrays
 and the decode batcher writes them into its pool in place, so a captured
 (CUDA-graph) decode batcher reads them from the storage its graphs hold.
 

@@ -1,8 +1,6 @@
 """Driver failover: rebuild a live serving control plane from the journal.
 
-Port of ``tensorflowonspark_tpu/serving/failover.py``: a copy, less the
-gang arguments (a port tier runs single-process replicas; mesh-sharded
-gangs wait for ROADMAP A6).
+Port of ``tensorflowonspark_tpu/serving/failover.py``: a copy.
 
 The driver is deliberately the STATELESS half of the serving tier:
 workers host the queue servers, own the KV state, and keep decoding
@@ -80,7 +78,7 @@ def resume_driver(cluster, *, journal_path: str | None = None,
                   client_timeout: float = 600.0,
                   hang_timeout: float = 120.0,
                   step_timeout: float | None = None, monitor: bool = True,
-                  tenants: dict | None = None,
+                  tenants: dict | None = None, gang_size: int = 1,
                   roles: dict | None = None, model: tuple | None = None,
                   registry=None,
                   crashed_at: float | None = None) -> ServingCluster:
@@ -90,7 +88,7 @@ def resume_driver(cluster, *, journal_path: str | None = None,
     ``cluster`` is the surviving :class:`~tensorflowonspark_tpu_torch.cluster.
     TPUCluster` (in-process cold restart; a standby process re-attaches
     by rebuilding queue clients from the same reservation records).
-    Scheduler shape knobs (``max_batch``/``roles``/
+    Scheduler shape knobs (``max_batch``/``gang_size``/``roles``/
     ``model``/``tenants``...) mirror :meth:`ServingCluster.run` — the
     journal records transitions, not the tier's construction arguments,
     so the resume is told the same shape the boot was.
@@ -128,7 +126,8 @@ def resume_driver(cluster, *, journal_path: str | None = None,
         scheduler = ReplicaScheduler(
             cluster, slots_per_replica=max_batch, overcommit=overcommit,
             max_queue_depth=max_queue_depth, requeue_limit=requeue_limit,
-            tenants=tenants, roles=roles, model=model, journal=jnl)
+            tenants=tenants, gang_size=gang_size, roles=roles, model=model,
+            journal=jnl)
         # adopt BEFORE start(): journal-dead replicas must be dead and
         # the unfinished admissions queued before any dispatch runs
         adopted = scheduler.adopt(state)
@@ -137,8 +136,9 @@ def resume_driver(cluster, *, journal_path: str | None = None,
                                  step_timeout=step_timeout,
                                  abort_on_failure=False, keep_polling=True,
                                  on_failure=scheduler.on_cluster_failure)
-            gone = sorted(eid for eid, ent in state.replicas.items()
-                          if ent.get("alive") is False)
+            gone = sorted({w for eid, ent in state.replicas.items()
+                           if ent.get("alive") is False
+                           for w in (eid, *(ent.get("members") or ()))})
             if gone:
                 # corpses the OLD driver already failed over: never
                 # re-classify them against the resumed tier

@@ -6,8 +6,9 @@ model registry with hot swaps and rollouts, disaggregated prefill/decode
 pools, the control-plane journal and the driver crash are the JAX
 package's; the replicas' batchers run on the card (``run(device=None)``)
 or, when asked, on the CPU.  Mesh-sharded gangs (``mesh``, ``gang_size``,
-``shard_params``) raise ``NotImplementedError``: they wait for the port's
-mesh (ROADMAP A6).
+``shard_params``) run GPT over ``tp``, every rank of a gang stepping its own
+shards (``serving/sharded.py``); a gang with warm standbys or disaggregated
+pools raises ``NotImplementedError`` (ROADMAP A6 part 2, item 8).
 
 :class:`ServeFrontend` is the process boundary of the serving tier: it
 listens on a TCP port, authenticates clients with the same mutual-HMAC
@@ -364,7 +365,10 @@ class ServingCluster:
         self._drain_timeout = 60.0
         self._membership_lock = threading.Lock()
         self._replaced: set[int] = set()  # preempted eids already replaced
-        self._reaped: set[int] = set()    # replicas already stopped
+        #: the tier's :class:`~tensorflowonspark_tpu_torch.serving.sharded.
+        #: GangSpec` when replicas are mesh-sharded gangs, else None
+        self.gang_spec = None
+        self._reaped: set[int] = set()    # gang leaders already reaped
         #: the warm-standby pool (:class:`~tensorflowonspark_tpu_torch.serving.
         #: standby.StandbyPool`) when ``run(warm_standbys=N)``, else None
         self.standbys = None
@@ -444,9 +448,21 @@ class ServingCluster:
         reclaimed (SIGTERM / heartbeat phase ``preempted``) is drained
         and REPLACED instead of counting as a failure.
 
-        ``mesh``/``gang_size``/``shard_params`` (mesh-sharded gangs)
-        raise ``NotImplementedError``: they wait for the port's mesh
-        (ROADMAP A6).
+        ``mesh`` turns every replica into a MESH-SHARDED GANG
+        (docs/serving.md "Sharded replicas"): an axis-name → size dict
+        (e.g. ``{"tp": 2}``) giving each replica's device mesh.  The
+        tier then boots ``num_replicas x gang_size`` workers (gang_size
+        defaults to the mesh's device count, one process a device)
+        running :func:`~tensorflowonspark_tpu_torch.serving.sharded.
+        serve_sharded_replica`; each gang is ONE routable endpoint with
+        capacity weight = its device count, and add/retire/failover
+        operate on whole gangs.  ``shard_params`` optionally overrides
+        the parameter layout (a picklable ``(cfg, params, mesh) ->
+        params`` giving this rank's shards; default: GPT's Megatron
+        rules over ``tp``).  The port's gangs shard over ``tp`` only, run
+        eagerly (no ``aot_cache``: a CUDA graph cannot capture their gloo
+        collectives), and take neither ``warm_standbys`` nor ``disagg``
+        (ROADMAP A6 part 2, item 8).
 
         ``disagg`` specializes the tier into DISAGGREGATED PREFILL/
         DECODE POOLS (docs/serving.md "Disaggregated prefill/decode"):
@@ -516,12 +532,16 @@ class ServingCluster:
         """
         from tensorflowonspark_tpu_torch.serving.replica import serve_replica
 
-        for name, value in (("mesh", mesh), ("gang_size", gang_size),
-                            ("shard_params", shard_params)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ServingCluster.run({name}=...) needs a module not ported yet "
-                    "(ROADMAP A6: sharded)")
+        if mesh is not None and (warm_standbys or disagg is not None):
+            raise NotImplementedError(
+                "ServingCluster.run(mesh=...) with "
+                f"{'warm_standbys' if warm_standbys else 'disagg'}=...: gangs with warm "
+                "standbys and with disaggregated pools are not ported yet "
+                "(ROADMAP A6 part 2, item 8)")
+        if mesh is not None and aot_cache:
+            raise ValueError(
+                "ServingCluster.run(mesh=..., aot_cache=True): a gang's batchers run "
+                "eagerly — a CUDA graph cannot capture their gloo collectives")
         if compile_cache is not None:
             raise ValueError(
                 "compile_cache has no counterpart in the port: eager PyTorch compiles "
@@ -584,6 +604,22 @@ class ServingCluster:
             raise ValueError(f"warm_standbys must be >= 0, "
                              f"got {warm_standbys}")
         map_fun, num_workers = serve_replica, num_replicas
+        gang = None
+        if mesh is not None:
+            from tensorflowonspark_tpu_torch.serving.sharded import (
+                GangSpec, check_servable, serve_sharded_replica)
+
+            gang = GangSpec(axes=dict(mesh), gang_size=gang_size)
+            check_servable(gang)
+            args["serve_mesh"] = dict(gang.axes)
+            args["serve_gang_size"] = gang.gang_size
+            if shard_params is not None:
+                args["serve_shard_params"] = shard_params
+            map_fun = serve_sharded_replica
+            num_workers = num_replicas * gang.gang_size
+        elif gang_size is not None or shard_params is not None:
+            raise ValueError("gang_size=/shard_params= need mesh= "
+                             "(sharded replicas)")
         roles = None
         if disagg is not None:
             from tensorflowonspark_tpu_torch.serving.disagg import (
@@ -640,7 +676,9 @@ class ServingCluster:
             scheduler = ReplicaScheduler(
                 cluster, slots_per_replica=max_batch, overcommit=overcommit,
                 max_queue_depth=max_queue_depth, requeue_limit=requeue_limit,
-                tenants=tenants, roles=roles, model=model, journal=journal)
+                tenants=tenants,
+                gang_size=1 if gang is None else gang.gang_size,
+                roles=roles, model=model, journal=journal)
             if monitor:
                 mon = ClusterMonitor(
                     cluster, hang_timeout=hang_timeout,
@@ -655,6 +693,7 @@ class ServingCluster:
             address = frontend.start()
             tier = cls(cluster, scheduler, mon, frontend, address)
             tier.disagg = disagg
+            tier.gang_spec = gang
             tier.registry = registry
             tier.journal = journal
             tier._default_model = model
@@ -780,16 +819,19 @@ class ServingCluster:
         its reservation path and spawns fresh serving workers (same
         model builder/args the tier booted with), the scheduler
         registers each as it reserves, and queued requests start
-        dispatching to the newcomers immediately.  A disaggregated tier grows
+        dispatching to the newcomers immediately.  With mesh-sharded
+        replicas each added replica is a WHOLE GANG (``gang_size``
+        workers, one routable endpoint).  A disaggregated tier grows
         one POOL at a time: ``role`` ("prefill" | "decode") pins the
         newcomers' specialization (mandatory — eid arithmetic cannot
         classify late joiners).  ``model`` spawns the newcomers with
         that registered ``(model_id, version)``'s builder/args and
         labels them for model-routed dispatch (multi-model tiers;
-        re-armed heals pass the dead replica's own model).  Returns the
-        new replicas' executor ids."""
+        re-armed heals pass the dead gang's own model).  Returns the
+        new replicas' leader executor ids."""
         if self._shutdown_done:
             raise RuntimeError("serving tier is shut down")
+        gsz = 1 if self.gang_spec is None else self.gang_spec.gang_size
         if (role is not None) != (self.disagg is not None):
             raise ValueError(
                 "add_replicas(role=) and a disagg tier go together: "
@@ -830,12 +872,17 @@ class ServingCluster:
         elif tf_args is not None:
             spawn_kwargs = {"tf_args": tf_args}
         with self._membership_lock:
-            added = self.cluster.add_workers(n, timeout=timeout,
+            added = self.cluster.add_workers(n * gsz, timeout=timeout,
                                              **spawn_kwargs)
             leaders = []
-            for info in added:
-                self.scheduler.add_replica(info, role=role, model=model)
-                leaders.append(int(info["executor_id"]))
+            for i in range(0, len(added), gsz):
+                block = added[i:i + gsz]
+                self.scheduler.add_replica(
+                    block[0],
+                    members=tuple(int(b["executor_id"])
+                                  for b in block[1:]), role=role,
+                    model=model)
+                leaders.append(int(block[0]["executor_id"]))
         if role == "decode":
             # prefix-page donation (docs/serving.md): a fresh decode
             # replica starts with an EMPTY prefix index — pre-warm it
@@ -846,8 +893,9 @@ class ServingCluster:
                                  args=(eid,),
                                  name=f"prefix-donate-{eid}",
                                  daemon=True).start()
-        logger.info("serving tier grew by %d replica(s): %s%s%s", n,
-                    leaders, f" (role {role})" if role else "",
+        logger.info("serving tier grew by %d replica(s): %s%s%s%s", n,
+                    leaders, f" (gangs of {gsz})" if gsz > 1 else "",
+                    f" (role {role})" if role else "",
                     f" (model {model[0]}@{model[1]})" if model else "")
         return leaders
 
@@ -1038,12 +1086,14 @@ class ServingCluster:
         """Drain-based scale-down of one replica: stop routing to it,
         wait out its in-flight requests (``drain_timeout``, default the
         tier's), remove it from the scheduler as a CLEAN departure (it
-        never shows in ``dead_replicas``), then stop the worker with an
-        ``EndOfFeed``.  Returns True when the drain emptied within the timeout;
+        never shows in ``dead_replicas``), then stop the worker(s) with
+        per-worker ``EndOfFeed`` s.  ``executor_id`` may be ANY shard of
+        a mesh-sharded gang — the whole gang drains and retires as one
+        unit.  Returns True when the drain emptied within the timeout;
         on False the leftovers were re-queued to the survivors
         (exactness preserved by the failover skip-dedup), so zero
         accepted requests are lost either way."""
-        eid = int(executor_id)
+        eid = self.scheduler.resolve_gang(int(executor_id))
         dt = self._drain_timeout if drain_timeout is None else drain_timeout
         self.scheduler.mark_draining(eid, reason="scale_down")
         drained = self.scheduler.drain_replica(eid, timeout=dt)
@@ -1051,24 +1101,28 @@ class ServingCluster:
         # loop sees a planned departure, not a dead response channel
         self.scheduler.retire_replica(
             eid, reason="scale_down" if drained else "drain_timeout")
-        self._stop_worker(eid)
+        self._stop_gang_workers(eid)
         return drained
 
-    def _stop_worker(self, eid: int) -> None:
-        """Stop a replica that LEFT the scheduler (retired): an
-        ``EndOfFeed`` (best-effort), monitor retirement so a late exit
-        is never classified, and cluster retirement so shutdown skips
-        the slot.  Idempotent."""
+    def _stop_gang_workers(self, leader_eid: int) -> None:
+        """Stop every worker of a replica that LEFT the scheduler
+        (retired or dead): per-worker ``EndOfFeed`` (the leader's serve
+        loop and the members' step loops both exit on it; puts to an
+        already-dead shard are best-effort), monitor retirement so late
+        exits are never classified, and cluster retirement so shutdown
+        skips the slot.  Idempotent per gang."""
         with self._membership_lock:
-            if eid in self._reaped:
+            if leader_eid in self._reaped:
                 return
-            self._reaped.add(eid)
+            self._reaped.add(leader_eid)
+        gang = self.scheduler.gang_members(leader_eid)
         if self.monitor is not None:
-            self.monitor.ignore_workers((eid,))
-        with contextlib.suppress(Exception):
-            self.cluster._client_for(eid).put(REQUEST_QUEUE,
-                                              EndOfFeed(), timeout=5)
-        self.cluster.retire_worker(eid)
+            self.monitor.ignore_workers(gang)
+        for eid in gang:
+            with contextlib.suppress(Exception):
+                self.cluster._client_for(eid).put(REQUEST_QUEUE,
+                                                  EndOfFeed(), timeout=5)
+            self.cluster.retire_worker(eid)
 
     # ------------------- multi-model hosting & live rollout (docs/
     # serving.md "Multi-model serving & live rollout")
@@ -1137,6 +1191,11 @@ class ServingCluster:
                 "swap_replica_model needs a model-labeled tier: boot "
                 "with ServingCluster.run(model=(id, version), "
                 "registry=...) so the founding gangs are labeled too")
+        if self.gang_spec is not None:
+            raise ValueError(
+                "in-place model swap supports single-process replicas; "
+                "mesh-sharded gangs swap by retire_replica + "
+                "deploy_model (the shard layout must be rebuilt)")
         entry = self.registry.version(model_id, version)
         eid = int(executor_id)
         dt = self._drain_timeout if timeout is None else float(timeout)
@@ -1218,8 +1277,9 @@ class ServingCluster:
         instead of importing page data the fleet already holds.  The
         donor defaults to the least-loaded prefill gang serving the
         SAME (model, version).  Returns False when no eligible donor
-        exists."""
-        if self._shutdown_done:
+        exists or the tier runs mesh-sharded gangs (a gang's pages are
+        cut over tp; host pages would need a resharding pass)."""
+        if self.gang_spec is not None or self._shutdown_done:
             return False
         eid = int(to_replica)
         info = self.scheduler.replica_info(eid)
@@ -1252,16 +1312,19 @@ class ServingCluster:
     def _on_phase(self, eid: int, phase: str) -> None:
         """Monitor ``on_phase`` hook: a live replica flipping to
         ``preempted`` is in its reclaim grace window — drain and replace
-        it NOW instead of waiting for the exit."""
+        it NOW instead of waiting for the exit.  A gang SHARD's phase
+        flip drains the whole gang (its leader)."""
         if phase == "preempted" and not self._shutdown_done:
-            self._handle_preempted(int(eid))
+            self._handle_preempted(self.scheduler.resolve_gang(int(eid)))
 
     def _on_cluster_failure(self, failure) -> None:
         """Monitor ``on_failure`` hook: absorb UNPROMOTED-standby deaths
         into the pool (shrink + backfill — the scheduler never knew
-        them), then always fail over via the scheduler, requeueing the
-        dead replicas' in-flight work once.  A PREEMPTION-classified exit
-        (the replica died before
+        them), then always fail over via the scheduler — which resolves
+        a gang shard's death to the WHOLE gang, requeueing its in-flight
+        work once — then reap the dead gang's surviving processes (a
+        leaderless member would otherwise idle on its queue forever).  A
+        PREEMPTION-classified exit (the replica died before
         or during its grace drain) additionally spawns a replacement;
         with a warm pool (or ``replace_failed``), CRASH/HANG deaths heal
         the same way — membership flexes, the tier never shrinks."""
@@ -1270,7 +1333,18 @@ class ServingCluster:
         if self.standbys is not None and not self._shutdown_done:
             standby_owned = self.standbys.handle_failure(failed)
         self.scheduler.on_cluster_failure(failure)
-        leaders = [e for e in failed if e not in standby_owned]
+        failed = [e for e in failed if e not in standby_owned]
+        leaders = {self.scheduler.resolve_gang(e) for e in failed}
+        if self.gang_spec is not None and not self._shutdown_done:
+            dead = self.scheduler.dead_replicas()
+            for leader in leaders:
+                if leader in dead:
+                    # off the monitor's poll thread: reaping does queue
+                    # I/O (EndOfFeed puts) and must not delay detection
+                    threading.Thread(
+                        target=self._stop_gang_workers, args=(leader,),
+                        name=f"serve-gang-reap-{leader}",
+                        daemon=True).start()
         if self._shutdown_done:
             return
         kind = getattr(failure, "kind", None)
@@ -1303,6 +1377,11 @@ class ServingCluster:
             # died mid-drain the recv loop's _mark_dead already re-queued
             # the leftovers and this retire is a no-op
             self.scheduler.retire_replica(eid, reason="preempted")
+            if self.gang_spec is not None:
+                # the reclaim may have hit a MEMBER — the leader never saw
+                # a SIGTERM and would serve forever; EndOfFeed every shard
+                # so the full gang heals
+                self._stop_gang_workers(eid)
         except Exception:
             logger.exception("preemption drain of replica %d failed", eid)
         if self._replace_preempted:

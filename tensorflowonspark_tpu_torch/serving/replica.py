@@ -12,8 +12,10 @@ compile-site cache is the CUDA-graph capture of ``serving/aot.py``
 (``serve_aot_cache``).  A model hot swap (``op: "model"``) copies the
 new version's weights into that storage through ``load_params``, so every
 captured site serves them; a disaggregated decode replica writes an
-adopted session's pages into its KV pool in place.  Mesh-sharded gangs
-wait for the port's mesh (ROADMAP A6).
+adopted session's pages into its KV pool in place.  A mesh-sharded gang's
+leader runs this loop with a ``gang`` (``serving/sharded.py``): the step
+descriptor goes to the members before each step, their acks come back
+after it.
 
 ``serve_replica`` is a ``map_fun`` launched through the ordinary cluster
 runtime (``TPUCluster.run`` / ``node.run``), so a serving replica gets the
@@ -100,11 +102,19 @@ logger = logging.getLogger(__name__)
 def serving_device(args):
     """The replica's device (``serve_device``; None means the card, which
     must exist), with matrix products in full float32 as the JAX package
-    computes them."""
+    computes them.  On the CPU the replica's intra-op threads follow its
+    ``OMP_NUM_THREADS`` (a worker forked from the fork server inherits
+    the thread pool torch sized there, from the driver's environment)."""
+    import os
+
+    import torch
+
     from tensorflowonspark_tpu_torch.util import resolve_device, strict_matmul_precision
 
     device = resolve_device(args.get("serve_device"))
     strict_matmul_precision()
+    if device.type == "cpu" and os.environ.get("OMP_NUM_THREADS", "").isdigit():
+        torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
     return device
 
 
@@ -131,14 +141,15 @@ def serving_aot_cache(args):
     return AOTExecutableCache(None)
 
 
-def build_draft_model(args):
+def build_draft_model(args, shard=None, tp=None):
     """This arg view's draft model (``serve_draft_builder``, or
     ``serve_draft_base_builder`` [+ ``serve_draft_adapter``] for a
     registry adapter version), moved to the replica's device and wrapped
     in a :class:`~tensorflowonspark_tpu_torch.models.serving.DraftModel`
     with ``serve_draft_window``; None when no draft is configured.  The
     draft is "just another model version": the same builder/adapter
-    resolution the hot-swap and standby-promote paths use."""
+    resolution the hot-swap and standby-promote paths use.  A gang's
+    draft is cut by ``shard(cfg, params)`` and runs over ``tp``."""
     builder = args.get("serve_draft_builder")
     base = args.get("serve_draft_base_builder")
     if builder is None and base is None:
@@ -158,21 +169,24 @@ def build_draft_model(args):
         draft_args["serve_base_builder"] = base
         draft_args["serve_adapter"] = args.get("serve_draft_adapter")
         cfg, params = build_registered_model(draft_args)
+    if shard is not None:
+        params = shard(cfg, params)
     return DraftModel(cfg, on_device(params, serving_device(args)),
-                      window=int(args.get("serve_draft_window", 64)))
+                      window=int(args.get("serve_draft_window", 64)), tp=tp)
 
 
-def arm_draft(batcher, args) -> None:
+def arm_draft(batcher, args, shard=None) -> None:
     """(Re)arm or clear the batcher's draft model from an arg view —
     boot, standby promotion, and hot swap all funnel here so target and
     draft can never go incoherent: a view without draft keys CLEARS any
     armed draft (swap-away invalidation), one with them builds and
     validates the new draft (typed errors from ``set_draft``, raised
-    before any params move)."""
+    before any params move).  A gang passes ``shard`` (``(cfg, params)
+    -> this rank's shards``): its draft runs over the batcher's tp group."""
     draft = None
     if not getattr(batcher, "prefill_only", False) \
             and getattr(batcher, "spec_k", None) is not None:
-        draft = build_draft_model(args)
+        draft = build_draft_model(args, shard=shard, tp=getattr(batcher, "tp", None))
     batcher.set_draft(draft)
 
 
@@ -391,12 +405,22 @@ def serve_replica(args, ctx) -> None:
     run_serve_loop(args, ctx, batcher, role=args.get("serve_role"))
 
 
-def run_serve_loop(args, ctx, batcher, *, label: str = "replica",
+def run_serve_loop(args, ctx, batcher, *, gang=None, label: str = "replica",
                    role: str | None = None,
                    base_args: dict | None = None) -> None:
     """THE serving loop (module docstring): intake ⇄ step interleave over
     the node queue plane until ``EndOfFeed`` / a drained preemption.
-    Shared by :func:`serve_replica` and a promoted warm standby.
+    Shared by :func:`serve_replica`, a promoted warm standby and the
+    mesh-sharded gang leader (``serving/sharded.py``), which passes its
+    ``gang`` (a ``GangBarrier``): each ``gen`` request the batcher took is
+    handed to ``gang.mirror``, any other intake op to ``gang.refuse``
+    (which raises: the members could not apply it), each step runs as
+    ``gang.step(batcher, steps)`` (the descriptor posted first), and
+    ``gang.collect(steps, load, deltas)`` gathers the members' acks after
+    the step's deltas are flushed, so the barrier never delays token
+    delivery.  A gang exception (a lost shard) propagates out like a
+    device failure, crashing the worker so the driver classifies the whole
+    gang dead.
 
     ``role`` specializes the loop for a disaggregated pool
     (docs/serving.md "Disaggregated prefill/decode"): every response
@@ -698,6 +722,9 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica",
                     break
                 if isinstance(item, Marker):
                     continue
+                if gang is not None and isinstance(item, dict) \
+                        and item.get("op") in ("clone", "model", "prefix", "adopt"):
+                    gang.refuse(item["op"])
                 if isinstance(item, dict) and item.get("op") == "clone":
                     # a promoted standby asks for this replica's weights
                     serve_clone_request(batcher, item, ctx)
@@ -782,6 +809,8 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica",
                                   {"rid": item.get("rid"), "event": "error",
                                    "error": str(e), **role_extra})
                     continue
+                if gang is not None:
+                    gang.mirror(item)
                 rid_map[brid] = (item["rid"], item.get("trace"))
                 tracer.event("replica_intake", item.get("trace"),
                              rid=item["rid"], replica=ctx.executor_id,
@@ -793,7 +822,7 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica",
                         _time.monotonic() - drain_started >= preempt_grace):
                     break   # grace-window drain complete: exit cleanly
                 continue
-            done = batcher.step()
+            done = batcher.step() if gang is None else gang.step(batcher, steps + 1)
             if step_delay:
                 _time.sleep(step_delay)
             steps += 1
@@ -823,6 +852,7 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica",
             g_load.set(load)
             g_pages.set(free_pages)
             publish_engine_counters()
+            step_tokens = dict(deltas) if gang is not None else None
             for brid, toks in deltas.items():
                 rid, trace = rid_map[brid]
                 if brid not in first_sent:
@@ -868,6 +898,10 @@ def run_serve_loop(args, ctx, batcher, *, label: str = "replica",
                                    "free_pages": free_pages,
                                    **role_extra})
                     served += 1
+            if gang is not None:
+                # the members' acks AFTER the step's deltas are flushed,
+                # so the barrier never delays token delivery
+                gang.collect(steps, load, step_tokens)
     logger.info("%s %d %s: %d requests over %d steps "
                 "(%d prefill + %d decode dispatches)", label,
                 ctx.executor_id,

@@ -1,9 +1,8 @@
 """Driver-side request scheduler: admission, routing, re-queue on death.
 
 Port of ``tensorflowonspark_tpu/serving/scheduler.py`` over the port's
-metrics, observability, tracing and queues, less the mesh-sharded gang
-bookkeeping (leaders, shard members, device-weighted capacity), which waits
-for the port's mesh (ROADMAP A6): every replica here is one worker.
+metrics, observability, tracing and queues, the mesh-sharded gang
+bookkeeping included (leaders, shard members, device-weighted capacity).
 
 The scheduler is the piece between the :class:`~tensorflowonspark_tpu_torch.
 serving.frontend.ServeFrontend` (which owns client connections) and the
@@ -286,13 +285,19 @@ class ServeRequest:
 
 
 class _Replica:
-    """Driver-side view of one routable replica (a serving worker)."""
+    """Driver-side view of one routable replica endpoint — a single
+    worker, or the LEADER of a mesh-sharded gang (``members`` holds the
+    shard workers' executor ids, ``weight`` the gang's device count:
+    its capacity contribution to device-weighted signals)."""
 
     def __init__(self, info: dict, max_inflight: int,
+                 members: tuple = (), weight: int = 1,
                  role: str | None = None, model: tuple | None = None):
         self.info = info
         self.eid = int(info["executor_id"])
         self.max_inflight = int(max_inflight)
+        self.members = tuple(int(m) for m in members)
+        self.weight = max(1, int(weight))
         #: disaggregated-tier specialization: ``"prefill"`` (computes
         #: prompt KV, never decode-steps), ``"decode"`` (only adopts
         #: handed-off sessions and steps them), or None (unified — the
@@ -348,7 +353,7 @@ class ReplicaScheduler:
                  overcommit: int = 2, max_queue_depth: int | None = None,
                  poll_interval: float = 0.25, requeue_limit: int = 1,
                  client_factory=None, event_log=None,
-                 tenants: dict | None = None,
+                 tenants: dict | None = None, gang_size: int = 1,
                  roles: dict | None = None,
                  model: tuple | None = None,
                  journal=None):
@@ -361,8 +366,22 @@ class ReplicaScheduler:
             raise ValueError("serving cluster has no feedable replicas")
         max_inflight = max(1, int(slots_per_replica) * int(overcommit))
         self._max_inflight = max_inflight  # replicas added live inherit it
-        #: role-aware (disaggregated) tier: ``roles`` maps every replica
-        #: eid to ``"prefill"`` or ``"decode"`` (docs/serving.md
+        #: processes per routable replica (docs/serving.md "Sharded
+        #: replicas"): with gang_size > 1 the workers partition into
+        #: contiguous, aligned blocks — block head = the gang LEADER
+        #: (the only eid the scheduler routes to / connects queues to),
+        #: the rest are shard members whose deaths resolve to the whole
+        #: gang.  A gang's weight is its device count, the unit the
+        #: autoscaler's device-weighted signals count in; a port process
+        #: drives one device, so that is ``gang_size``.
+        self.gang_size = max(1, int(gang_size))
+        self._weight = self.gang_size
+        if len(feedable) % self.gang_size:
+            raise ValueError(
+                f"serving cluster has {len(feedable)} workers, not a "
+                f"multiple of gang_size={self.gang_size}")
+        #: role-aware (disaggregated) tier: ``roles`` maps every gang
+        #: LEADER eid to ``"prefill"`` or ``"decode"`` (docs/serving.md
         #: "Disaggregated prefill/decode").  Prompts route only to
         #: prefill-capable replicas; handed-off sessions only to decode
         #: gangs.  A plain tier passes no roles and keeps the unified
@@ -374,14 +393,25 @@ class ReplicaScheduler:
                                  "(want 'prefill' or 'decode')")
         self._has_roles = bool(roles)
         self.replicas: dict[int, _Replica] = {}
-        for n in feedable:
-            eid = int(n["executor_id"])
-            if self._has_roles and eid not in roles:
+        self._gang_leader: dict[int, int] = {}  # every gang eid -> leader
+        for i in range(0, len(feedable), self.gang_size):
+            block = feedable[i:i + self.gang_size]
+            ids = [int(n["executor_id"]) for n in block]
+            if ids != list(range(ids[0], ids[0] + self.gang_size)) \
+                    or ids[0] % self.gang_size:
                 raise ValueError(
-                    f"role-aware tier: replica {eid} has no role "
+                    f"gang block {ids} is not a contiguous, "
+                    f"gang_size-aligned executor range "
+                    f"(gang_size={self.gang_size})")
+            if self._has_roles and ids[0] not in roles:
+                raise ValueError(
+                    f"role-aware tier: replica {ids[0]} has no role "
                     f"(roles cover {sorted(roles)})")
-            self.replicas[eid] = _Replica(n, max_inflight,
-                                          role=roles.get(eid), model=model)
+            self.replicas[ids[0]] = _Replica(
+                block[0], max_inflight, members=tuple(ids[1:]),
+                weight=self._weight, role=roles.get(ids[0]), model=model)
+            for e in ids:
+                self._gang_leader[e] = ids[0]
         #: default model id (multi-model tiers): requests that name no
         #: ``model`` resolve to the founding replicas' label
         self.default_model = None if model is None else str(model[0])
@@ -425,7 +455,7 @@ class ReplicaScheduler:
         if journal is not None:
             for jeid, jrep in sorted(self.replicas.items()):
                 journal.record("replica_added", replica=jeid,
-                               members=[], role=jrep.role,
+                               members=list(jrep.members), role=jrep.role,
                                model=jrep.model, version=jrep.version)
         self._pending = _PendingQueue()
         #: sessions a prefill gang handed back, awaiting their adopt
@@ -523,6 +553,10 @@ class ReplicaScheduler:
             labelnames=("replica",))
         self._g_alive = reg.gauge(
             "tfos_serving_replicas_alive_count", "Alive serving replicas.")
+        self._g_capacity = reg.gauge(
+            "tfos_serving_capacity_devices_count",
+            "Device-weighted routable capacity: sum of alive, "
+            "non-draining replica gang weights.")
         reg.add_collect_hook(self._collect_gauges)
         # audit events are enqueued (GIL-atomic append) and written by a
         # dedicated thread: a stalled disk must never block the request
@@ -589,6 +623,7 @@ class ReplicaScheduler:
         self._g_depth.remove()
         self._g_handoff_depth.remove()
         self._g_alive.remove()
+        self._g_capacity.remove()
         for rep in self.replicas.values():
             self._close_clients(rep)
         self._drain_events()     # anything emitted after the writer exited
@@ -626,6 +661,7 @@ class ReplicaScheduler:
         self._g_depth.remove()
         self._g_handoff_depth.remove()
         self._g_alive.remove()
+        self._g_capacity.remove()
         for rep in self.replicas.values():
             self._close_clients(rep)
         # pending/outstanding/_requests stay AS-IS: a killed process
@@ -884,11 +920,34 @@ class ReplicaScheduler:
 
     # -- failure intake ----------------------------------------------------
     def on_cluster_failure(self, failure) -> None:
-        """`ClusterMonitor` subscriber: classified crash/hang/preemption."""
+        """`ClusterMonitor` subscriber: classified crash/hang/preemption.
+        A gang SHARD's death resolves to its leader — killing one shard
+        of a tp=4 gang kills the whole routable replica, once."""
         with self._lock:
-            for eid in getattr(failure, "failed_workers", ()):
-                self._mark_dead(int(eid),
-                                f"{getattr(failure, 'kind', 'failure')}: {failure}")
+            for eid in getattr(failure, "failed_workers", ()):  # noqa: B007
+                eid = int(eid)
+                leader = self._gang_leader.get(eid, eid)
+                shard = "" if leader == eid else f" (gang shard {eid})"
+                self._mark_dead(leader,
+                                f"{getattr(failure, 'kind', 'failure')}"
+                                f"{shard}: {failure}")
+
+    def resolve_gang(self, executor_id: int) -> int:
+        """The gang LEADER (= routable replica id) owning ``executor_id``
+        — identity for non-gang members/unknown ids."""
+        with self._lock:
+            return self._gang_leader.get(int(executor_id), int(executor_id))
+
+    def gang_members(self, executor_id: int) -> tuple[int, ...]:
+        """Every executor id in ``executor_id``'s gang, leader first
+        (``(executor_id,)`` when unknown)."""
+        with self._lock:
+            leader = self._gang_leader.get(int(executor_id),
+                                           int(executor_id))
+            rep = self.replicas.get(leader)
+            if rep is None:
+                return (int(executor_id),)
+            return (leader, *rep.members)
 
     def peer_replica_info(self, exclude=(),
                           model: tuple | None = None) -> dict | None:
@@ -1127,11 +1186,14 @@ class ReplicaScheduler:
         return bool(rec["ok"]), rec.get("error") or ""
 
     def dead_replicas(self) -> set[int]:
-        """Every executor id lost to FAILURE (cleanly retired replicas
-        excluded)."""
+        """Every executor id lost to FAILURE — for a dead gang that is
+        the leader AND its shard members, so shutdown's handled-worker
+        tolerance covers the whole gang's corpses (cleanly retired
+        members excluded)."""
         with self._lock:
-            return {eid for eid, rep in self.replicas.items()
-                    if not rep.alive and not rep.retired}
+            return {e for eid, rep in self.replicas.items()
+                    if not rep.alive and not rep.retired
+                    for e in (eid, *rep.members)}
 
     def alive_replicas(self) -> set[int]:
         with self._lock:
@@ -1191,16 +1253,29 @@ class ReplicaScheduler:
         t0 = self._pool_lost_at.get(kind)
         return t0 is not None and (time.monotonic() - t0) < self.heal_grace
 
-    def add_replica(self, info: dict, role: str | None = None,
+    def add_replica(self, info: dict, members: tuple = (),
+                    role: str | None = None,
                     model: tuple | None = None) -> None:
         """Register a freshly reserved replica worker and start routing
         to it (live scale-up / preemption replacement).  ``info`` is the
-        node's reservation dict, exactly as ``cluster_info`` carries it.  In a
+        node's reservation dict, exactly as ``cluster_info`` carries it;
+        ``members`` the shard workers of a gang replica (their deaths
+        resolve to this endpoint, like the founding gangs').  In a
         role-aware (disaggregated) tier ``role`` is mandatory — an
         unspecialized replica cannot join specialized pools.  ``model``
         labels the newcomer with the ``(model_id, version)`` it serves
         (multi-model tiers; deploys and re-armed heals pass it)."""
         eid = int(info["executor_id"])
+        members = tuple(int(m) for m in members)
+        if len(members) != self.gang_size - 1:
+            raise ValueError(
+                f"replica {eid} registered with {len(members)} gang "
+                f"member(s); this tier's gang_size={self.gang_size} "
+                f"needs {self.gang_size - 1}")
+        if members != tuple(range(eid + 1, eid + self.gang_size)) or eid % self.gang_size:
+            raise ValueError(
+                f"gang block {[eid, *members]} is not a contiguous, "
+                f"gang_size-aligned executor range (gang_size={self.gang_size})")
         if role is not None and role not in ("prefill", "decode"):
             raise ValueError(f"unknown role {role!r} "
                              "(want 'prefill' or 'decode')")
@@ -1214,8 +1289,11 @@ class ReplicaScheduler:
             existing = self.replicas.get(eid)
             if existing is not None and existing.alive:
                 raise ValueError(f"replica {eid} already registered")
-            rep = _Replica(info, self._max_inflight, role=role, model=model)
+            rep = _Replica(info, self._max_inflight, members=members,
+                           weight=self._weight, role=role, model=model)
             self.replicas[eid] = rep
+            for e in (eid, *members):
+                self._gang_leader[e] = eid
             self._has_roles = self._has_roles or role is not None
             # a fresh acceptor resets the lost-pool clock for every
             # dispatch kind it serves (unified replicas serve both)
@@ -1227,12 +1305,14 @@ class ReplicaScheduler:
                 # the model is hosted again: its heal-grace clock stops
                 self._model_lost_at.pop(rep.model, None)
             self._m_scale.inc(change="added")
-            self._emit("replica_added", replica=eid, role=role, model=rep.model, version=rep.version,
+            self._emit("replica_added", replica=eid,
+                       members=list(members), weight=rep.weight,
+                       role=role, model=rep.model, version=rep.version,
                        alive=sum(1 for r in self.replicas.values()
                                  if r.alive))
             if self.journal is not None:
                 self.journal.record("replica_added", replica=eid,
-                                    members=[], role=role,
+                                    members=list(members), role=role,
                                     model=rep.model, version=rep.version)
             self._work.notify_all()
         t = threading.Thread(target=self._recv_loop, args=(rep,),
@@ -1317,18 +1397,22 @@ class ReplicaScheduler:
             self._g_depth.set(len(self._pending))
             self._g_handoff_depth.set(len(self._pending_handoff))
             alive = 0
+            capacity = 0
             for eid, rep in self.replicas.items():
                 if rep.alive:
                     self._g_outstanding.set(len(rep.outstanding),
                                             replica=str(eid))
                     self._g_load.set(rep.reported_load, replica=str(eid))
                     alive += 1
+                    if not rep.draining:
+                        capacity += rep.weight
                 else:
                     # a retired replica must stop being reported, not
                     # freeze at its last values
                     self._g_outstanding.remove(replica=str(eid))
                     self._g_load.remove(replica=str(eid))
             self._g_alive.set(alive)
+            self._g_capacity.set(capacity)
 
     def metrics(self) -> dict:
         with self._lock:
@@ -1341,11 +1425,20 @@ class ReplicaScheduler:
                 "handoffs": self.handoffs,
                 "queued_handoffs": len(self._pending_handoff),
                 "ttft": self.ttft.summary(), "e2e": self.e2e.summary(),
+                "gang_size": self.gang_size,
+                # device-weighted capacity: what the autoscaler's
+                # queue-pressure signal divides by — a tp=4 gang counts
+                # 4 capacity units, not 1 and not 4 replicas
+                "capacity_devices": sum(
+                    rep.weight for rep in self.replicas.values()
+                    if rep.alive and not rep.draining),
                 "replicas": {
                     eid: {"alive": rep.alive, "draining": rep.draining,
                           "retired": rep.retired,
                           "outstanding": len(rep.outstanding),
                           "reported_load": rep.reported_load,
+                          "weight": rep.weight,
+                          "members": list(rep.members),
                           "free_pages": rep.reported_free_pages,
                           # speculation acceptance piggyback (None for a
                           # non-speculating replica): rate = accepted /
@@ -1868,9 +1961,15 @@ class ReplicaScheduler:
                 for eid, rep in self.replicas.items():
                     if not rep.alive:
                         continue
-                    if codes.get(eid) not in (0, None):
+                    # a gang is only as alive as its weakest shard: any
+                    # member's nonzero exit fails the whole endpoint
+                    dead = next((m for m in (eid, *rep.members)
+                                 if codes.get(m) not in (0, None)), None)
+                    if dead is not None:
+                        shard = "" if dead == eid else f"gang shard {dead} "
                         self._mark_dead(
-                            eid, f"process exited (code {codes[eid]})")
+                            eid, f"{shard}process exited "
+                                 f"(code {codes[dead]})")
 
     def _mark_dead(self, eid: int, reason: str) -> None:
         """Retire a replica and fail over its in-flight requests (lock
@@ -1883,6 +1982,7 @@ class ReplicaScheduler:
         logger.warning("serving replica %d marked dead: %s", eid, reason)
         self._m_scale.inc(change="dead")
         self._emit("replica_dead", replica=eid, reason=reason,
+                   shards=list((eid, *rep.members)),
                    inflight=len(rep.outstanding))
         if self.journal is not None:
             self.journal.record("replica_dead", replica=eid)

@@ -8,7 +8,8 @@ the cloned weights INTO the storage those graphs were captured over
 (``ContinuousBatcher.load_params``).  A promotion may carry a pool role
 (a disaggregated tier's standbys are built role-less and specialize on
 arrival) or a model version (one spare pool backs every hosted model).
-Mesh-sharded standby gangs wait for the port's mesh (ROADMAP A6).
+Standby gangs (``ServingCluster.run(mesh=..., warm_standbys=...)``) are not
+ported yet: the tier refuses them (ROADMAP A6 part 2, item 8).
 
 Every heal path the tier had before this module was COLD: a dead,
 preempted, or scale-up replica paid full process boot + first calls +

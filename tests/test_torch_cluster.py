@@ -210,10 +210,14 @@ def test_root_exports_what_the_reference_root_exports_for_ported_modules():
     has, the port's root exports the same names (the same objects as the
     port module's), and ``from tensorflowonspark_tpu_torch import
     Dataset`` and the rest work — in a fresh interpreter that loads no JAX
-    module on the way."""
-    expected = []
+    module on the way.  Every reference-named module the JAX root exports
+    (``TFCluster``, ``compat``, ``gpu_info``...) exists in the port."""
+    expected, missing = [], []
     for module, name in _reference_root_imports():
-        if not os.path.exists(os.path.join(PACKAGE_DIR, *module.split(".")) + ".py"):
+        path = os.path.join(PACKAGE_DIR, *module.split("."))
+        if not (os.path.exists(path + ".py") or os.path.isdir(path)):
+            if name is None:
+                missing.append(module)            # a root module the port lacks
             continue                              # not ported yet
         if name is None:
             expected.append((module, None))
@@ -226,6 +230,9 @@ def test_root_exports_what_the_reference_root_exports_for_ported_modules():
             "run_with_recovery", "Estimator", "EvalSpec", "TrainSpec", "train_and_evaluate",
             "Namespace", "Pipeline", "ParamGridBuilder", "TFEstimator", "TFModel",
             "TrainValidationSplit", "CrossValidator"} <= names
+    assert missing == []
+    assert {"TFCluster", "TFManager", "TFNode", "TFSparkNode", "compat", "gpu_info"} <= {
+        m for m, name in expected if name is None}
     code = (
         "import importlib, json, sys\n"
         "import tensorflowonspark_tpu_torch as p\n"
@@ -261,13 +268,8 @@ def _reference_package_imports(package: str) -> list[tuple[str, str]]:
             for a in node.names]
 
 
-#: names the port leaves out, each waiting for its queue item:
-#: ``shard_quantized`` and the serving package's gang replica, both for
-#: A6 part 2's serving half
-NOT_PORTED_YET = {("ops", "quant", "shard_quantized"),
-                  ("serving", "sharded", "GangShardLost"),
-                  ("serving", "sharded", "GangSpec"),
-                  ("serving", "sharded", "serve_sharded_replica")}
+#: names the port leaves out, each waiting for its queue item (none now)
+NOT_PORTED_YET: set = set()
 
 #: packages whose ``__init__`` re-exports every submodule's names: a name
 #: of a module the port has not got counts as missing there, so each wait
@@ -315,8 +317,10 @@ def test_models_and_ops_export_the_reference_names_of_ported_modules(package):
                 "Autoscaler", "AutoscalerConfig", "serve_disagg_replica", "resume_driver",
                 "resume_rollouts", "ControlPlaneJournal", "JournalState", "ModelRegistry",
                 "ModelVersion", "RolloutController", "RolloutError", "RolloutPolicy",
-                "apply_adapter"} \
+                "apply_adapter", "GangShardLost", "GangSpec", "serve_sharded_replica"} \
             <= {n for _, n in expected}
+    if package == "ops":
+        assert "shard_quantized" in {n for _, n in expected}
     if package == "parallel":
         assert {"PipelineStrategy", "pipeline_apply", "pipeline_value_and_grad",
                 "stack_stage_params", "make_moe_layer", "moe_apply"} <= {n for _, n in expected}
@@ -336,6 +340,38 @@ def test_models_and_ops_export_the_reference_names_of_ported_modules(package):
                           cwd=os.path.dirname(PACKAGE_DIR), env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"bad": [], "jax": []}
+
+
+#: the JAX package's ``compat`` shims for its own jax-version churn: no
+#: torch meaning, left out of the port on purpose
+COMPAT_LEFT_OUT = {"shard_map", "axis_size", "pcast", "vma_of", "has_vma", "bound_axes"}
+
+
+def test_compat_keeps_the_reference_names_and_leaves_the_jax_shims_out(monkeypatch):
+    """``compat``'s public functions are the JAX package's less
+    :data:`COMPAT_LEFT_OUT`: ``export_saved_model`` delegates to
+    ``checkpoint.export_model`` (triple or dict, chief flag passed),
+    ``disable_auto_shard`` does nothing, ``is_gpu_available`` is
+    ``torch.cuda.is_available()``."""
+    import inspect
+
+    from tensorflowonspark_tpu import compat as jax_compat
+    from tensorflowonspark_tpu_torch import checkpoint, compat
+
+    def public(mod):
+        return {n for n, f in vars(mod).items() if inspect.isfunction(f)
+                and f.__module__ == mod.__name__ and not n.startswith("_")}
+    assert public(compat) == public(jax_compat) - COMPAT_LEFT_OUT
+    assert not COMPAT_LEFT_OUT & set(vars(compat))
+    calls = []
+    monkeypatch.setattr(checkpoint, "export_model",
+                        lambda d, fn, params, inputs, is_chief: calls.append(
+                            (d, fn, params, inputs, is_chief)) or d)
+    assert compat.export_saved_model(("fn", {"w": 1}, (2,)), "/x", is_chief=True) == "/x"
+    compat.export_saved_model({"fn": "g", "params": {}, "example_inputs": ()}, "/y")
+    assert calls == [("/x", "fn", {"w": 1}, (2,), True), ("/y", "g", {}, (), False)]
+    assert compat.disable_auto_shard(object()) is None
+    assert compat.is_gpu_available() is torch.cuda.is_available()
 
 
 def test_port_sources_name_no_jax_import():

@@ -12,8 +12,9 @@ routing, handoff queue and promote-with-role it brings back).
   outcome;
 - **the tier's options** — ``ServingCluster.run``'s checks of ``disagg=``,
   ``model=``/``registry=`` and a ``(model_id, version)`` ``draft_model``
-  raise the JAX package's errors before any worker boots; the mesh
-  options (ROADMAP A6) raise ``NotImplementedError``;
+  raise the JAX package's errors before any worker boots (gangs in
+  disaggregated pools, not ported yet, are refused in
+  ``test_torch_sharded_serving.py``);
 - **end to end** — one real CPU tier of a prefill and a decode replica
   (tiny GPT, paged KV): every stream equals the JAX package's
   ``greedy_generate``, each request handed off once, and the decode

@@ -6,8 +6,10 @@ A flax kernel is ``[in, out]`` and the port's ``nn.Linear`` weight is
 ``q`` and ``scale`` must be exactly the JAX package's, transposed (the same
 float32 ``amax / 127 + tiny`` and ``round(w / scale)`` half to even).
 Packed int4 must hold the same bytes as the JAX package's ``_pack_nibbles``
-for the same values, and unpack to the same dequantized weight.  No
-tolerance: every comparison is exact.
+for the same values, and unpack to the same dequantized weight.
+``shard_quantized`` cuts a quantized state dict by the GPT tp rules in the
+port's layout (each block exact against the whole).  No tolerance: every
+comparison is exact.
 """
 
 import functools
@@ -138,3 +140,102 @@ def test_a_quantized_tied_table_reads_as_its_dequantized_values(bits):
                                    rtol=0, atol=0)
         torch.testing.assert_close(P._model(pc, q).hidden(ids),
                                    P._model(pc, dense).hidden(ids), rtol=0, atol=0)
+
+
+# ---------------------------------------------------- shard_quantized
+
+class _TpMesh:
+    """What ``shard_quantized`` and ``PartitionRules.tree_shardings`` read
+    of a ``DeviceMesh``: one ``tp`` axis of ``n`` ranks, this rank ``r``."""
+
+    mesh_dim_names = ("tp",)
+
+    def __init__(self, n, r):
+        self.n, self.r = n, r
+
+    def size(self, dim=None):
+        return self.n
+
+    def get_local_rank(self, dim=None):
+        return self.r
+
+
+def _gpt_blocks(bits, n=2):
+    """A quantized port GPT state dict, the whole one and each of ``n``
+    ranks' blocks under the GPT tp rules."""
+    from tensorflowonspark_tpu_torch.parallel.sharding import gpt_partition_rules
+
+    sd = P.init_params(P.GPTConfig(**KW, dtype=torch.float32), 0)
+    whole = quant.quantize_params(sd, bits=bits)
+    blocks = []
+    for r in range(n):
+        mesh = _TpMesh(n, r)
+        blocks.append(quant.shard_quantized(whole, gpt_partition_rules().tree_shardings(mesh, sd),
+                                            mesh))
+    return whole, blocks
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_shard_quantized_cuts_column_and_row_parallel_weights_in_the_port_layout(bits):
+    """The counterpart of ``tests/test_quant.py:80-120`` in ``[out, in]``:
+    a column-parallel ``q`` (``query``) is cut on dim 0 and its ``[out, 1]``
+    scale alike; a row-parallel ``q`` (``out``) is cut on dim -1 and its
+    scale stays whole.  The ranks' blocks put back together are the whole
+    ``q`` and ``scale``, and each block dequantizes to its slice of the
+    whole weight, exactly."""
+    whole, blocks = _gpt_blocks(bits)
+    col, row = "layers.0.attn.query.weight", "layers.0.attn.out.weight"
+    for name, dim in ((col, 0), (row, 1)):
+        parts = [b[name] for b in blocks]
+        assert all(type(p) is type(whole[name]) for p in parts)
+        np.testing.assert_array_equal(torch.cat([p.q for p in parts], dim).numpy(),
+                                      whole[name].q.numpy())
+        np.testing.assert_array_equal(torch.cat([p.dequantize() for p in parts], dim).numpy(),
+                                      whole[name].dequantize().numpy())
+    assert blocks[0][col].scale.shape == (16, 1) and blocks[0][col].shape == (16, 32)
+    np.testing.assert_array_equal(torch.cat([b[col].scale for b in blocks]).numpy(),
+                                  whole[col].scale.numpy())
+    for b in blocks:
+        assert b[row].scale.shape == (32, 1) and b[row].shape == (32, 16)
+        np.testing.assert_array_equal(b[row].scale.numpy(), whole[row].scale.numpy())
+        # the tied table is not quantized by default: vocab rows cut plainly
+        assert b["tok_emb.weight"].shape == (32, 32)
+        assert b["layers.0.attn.query.bias"].shape == (32,)     # held whole
+
+
+def test_int4_packed_row_parallel_indivisible_axis_is_held_whole():
+    """The counterpart of ``tests/test_quant.py:162-180``: a row-parallel
+    int4 weight whose packed input axis the shard count does not divide
+    (``[16, 4]`` over tp 4: 2 packed bytes a row; ``[8, 6]`` over tp 2: 3)
+    keeps its packed buffer whole on every rank, cut at dequantize: each
+    rank's dequantized block is its slice of the unchanged weight."""
+    from tensorflowonspark_tpu_torch.parallel.sharding import P as Spec
+    from tensorflowonspark_tpu_torch.parallel.sharding import PartitionRules
+
+    rules = PartitionRules([(r".*", Spec(None, "tp"))])
+    for shape, n in (((16, 4), 4), ((8, 6), 2)):
+        w = {"d.weight": torch.from_numpy(_w(shape))}
+        q4 = quant.quantize_params({"d": w["d.weight"]}, predicate=lambda path, leaf: True,
+                                   bits=4)
+        q4 = {"d.weight": q4["d"]}
+        full = q4["d.weight"].dequantize()
+        for r in range(n):
+            mesh = _TpMesh(n, r)
+            leaf = quant.shard_quantized(q4, rules.tree_shardings(mesh, w), mesh)["d.weight"]
+            assert leaf.q.shape == q4["d.weight"].q.shape        # held whole, not raised
+            assert leaf.shape == (shape[0], shape[1] // n)
+            np.testing.assert_array_equal(leaf.dequantize().numpy(),
+                                          full.chunk(n, dim=1)[r].numpy())
+            # on its way to a device the block survives
+            np.testing.assert_array_equal(leaf.to("cpu").dequantize().numpy(),
+                                          leaf.dequantize().numpy())
+
+
+def test_shard_quantized_raises_on_a_cut_that_does_not_divide():
+    from tensorflowonspark_tpu_torch.parallel.sharding import gpt_partition_rules
+
+    sd = P.init_params(P.GPTConfig(**{**KW, "vocab_size": 63}, dtype=torch.float32), 0)
+    mesh = _TpMesh(2, 0)
+    with pytest.raises(ValueError, match="tok_emb.weight: dim 0 of size 63"):
+        quant.shard_quantized(quant.quantize_params(sd),
+                              gpt_partition_rules().tree_shardings(mesh, sd), mesh)

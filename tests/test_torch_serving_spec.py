@@ -8,8 +8,8 @@ parameter unload/load, ``set_role``, prefix-cache export and import).
 
 Every greedy request equals its solo ``greedy_generate``; sampled ones are
 held to the plain batcher's tokens.  The compile-site cache (CUDA graphs)
-is held in ``tests/test_torch_serving_aot.py``; the tp-sharded cases wait
-for the port's mesh.
+is held in ``tests/test_torch_serving_aot.py``; the tp-sharded cases in
+``tests/test_torch_sharded_serving.py``.
 """
 
 import numpy as np

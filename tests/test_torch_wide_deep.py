@@ -14,14 +14,13 @@ optimizers (``parallel/strategy.py``) against the JAX package on the CPU.
   where ``torch.optim.RMSprop`` must miss it; the schedule's values;
 - the example's ``--num_ps 2`` over 4 ranks (a gloo group of CPU
   processes, ``tests/torch_model_parallel_worker.py`` suite ``wide_deep``):
-  the ``{ep: 2, dp: 2}`` mesh, each rank's rows (its ``dp`` shard's stream),
-  and one adagrad step's loss and weights against the JAX example's step
-  on its ``mesh_from_num_ps(2)`` mesh of 4 CPU devices over the same global
-  batch, from flax's init: the same bound.  The global batch is the port's
-  (both ``dp`` shards' ``--batch_size`` rows, each from its own stream, as
-  the example's docstring says), where the JAX example would draw one
-  batch of ``--batch_size`` rows and cut it over ``dp``: what the case
-  holds the port to is the JAX step's arithmetic over that batch.
+  the ``{ep: 2, dp: 2}`` mesh, each rank's rows, and one adagrad step's
+  loss and weights against the JAX example's step on its
+  ``mesh_from_num_ps(2)`` mesh of 4 CPU devices, from flax's init: the
+  same bound.  The JAX side is built as the JAX example builds it: one
+  batch of ``--batch_size`` rows from ``default_rng(17)`` put on
+  ``P(("dp", "fsdp"))``, so a step trains on ``--batch_size`` rows; each
+  port rank must hold its ``dp`` block of that batch.
 """
 
 import flax
@@ -222,8 +221,9 @@ def _ep_dp_cases():
 
 def _jax_example_step(model, boxed):
     """The JAX example's step on ``mesh_from_num_ps(2)`` over 4 devices,
-    from flax's init ``boxed`` (with its partitioning): tables over ep, the
-    global batch (each dp shard's rows) over dp."""
+    from flax's init ``boxed`` (with its partitioning): tables over ep, one
+    batch of ``--batch_size`` rows from ``default_rng(17)`` (the JAX
+    example's executor 0, after its init batch) over dp."""
     import argparse
 
     from jax.sharding import NamedSharding, PartitionSpec as JP
@@ -233,8 +233,9 @@ def _jax_example_step(model, boxed):
 
     args = argparse.Namespace(**EP_DP_ARGS)
     mesh = mesh_from_num_ps(args.num_ps, devices=jax.devices()[:4])
-    shards = [next(wdc.batches(args, 17 + d)) for d in range(mesh.shape["dp"])]
-    dense, cat, label = (np.concatenate([b[i] for b in shards]) for i in range(3))
+    dense, cat, label = next(wdc.batches(args, 17))
+    dp = mesh.shape["dp"]
+    shards = [tuple(np.split(a, dp)[d] for a in (dense, cat, label)) for d in range(dp)]
     tx = optax.adagrad(args.lr)
     with mesh:
         placed = jax.device_put(flax.core.meta.unbox(boxed),
@@ -265,14 +266,15 @@ def ep_dp_runs(tmp_path_factory):
 
 def test_num_ps_2_of_4_ranks_matches_the_jax_example_mesh(ep_dp_runs):
     """``--num_ps 2`` over 4 ranks: the mesh is ``{ep: 2, dp: 2}``; rank r
-    (dp index r // 2) trains on its dp shard's stream (seed 17 + r // 2)
-    and holds half of every table's rows; the mean of the dp shards' losses
-    and every weight after one step (tables all-gathered over ep) match the
-    JAX example's step over the global batch of both shards."""
+    (dp index r // 2) trains on its dp block of the one ``--batch_size``
+    batch from ``default_rng(17)`` and holds half of every table's rows;
+    the mean of the dp blocks' losses (the global batch's mean) and every
+    weight after one step (tables all-gathered over ep) match the JAX
+    example's step over that batch."""
     (want, got), cases = ep_dp_runs
     assert want["tables_on_ep"] == 2 * wdc.NUM_CATEGORICAL
     for r, rank in enumerate(got):
-        assert rank["seed"] == 17 + r // 2
+        assert len(rank["rows"][0]) == EP_DP_ARGS["batch_size"] // 2
         assert rank["deep_rows"] == EP_DP_ARGS["vocab_size"] // 2
         for a, b in zip(rank["rows"], want["shards"][r // 2]):
             np.testing.assert_array_equal(a, b)
@@ -284,3 +286,29 @@ def test_num_ps_2_of_4_ranks_matches_the_jax_example_mesh(ep_dp_runs):
         assert worst <= TOL
     assert got[0]["params"]["emb.3.weight"].shape == (EP_DP_ARGS["vocab_size"],
                                                        EP_DP_ARGS["embed_dim"])
+
+
+def test_local_batches_cut_the_global_batch_and_refuse_an_uneven_dp():
+    """Each rank's block is its dp slice of the global ``default_rng(17)``
+    batch (a rank with no mesh trains on the whole batch); a ``dp`` that
+    does not divide ``--batch_size`` raises."""
+    import argparse
+
+    args = argparse.Namespace(**EP_DP_ARGS)
+    whole = next(wdc.batches(args))
+    assert all(np.array_equal(a, b) for a, b in zip(next(wdc.local_batches(args, None)), whole))
+
+    class Mesh:                                  # 4 ranks, dp 2: this rank's dp index 1
+        mesh_dim_names = ("pp", "dp", "fsdp", "ep", "sp", "tp")
+
+        def size(self, dim=None):
+            return {1: 2, 3: 2}.get(dim, 1)
+
+        def get_local_rank(self, axis):
+            return {"dp": 1}.get(axis, 0)
+
+    block = next(wdc.local_batches(args, Mesh()))
+    for a, b in zip(block, whole):
+        np.testing.assert_array_equal(a, b[4:])
+    with pytest.raises(ValueError, match="does not split over dp=2"):
+        next(wdc.local_batches(argparse.Namespace(**{**EP_DP_ARGS, "batch_size": 7}), Mesh()))

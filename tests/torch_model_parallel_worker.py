@@ -1,10 +1,11 @@
 """One rank of the port's side of ``tests/test_torch_pipeline_parallel.py``,
-``tests/test_torch_moe.py`` and the ``ep`` x ``dp`` case of
-``tests/test_torch_wide_deep.py``.
+``tests/test_torch_moe.py``, the ``ep`` x ``dp`` case of
+``tests/test_torch_wide_deep.py`` and the tp batcher cases of
+``tests/test_torch_sharded_serving.py``.
 
 Run as ``python -m tests.torch_model_parallel_worker SUITE RANK WORLD PORT
 DIR``: the rank joins a gloo group of ``WORLD`` CPU processes, runs every
-case of ``SUITE`` (``pipeline``, ``moe`` or ``wide_deep``) over
+case of ``SUITE`` (``pipeline``, ``moe``, ``wide_deep`` or ``serving``) over
 ``DIR/inputs.pkl`` (numpy inputs and weights the test drew) in the same
 order as every other rank, and writes what it computed to
 ``DIR/out.RANK.pkl``.  Cases on a 2-rank mesh run on both halves of the
@@ -15,6 +16,7 @@ imports torch and the port only, never JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import pickle
 import sys
@@ -314,15 +316,81 @@ def wide_deep_suite(cases):
     mesh, model = wdc.mesh_and_model(args, device)
     model.load_state_dict(pw.shard_state_dict(model, tree(case["init"],
                                                           lambda k, v: t(v))))
-    seed = wdc.data_seed(mesh)
-    data = list(wdc.batches(args, seed))
+    data = list(wdc.local_batches(args, mesh))
     stats = wdc.train(model, args, device, data, reduce=wdc.gradient_reducer(model, mesh))
-    return {"seed": seed, "rows": [a for a in data[0]], "losses": stats["losses"],
+    return {"rows": [a for a in data[0]], "losses": stats["losses"],
             "deep_rows": int(model.emb[0].weight.shape[0]),
             "params": {k: v.numpy() for k, v in pw.full_state_dict(model).items()}}
 
 
-SUITES = {"pipeline": pipeline_suite, "moe": moe_suite, "wide_deep": wide_deep_suite}
+# ------------------------------------------------------------ sharded serving
+
+def serving_suite(cases):
+    """The batcher over tp 2 Megatron shards of one GPT, every case against
+    the port's own tp ``greedy_generate`` in this world: plain, speculative
+    (prompt lookup), paged with a prefix hit, a sharded draft, decode
+    blocks, and int8 through ``shard_quantized``."""
+    from tensorflowonspark_tpu_torch.models import gpt as G
+    from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher, DraftModel
+    from tensorflowonspark_tpu_torch.ops import quantize_params, shard_quantized
+    from tensorflowonspark_tpu_torch.parallel.mesh import axis_group
+
+    c = cases["serving"]
+    cfg = G.GPTConfig(**c["cfg"], dtype=torch.float32)
+    mesh = make_mesh(tp=2, device_type="cpu")
+    tp = G.TensorParallel(axis_group(mesh, "tp"))
+    whole = {k: t(v) for k, v in c["params"].items()}
+    shardings = sh.gpt_partition_rules().tree_shardings(mesh, whole)
+    shards = {"f32": shard_quantized(whole, shardings, mesh),
+              "int8": shard_quantized(quantize_params(whole), shardings, mesh)}
+
+    def solo(params, p, n):
+        out = G.greedy_generate(cfg, params, np.asarray(p)[None, :], n, tp=tp)
+        return out[0, len(p):].numpy()
+
+    def run(name, params, reqs, serial=False, draft=False, **kw):
+        b = ContinuousBatcher(cfg, params, max_batch=2, tp=tp, **kw)
+        if draft:
+            b.set_draft(DraftModel(cfg, params, window=16, tp=tp))
+        if serial:        # one at a time, so a later admission hits the prefix
+            got = []
+            for p, n in reqs:
+                rid = b.submit(p, n)
+                got.append(b.run()[rid])
+        else:
+            rids = [b.submit(p, n) for p, n in reqs]
+            res = b.run()
+            got = [res[r] for r in rids]
+        return {"tokens": [np.asarray(g) for g in got],
+                "tp_greedy": [solo(params, p, n) for p, n in reqs],
+                "spec_accepted": b.spec_accepted, "prefix_hits": b.prefix_stats()["hit"],
+                "decode_dispatches": b.decode_dispatches, "decode_steps": b.decode_steps}
+
+    f32, q8 = shards["f32"], shards["int8"]
+    out = {"plain": run("plain", f32, c["plain"]),
+           "speculative": run("speculative", f32, c["rep"], speculative_k=4),
+           "paged": run("paged", f32, c["paged"], serial=True, kv_page_tokens=8),
+           "draft": run("draft", f32, c["rep"], draft=True, speculative_k=4),
+           "block": run("block", f32, c["plain"], decode_block_steps=4),
+           "int8": run("int8", q8, c["int8"])}
+    errors = {}
+    for what, make in (
+            ("aot_cache", lambda: ContinuousBatcher(cfg, f32, max_batch=2, tp=tp,
+                                                    aot_cache=object())),
+            ("kv_heads", lambda: G.GPT(dataclasses.replace(cfg, num_kv_heads=1), tp))):
+        try:
+            make()
+            errors[what] = None
+        except ValueError as e:
+            errors[what] = str(e)
+    out["errors"] = errors
+    out["shapes"] = {n: tuple(v.shape) for n, v in f32.items()}
+    out["int8_q_shapes"] = {n: tuple(v.q.shape) for n, v in q8.items() if hasattr(v, "q")}
+    return out
+
+
+SUITES = {"pipeline": pipeline_suite, "moe": moe_suite, "wide_deep": wide_deep_suite,
+          "serving": serving_suite}
 
 
 def main(suite: str, rank: int, world: int, port: int, wd: str) -> None:
