@@ -278,17 +278,31 @@ Phases, each of which fails the run loudly (nothing falls back to the CPU):
    token for token and to the unsharded solo greedy under phase 19's tie
    rule; a decode step timed beside the one-card batcher's, with the
    collectives and host-staged bytes a step, the same step behind the
-   gang's barrier, and each collective alone at the step's shapes; layer
-   0's row-parallel sum dropped on one rank must change a stream, and a
-   member that acks
-   without stepping must make the leader raise ``GangShardLost`` within
-   the group's 5 s timeout.  26b, ``ServingCluster.run(tier_builder, 2,
-   mesh={"tp": 2}, replace_failed=True)``: two gangs of two workers on the
-   card serve the same requests to 2 streaming clients while
-   ``TFOS_CHAOS`` kills executor 1 (gang 0's member) at its 4th step; every
-   stream equals 26a's tp oracle, one ``replica_dead`` names shards
-   ``[0, 1]``, a request is requeued, nothing is lost, and the cold
-   replacement gang serves 4 more requests exactly.
+   gang's step protocol (the descriptor broadcast and the digest gather
+   over the gang's world), and each collective alone at the step's
+   shapes; a tp 2 prefill's sessions gathered whole to rank 0
+   (``serving.sharded.gather_sessions``) and adopted by the pair, every
+   stream equal to the oracle.  Four planted faults: layer 0's
+   row-parallel sum dropped on one rank must change a stream; a session
+   handed off with rank 0's heads alone must be refused by the pair; and,
+   each in a fresh 2-rank group with a 5 s timeout, a member that steps
+   without the collectives and a promoted member that skips loading its
+   shard must each make the leader raise ``GangShardLost`` within the
+   timeout.  26b, ``ServingCluster.run(tier_builder, 2, mesh={"tp": 2},
+   replace_failed=True)``: two gangs of two workers on the card serve the
+   same requests to 2 streaming clients while ``TFOS_CHAOS`` kills
+   executor 1 (gang 0's member) at its 4th step; every stream equals 26a's
+   tp oracle, one ``replica_dead`` names shards ``[0, 1]``, a request is
+   requeued, nothing is lost, and the cold replacement gang serves 4 more
+   requests exactly.  26c, ``ServingCluster.run(tier_builder, 2,
+   mesh={"tp": 2}, disagg={"prefill": 1, "decode": 1}, warm_standbys=1)``
+   with 16-token pages: a prefill gang, a decode gang and a warm standby
+   gang serve the same requests to 2 clients while ``TFOS_CHAOS`` kills
+   decode member executor 3 at its 4th step; every stream equals 26a's tp
+   oracle, one ``replica_dead`` names ``[2, 3]``, nothing is lost, every
+   handoff's bytes are read from the prefill leader's trace, and the
+   standby gang, promoted into the decode pool (a clone from the prefill
+   gang), serves.
 
 ``python3 chip_smoke.py --calibrate-slice9`` only logs phases 15-18's gate
 readings at three seeds (the examples and the bench at the first);
@@ -4515,10 +4529,16 @@ def run_parallel_training(seed: int, card: str, wd: str, agent=None, width: dict
 #: ``clients`` streams and lose member executor 1 at its ``kill_at_step``-th
 #: step, then ``after_heal`` requests follow the heal (a cold replacement
 #: gang); a decode step is timed over ``decode_steps`` steps, and each
-#: collective at its shapes over ``collective_reps`` calls
+#: collective at its shapes over ``collective_reps`` calls, and the step
+#: protocol's own cost over ``paired_steps`` pairs of a raw step and a step
+#: behind the protocol, taken in turns; 26a's handoff
+#: runs the first ``handoff_requests`` requests through a tp 2 prefill and
+#: the pair's adoption; 26c's tier loses decode member executor
+#: ``disagg_kill_node`` at its ``kill_at_step``-th step
 SHARDED = {"tp": 2, "slots": 4, "max_new": 16, "step_timeout": 60.0, "fault_timeout": 5.0,
            "fault_requests": 12, "fault_layer": 0, "clients": 2, "kill_at_step": 4,
-           "decode_steps": 8, "collective_reps": 20, "after_heal": 4}
+           "decode_steps": 8, "collective_reps": 20, "after_heal": 4, "handoff_requests": 6,
+           "disagg_kill_node": 3, "paired_steps": 24}
 
 
 def _collective_counter():
@@ -4572,19 +4592,18 @@ def decode_step_readings(b, prompts, steps: int) -> dict:
 
 def barrier_step_readings(b, barrier, prompts, steps: int) -> dict:
     """A decode step of gang leader ``b`` as the tier's serve loop drives
-    it: the step descriptor posted to every member before the step (which
-    replays it on its own batcher), the members' acks and token digests
-    collected after it.  The median ms of ``steps`` steps with every slot
-    decoding (the leader's host clock, post to last ack)."""
+    it: the step descriptor broadcast over the gang's world before the step
+    (each member replays it on its own batcher), every rank's token digest
+    all-gathered after it.  The median ms of ``steps`` steps with every
+    slot decoding (the leader's host clock, broadcast to gather)."""
     deltas = {}
 
     def on_token(brid, tok):
         deltas.setdefault(brid, []).append(int(tok))
 
-    barrier.hello()
     for p in prompts:
         b.submit(p, steps + 4, on_token=on_token)
-        barrier.mirror({"prompt": p, "max_new_tokens": steps + 4})
+        barrier.mirror({"op": "gen", "prompt": p, "max_new_tokens": steps + 4})
     seq = 0
 
     def step():
@@ -4603,6 +4622,71 @@ def barrier_step_readings(b, barrier, prompts, steps: int) -> dict:
         step()
         times.append(time.perf_counter() - t0)
     return {"ms": statistics.median(times) * 1e3, "rows": len(prompts)}
+
+
+def paired_protocol_readings(b, barrier, prompts, pairs: int) -> dict:
+    """The step protocol's own cost on a decode step of ``b`` with every
+    slot decoding, in ``pairs`` pairs of one raw step and one step behind
+    the protocol, taken in turns (raw first in even pairs, the protocol
+    first in odd ones), so host drift falls on both halves of a pair alike.
+    Every rank runs this in lockstep: the leader passes its
+    :class:`GangBarrier` (``step`` broadcasts the descriptor, ``collect``
+    all-gathers the digests), a member None (it takes the same broadcast
+    and joins the same gather, as ``_member_loop`` does for a step).
+    Returns the median of the paired differences (protocol - raw, ms) and
+    their spread (min, quartiles, max) on this rank's host clock."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch.serving.sharded import (broadcast_descriptor,
+                                                             gather_digests, token_digest)
+
+    deltas = {}
+
+    def on_token(brid, tok):
+        deltas.setdefault(brid, []).append(int(tok))
+
+    for p in prompts:
+        b.submit(p, 2 * pairs + 8, on_token=on_token)
+    if barrier is None:
+        broadcast_descriptor(None)          # the barrier's boot descriptor
+    while b._pending or b._inflight is not None or b.decode_steps == 0:
+        b.step()
+    seq = 0
+
+    def raw():
+        b.step()
+        deltas.clear()
+
+    def protocol():
+        nonlocal seq
+        seq += 1
+        if barrier is None:
+            broadcast_descriptor(None)
+            b.step()
+            gather_digests(seq, token_digest(deltas))
+        else:
+            barrier.step(b, seq)
+            barrier.collect(seq, 0, dict(deltas))
+        deltas.clear()
+
+    diffs, raws = [], []
+    for i in range(pairs):
+        t = {}
+        for name, fn in ((("raw", raw), ("protocol", protocol)) if i % 2 == 0
+                         else (("protocol", protocol), ("raw", raw))):
+            t0 = time.perf_counter()
+            fn()
+            t[name] = time.perf_counter() - t0
+        diffs.append((t["protocol"] - t["raw"]) * 1e3)
+        raws.append(t["raw"] * 1e3)
+    if barrier is not None:
+        barrier.stop()
+    else:
+        broadcast_descriptor(None)          # the barrier's stop
+    b.run()
+    q = np.percentile(diffs, [0, 25, 50, 75, 100])
+    return {"pairs": pairs, "median_ms": float(q[2]), "spread_ms": [float(x) for x in q],
+            "raw_ms": float(np.median(raws)), "rows": len(prompts)}
 
 
 def collective_readings(tp, device, rows: int, hidden: int, vocab: int, reps: int) -> dict:
@@ -4650,6 +4734,50 @@ def collective_readings(tp, device, rows: int, hidden: int, vocab: int, reps: in
     return out
 
 
+def handoff_readings(cfg, params, tp, sched, oracle) -> dict:
+    """26a's handoff on both ranks: a tp prefill-only batcher (16-token
+    pages) exports each request's session, rank 0 gathers the whole session
+    (``serving.sharded.gather_sessions``) and broadcasts it, and a tp
+    decode batcher on both ranks adopts it; the streams (first token and
+    decode) against the tp oracle.  Then the planted fault: rank 0's own
+    session (its heads alone) offered to the decode pair, which must refuse
+    it."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher
+    from tensorflowonspark_tpu_torch.serving.sharded import (broadcast_descriptor,
+                                                             gather_sessions)
+
+    c = SHARDED
+    reqs = sched[:c["handoff_requests"]]
+    t0 = time.perf_counter()
+    kw = {"max_batch": c["slots"], "kv_page_tokens": SERVE_PAGE, "tp": tp}
+    pb = ContinuousBatcher(cfg, params, prefill_only=True, **kw)
+    rids = [pb.submit(p, n) for _, p, n in reqs]
+    whole, local = {}, {}
+    while len(local) < len(rids):
+        pb.step()
+        pairs = pb.take_sessions()
+        local.update(pairs)
+        whole.update(gather_sessions(pairs, tp.group) or {})
+    sessions = broadcast_descriptor([whole[r] for r in rids] if whole else None, tp.group)
+    db = ContinuousBatcher(cfg, params, **kw)
+    adopted = [db.adopt_session(s) for s in sessions]
+    res = db.run()
+    streams = [np.asarray(res[r]) for r in adopted]
+    try:
+        db.adopt_session(local[rids[0]])
+        refused = None
+    except ValueError as e:
+        refused = str(e)[:300]
+    return {"equal_tp_oracle": sum(np.array_equal(s, w) for s, w in zip(streams, oracle)),
+            "of": len(reqs), "streams": [s.tolist() for s in streams],
+            "bytes": [int(sum(a.nbytes for a in s["kv"])) for s in sessions],
+            "pages": [int(s["pages"]) for s in sessions], "adopted": db.sessions_adopted,
+            "decode_prefills": db.prefill_dispatches, "heads_alone_refused": refused,
+            "seconds": time.perf_counter() - t0}
+
+
 def _dropped_row_sum(layer):
     """Phase 26's planted fault on one rank: ``layer``'s row-parallel
     product still joins its all-reduce (the ranks stay in step) but keeps
@@ -4676,8 +4804,10 @@ def sharded_serving_worker(args, ctx) -> None:
     on the one card), cut phase 13's weights into this rank's tp shards
     (``default_shard_params``; int8 through ``shard_quantized``), compute
     the tp ``greedy_generate`` oracle of every request, serve the schedule
-    through the batcher under each regime, time a decode step, then the two
-    planted faults, and write the results into the working dir."""
+    through the batcher under each regime, time a decode step (raw and
+    behind the gang's step protocol), hand sessions off, then the four
+    planted faults (the last two each in a fresh group, which it breaks),
+    and write the results into the working dir."""
     import dataclasses
     import datetime
 
@@ -4690,6 +4820,7 @@ def sharded_serving_worker(args, ctx) -> None:
     from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher, DraftModel
     from tensorflowonspark_tpu_torch.ops import quantize_params
     from tensorflowonspark_tpu_torch.parallel.mesh import axis_group
+    from tensorflowonspark_tpu_torch.serving import standby
     from tensorflowonspark_tpu_torch.serving.replica import on_device
     from tensorflowonspark_tpu_torch.serving.sharded import (GangBarrier, GangShardLost,
                                                              GangSpec, _member_loop,
@@ -4751,19 +4882,25 @@ def sharded_serving_worker(args, ctx) -> None:
     out["step"] = decode_step_readings(
         ContinuousBatcher(cfg, params["float32"], max_batch=c["slots"], tp=tp), rows,
         c["decode_steps"])
-    # the same step behind the gang's barrier, as the tier serves it
-    member = next(x for x in ctx.cluster_info if x["executor_id"] == 1)
+    # the same step behind the gang's step protocol, as the tier serves it
     b = ContinuousBatcher(cfg, params["float32"], max_batch=c["slots"], tp=tp)
     if rank == 1:
         _member_loop(args, ctx, 0, 1, b)
     else:
-        barrier = GangBarrier([member], boot_timeout=60.0, step_timeout=c["step_timeout"])
+        barrier = GangBarrier(step_timeout=c["step_timeout"])
         try:
             out["barrier_step"] = barrier_step_readings(b, barrier, rows, c["decode_steps"])
         finally:
             barrier.stop()
+    # the protocol's own cost, raw and protocol steps in turns on both ranks
+    out["paired_protocol"] = paired_protocol_readings(
+        ContinuousBatcher(cfg, params["float32"], max_batch=c["slots"], tp=tp), None
+        if rank == 1 else GangBarrier(step_timeout=c["step_timeout"]), rows, c["paired_steps"])
     out["collectives"] = collective_readings(tp, device, c["slots"], cfg.hidden_size,
                                              cfg.vocab_size, c["collective_reps"])
+    # the disaggregated handoff over tp, and planted fault 2: the leader's
+    # heads alone
+    out["handoff"] = handoff_readings(cfg, params["float32"], tp, sched, oracle["float32"])
     out["launches"] = kernel_launches()
     # planted fault 1: one layer's row-parallel sum dropped on rank 1
     n = c["fault_requests"]
@@ -4778,33 +4915,51 @@ def sharded_serving_worker(args, ctx) -> None:
     out["dropped_row_sum"] = {
         "equal_tp_oracle": sum(np.array_equal(s, w) for s, w in zip(streams, oracle["float32"])),
         "of": n, "streams": [s.tolist() for s in streams]}
-    # planted fault 2: the member acks each step without stepping; the
-    # leader's step must raise GangShardLost within the group's timeout
+    # planted faults 3 and 4, each in a fresh group with the short timeout
+    # (each breaks its group): a member that steps without the step's
+    # collectives, and a promoted member that skips loading its shard; the
+    # leader must raise GangShardLost within the timeout
     step = datetime.timedelta(seconds=c["fault_timeout"])
-    for group in {dist.group.WORLD, tp.group}:
-        dist.distributed_c10d._set_pg_timeout(step, group)
-    b = ContinuousBatcher(cfg, params["float32"], max_batch=c["slots"], tp=tp)
-    if rank == 1:
-        b.step = lambda: []
-        _member_loop(args, ctx, 0, 1, b)
-    else:
-        barrier = GangBarrier([member], boot_timeout=60.0, step_timeout=c["fault_timeout"])
-        _, p, budget = sched[0]
-        item = {"prompt": p, "max_new_tokens": budget}
+    groups = [dist.new_group([0, 1], timeout=step) for _ in range(2)]
+    _, p, budget = sched[0]
+    item = {"op": "gen", "prompt": p, "max_new_tokens": budget}
+    for name, group in zip(("ack_without_step", "promoted_member_skips_load"), groups):
+        tpf = gpt.TensorParallel(group)
+        b = ContinuousBatcher(cfg, params["float32"], max_batch=c["slots"], tp=tpf)
+        promoting = name == "promoted_member_skips_load"
+        if promoting:
+            b.unload_params()
+        if rank == 1:
+            if promoting:
+                real, standby.promote_batcher = standby.promote_batcher, lambda *a, **k: None
+            else:
+                b.step = lambda: []
+            try:
+                _member_loop(args, ctx, 0, 1, b, group=group, shard=shard)
+            except Exception as e:      # the planted fault's own failure
+                out[name] = {"member": f"{type(e).__name__}: {e}"[:300]}
+            finally:
+                if promoting:
+                    standby.promote_batcher = real
+            continue
+        t0 = time.perf_counter()
         try:
-            barrier.hello()
+            barrier = GangBarrier(group, step_timeout=c["fault_timeout"])
+            if promoting:
+                desc = {"params": None, "source": "planted"}
+                barrier.promote(desc)
+                standby.promote_batcher(b, {"serve_model_builder": lambda a: (cfg, whole)},
+                                        desc, shard=shard)
             b.submit(p, budget)
             barrier.mirror(item)
             t0 = time.perf_counter()
-            try:
-                barrier.step(b, 1)
-                out["ack_without_step"] = {"raised": None, "seconds": time.perf_counter() - t0}
-            except GangShardLost as e:
-                out["ack_without_step"] = {"raised": f"{type(e).__name__}: {e}"[:400],
-                                           "seconds": time.perf_counter() - t0}
-        finally:
-            barrier.stop()
-    # the world is broken on purpose now: no teardown collective
+            barrier.step(b, 1)
+            barrier.collect(1, 0, {})
+            out[name] = {"raised": None, "seconds": time.perf_counter() - t0}
+        except GangShardLost as e:
+            out[name] = {"raised": f"{type(e).__name__}: {e}"[:400],
+                         "seconds": time.perf_counter() - t0}
+    # both fault groups are broken on purpose now: no teardown collective
     with open(os.path.join(ctx.working_dir, f"sharded.{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -4826,11 +4981,15 @@ def run_sharded_serving(seed: int, card: str, wd: str, trained: dict, serving: d
     else one started here): both ranks' streams under each regime equal
     the tp ``greedy_generate`` oracle exactly, and the unsharded solo greedy
     (float32; int8 against the unsharded int8 greedy in this process) under
-    phase 19's tie rule (:data:`SERVE_TIE_TOL`); the dropped row-parallel
-    sum must change a stream, the ack-without-step member must make the
-    leader raise ``GangShardLost`` within ``fault_timeout`` (+ 5 s).  The
-    one-card batcher's decode step is timed here, beside the gang's, the
-    gang's behind its barrier and each of its collectives.
+    phase 19's tie rule (:data:`SERVE_TIE_TOL`); the sessions a tp prefill
+    hands off, gathered whole, must decode to the oracle on the pair with
+    no prefill there; the dropped row-parallel sum must change a stream,
+    the leader's heads alone must be refused, and the member that steps
+    without the collectives and the promoted member that skips its load
+    must each make the leader raise ``GangShardLost`` within
+    ``fault_timeout`` (+ 5 s).  The one-card batcher's decode step is timed
+    here, beside the gang's, the gang's behind its step protocol and each
+    of its collectives.
 
     26b: ``ServingCluster.run(tier_builder, 2, mesh={"tp": 2},
     replace_failed=True)``: two gangs (4 workers on the card), ``clients``
@@ -4838,9 +4997,18 @@ def run_sharded_serving(seed: int, card: str, wd: str, trained: dict, serving: d
     killed at its ``kill_at_step``-th step, then ``after_heal`` requests
     once the cold replacement gang has registered: every stream equal to
     26a's tp oracle, one ``replica_dead`` naming shards ``[0, 1]``, a
-    requeue, nothing lost, and the healed gang serving.  Returns the
-    kernels' launches (none: the serving path is PyTorch's) and the
-    readings."""
+    requeue, nothing lost, and the healed gang serving.
+
+    26c: ``ServingCluster.run(tier_builder, 2, mesh={"tp": 2},
+    disagg={"prefill": 1, "decode": 1}, warm_standbys=1)`` with pages of
+    :data:`SERVE_PAGE`: once the standby gang is warm, ``clients`` streams
+    of the schedule's requests with executor 3 (the decode gang's member)
+    killed at its ``kill_at_step``-th step: every stream equal to 26a's tp
+    oracle, nothing lost, one ``replica_dead`` naming shards ``[2, 3]``,
+    a handoff a request at least (each session's bytes from the prefill
+    leader's trace), and the standby gang promoted into the decode pool and
+    serving.  Returns the kernels' launches (none: the serving path is
+    PyTorch's) and the readings."""
     import numpy as np
     import torch
 
@@ -4932,10 +5100,15 @@ def run_sharded_serving(seed: int, card: str, wd: str, trained: dict, serving: d
     step, coll = r0["step"], r0["collectives"]
     log(f"phase 26a decode step, {step['rows']} rows, on {card}: tp {c['tp']} gang "
         f"{step['ms']:.3f} ms (rank 1 {ranks[1]['step']['ms']:.3f}), behind the gang's "
-        f"barrier {r0['barrier_step']['ms']:.3f} ms, one card {one['ms']:.3f} ms (eager, "
+        f"step protocol {r0['barrier_step']['ms']:.3f} ms, one card {one['ms']:.3f} ms (eager, "
         f"this process); the gang's collectives {step['collectives']:.1f} a step "
         f"({step['collectives'] / step['rows']:.2f} a token), {step['bytes'] / 1e6:.4f} MB a "
         f"step through host memory ({step['bytes'] / step['rows'] / 1e3:.2f} KB a token)")
+    pp = r0["paired_protocol"]
+    log(f"phase 26a the step protocol's own cost on {card}, {pp['pairs']} pairs of a raw "
+        f"step and a step behind the protocol in turns (leader's clock): median of the "
+        f"paired differences {pp['median_ms']:+.3f} ms, spread (min, quartiles, max) "
+        f"{[round(x, 3) for x in pp['spread_ms']]} ms, on a raw step of {pp['raw_ms']:.3f} ms")
     log(f"phase 26a one collective at the step's shapes on {card}, median of "
         f"{c['collective_reps']} (ms; gloo on the card's tensors / staged by hand / on host "
         f"tensors): all-reduce [{c['slots']}, 1, {f32.hidden_size}] "
@@ -4952,13 +5125,28 @@ def run_sharded_serving(seed: int, card: str, wd: str, trained: dict, serving: d
         f"(the ranks' streams {'equal' if fault[0]['streams'] == fault[1]['streams'] else 'differ'})")
     if fault[0]["equal_tp_oracle"] == fault[0]["of"]:
         bad.append("26a: a dropped row-parallel sum (planted fault) changed no stream")
-    ack = r0.get("ack_without_step") or {}
-    log(f"phase 26a planted fault, a member that acks without stepping: the leader "
-        f"{'raised ' + ack['raised'] if ack.get('raised') else 'did NOT raise'} after "
-        f"{ack.get('seconds', float('nan')):.2f} s (group timeout {c['fault_timeout']} s)")
-    if not (ack.get("raised") or "").startswith("GangShardLost") \
-            or ack["seconds"] > c["fault_timeout"] + 5:
-        bad.append("26a: an ack without a step did not raise GangShardLost in time")
+    for name, what in (("ack_without_step", "a member that steps without the collectives"),
+                       ("promoted_member_skips_load",
+                        "a promoted member that skips loading its shard")):
+        ack = r0.get(name) or {}
+        log(f"phase 26a planted fault, {what}: the leader "
+            f"{'raised ' + ack['raised'] if ack.get('raised') else 'did NOT raise'} after "
+            f"{ack.get('seconds', float('nan')):.2f} s (group timeout {c['fault_timeout']} s); "
+            f"the member: {(ranks[1].get(name) or {}).get('member')}")
+        if not (ack.get("raised") or "").startswith("GangShardLost") \
+                or ack["seconds"] > c["fault_timeout"] + 5:
+            bad.append(f"26a: {what} did not raise GangShardLost in time")
+    hand = [r["handoff"] for r in ranks]
+    log(f"phase 26a handoff (tp {c['tp']} prefill, sessions gathered whole, pages of "
+        f"{SERVE_PAGE}) on {card}: {hand[0]['equal_tp_oracle']}/{hand[1]['equal_tp_oracle']} of "
+        f"{hand[0]['of']} streams (rank 0 / rank 1) equal the tp oracle; sessions "
+        f"{hand[0]['adopted']}, pages {hand[0]['pages']}, bytes {hand[0]['bytes']}; prefill "
+        f"calls on the decode pair {hand[0]['decode_prefills']}; {hand[0]['seconds']:.2f} s; "
+        f"planted fault, the leader's heads alone: "
+        f"{'refused: ' + hand[0]['heads_alone_refused'] if hand[0]['heads_alone_refused'] else 'ADOPTED'}")
+    if any(h["equal_tp_oracle"] != h["of"] or h["decode_prefills"] or
+           not h["heads_alone_refused"] for h in hand) or hand[0]["streams"] != hand[1]["streams"]:
+        bad.append("26a handoff")
     launches = {k: sum(int(r["launches"][k]) for r in ranks) for k in KERNEL_NAMES}
     # 26b
     reqs = [(p.tolist(), n) for _, p, n in main]
@@ -5020,8 +5208,8 @@ def run_sharded_serving(seed: int, card: str, wd: str, trained: dict, serving: d
         "kill_to_requeue_s": None if t_kill is None or not requeued else requeued[0] - t_kill,
         "heal_s": replaced[0]["t"] - started[0] if replaced and started else None,
         "healed": healed, "served": {e: r["served"] for e, r in m["replicas"].items()}}
-    # each gang leader's barrier (post to last ack: the step, its token
-    # flush and the members' acks), from its heartbeat
+    # each gang leader's barrier (descriptor broadcast to digest gather: the
+    # step, its token flush and the gathers), from its heartbeat
     barrier = {}
     for eid, node in nodes.items():
         for _, h in ((node.get("metrics") or {}).get("tfos_gang_barrier_seconds")
@@ -5039,19 +5227,142 @@ def run_sharded_serving(seed: int, card: str, wd: str, trained: dict, serving: d
         f"heal_started to replica_replaced) {readings['heal_s']} s; served by gang "
         f"{readings['served']}; each leader's barriers (count, s, mean ms: every step, "
         f"prefills too) {barrier} beside 26a's {r0['barrier_step']['ms']:.3f} ms decode step "
-        f"behind the barrier; kernel launches {counted} reported by {reported}")
+        f"behind the step protocol; kernel launches {counted} reported by {reported}")
     if equal != len(recs) or errors or m["requeued"] < 1 or sorted(dead) != [0, 1] \
             or readings["replica_dead"] != [(0, [0, 1])] or healed is None \
             or not readings["served"].get(healed):
         bad.append("26b")
     launches = {k: launches[k] + counted[k] for k in KERNEL_NAMES}
+    # 26c
+    disagg, ok = run_disagg_gangs(card, swd, f32, path, reqs, oracle["float32"], device,
+                                  worker_env, stage)
+    if not ok:
+        bad.append("26c")
+    launches = {k: launches[k] + disagg["launches"][k] for k in KERNEL_NAMES}
     log("phase 26 seconds: " + "; ".join(f"{k} {v:.1f}" for k, v in stage.items()))
     log(f"phase 26 gate: {'passed' if not bad else 'FAILED: ' + ', '.join(bad)}; kernel "
         f"launches on the sharded serving path {launches}")
     if gate and bad:
         raise SystemExit(f"phase 26: {bad}")
     return {"launches": launches, "stages": stage, "tier": readings, "step": step,
-            "barrier_step": r0["barrier_step"], "collectives": coll, "one_card_step": one}
+            "barrier_step": r0["barrier_step"], "paired_protocol": r0["paired_protocol"],
+            "collectives": coll, "one_card_step": one,
+            "disagg": disagg}
+
+
+def run_disagg_gangs(card: str, swd: str, cfg, path: str, reqs: list, oracle: list,
+                     device: str, worker_env: dict, stage: dict) -> tuple[dict, bool]:
+    """Phase 26c (:func:`run_sharded_serving`): a prefill gang, a decode gang
+    and a warm standby gang of tp 2, decode member executor 3 killed.
+    Returns the readings and whether every gate held."""
+    from tensorflowonspark_tpu_torch.serving import ServingCluster
+
+    c = SHARDED
+    kill = c["disagg_kill_node"]
+    env = {**worker_env, "TFOS_CHAOS": f"kill node={kill} at_step={c['kill_at_step']}"}
+    dwd = os.path.join(swd, "disagg")
+    t0 = time.perf_counter()
+    tier = ServingCluster.run(tier_builder, 2, max_batch=c["slots"],
+                              replica_args={"tier_cfg": cfg, "tier_weights": path},
+                              mesh={"tp": c["tp"]}, disagg={"prefill": 1, "decode": 1},
+                              warm_standbys=1, batcher_kwargs={"kv_page_tokens": SERVE_PAGE},
+                              device=device, worker_env=env, working_dir=dwd,
+                              reservation_timeout=600, client_timeout=600)
+    boot = stage["26c tier boot"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        warm = tier.wait_standbys(timeout=600)
+        stage["26c standby warm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        threads, recs = stream_clients(tier.address, tier.authkey,
+                                       [(i, p, n) for i, (p, n) in enumerate(reqs)],
+                                       c["clients"], 600)
+        for t in threads:
+            t.join(600)
+        stage["26c traffic"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        while not any(e["kind"] == "replica_replaced"
+                      for e in _events(os.path.join(dwd, "serving_events.jsonl"))) \
+                and time.perf_counter() - t0 < 300:
+            time.sleep(0.2)
+        stage["26c heal wait"] = time.perf_counter() - t0
+        m = tier.metrics()
+        dead = tier.scheduler.dead_replicas()
+        nodes = m.get("nodes", {})
+    finally:
+        t0 = time.perf_counter()
+        tier.shutdown(timeout=300)
+        stage["26c shutdown"] = time.perf_counter() - t0
+    errors = [r["error"] for r in recs if r["error"]]
+    equal = sum(r["tokens"] == oracle[r["i"]] for r in recs if r["i"] is not None)
+    events = _events(os.path.join(dwd, "serving_events.jsonl"))
+    died = [e for e in events if e["kind"] == "replica_dead"]
+    replaced = [e for e in events if e["kind"] == "replica_replaced"]
+    ready = [e for e in events if e["kind"] == "standby_ready"]
+    started = [e["t"] for e in events if e["kind"] == "heal_started"]
+    t_kill, handoffs = None, []
+    for root, _, names in os.walk(dwd):
+        if f"chaos.{kill}.0" in names:
+            with open(os.path.join(root, f"chaos.{kill}.0")) as f:
+                t_kill = float(f.read())
+        if "trace_events.jsonl" in names:
+            handoffs += [e for e in _events(os.path.join(root, "trace_events.jsonl"))
+                         if e.get("kind") == "replica_handoff"]
+    promoted = replaced[0]["replacement"] if replaced else None
+    reps = m["replicas"]
+    # the clone's source gang (the prefill gang) holds its steps for the
+    # clone's weight gather: its leader's seconds, and the first-token
+    # times of the streams whose prefill overlapped the heal, beside all
+    clone = {}
+    for eid, node in nodes.items():
+        for _, h in ((node.get("metrics") or {}).get("tfos_gang_clone_seconds")
+                     or {}).get("samples", []):
+            if h["count"]:
+                clone[eid] = (h["count"], h["sum"])
+    ttft = [(rec["deltas"][0][0] - rec["t0"], rec["t0"], rec["deltas"][0][0])
+            for rec in recs if rec["deltas"]]
+    across = ([round(x, 3) for x, a, b in ttft if a <= ready[0]["t"] and b >= started[0]]
+              if ready and started else [])
+    r = {"boot_s": boot, "warm": warm, "equal": equal, "of": len(recs), "errors": errors,
+         "completed": m["completed"], "accepted": m.get("accepted"), "failed": m["failed"],
+         "requeued": m["requeued"], "handoffs": m["handoffs"], "dead": sorted(dead),
+         "replica_dead": [(e["replica"], e.get("shards")) for e in died],
+         "kill_to_dead_s": None if t_kill is None or not died else died[0]["t"] - t_kill,
+         "promoted": promoted, "mode": replaced[0].get("mode") if replaced else None,
+         "role": reps.get(promoted, {}).get("role") if promoted is not None else None,
+         "promoted_served": reps.get(promoted, {}).get("served") if promoted is not None
+         else None,
+         "heal_s": ready[0].get("heal_secs") if ready else None,
+         "heal_started_to_ready_s": ready[0]["t"] - started[0] if ready and started else None,
+         "handoff_bytes": [int(e.get("bytes", 0)) for e in handoffs],
+         "handoff_pages": [int(e.get("pages", 0)) for e in handoffs],
+         "promotions": m.get("standby", {}).get("promotions"),
+         "served": {e: v["served"] for e, v in reps.items()},
+         "clone_s": clone, "ttft_across_heal_s": across,
+         "ttft_median_s": statistics.median(x for x, _, _ in ttft) if ttft else None,
+         "ttft_max_s": max((x for x, _, _ in ttft), default=None)}
+    counted, reported = tier_launches(nodes)
+    r["launches"] = counted
+    log(f"phase 26c ServingCluster.run(mesh={{'tp': {c['tp']}}}, disagg 1 + 1, warm_standbys=1)"
+        f" on {card}: tier boot {boot:.1f} s, standby warm {warm}; {equal}/{len(recs)} streams "
+        f"equal 26a's tp oracle, errors {errors}; completed {r['completed']} of accepted "
+        f"{r['accepted']}, failed {r['failed']}, requeued {r['requeued']}; handoffs "
+        f"{r['handoffs']}, each session's bytes (the prefill leader's trace) "
+        f"{r['handoff_bytes']} (pages {r['handoff_pages']}); dead executors {r['dead']}; "
+        f"replica_dead events {r['replica_dead']}; kill to dead {r['kill_to_dead_s']} s; heal "
+        f"by promotion (decision to standby_ready) {r['heal_s']} s, heal_started to "
+        f"standby_ready {r['heal_started_to_ready_s']} s; promoted gang {promoted} ({r['mode']},"
+        f" role {r['role']}, served {r['promoted_served']}); promotions {r['promotions']}; "
+        f"served by gang {r['served']}; the clone's source gang held its steps (leader, "
+        f"(count, s)) {clone}; first-token s of the streams whose prefill overlapped the heal "
+        f"{across}, of all streams median {r['ttft_median_s']} max {r['ttft_max_s']}; kernel "
+        f"launches {counted} reported by {reported}")
+    ok = (equal == len(recs) == len(reqs) and not errors and r["failed"] == 0
+          and r["completed"] == len(reqs) and r["handoffs"] >= len(reqs)
+          and len(r["handoff_bytes"]) >= len(reqs) and r["dead"] == [2, 3]
+          and r["replica_dead"] == [(2, [2, 3])] and r["mode"] == "warm"
+          and r["role"] == "decode" and (r["promoted_served"] or 0) > 0 and warm)
+    return r, ok
 
 
 # ------------------------------ phase 23: the batch and continual planes

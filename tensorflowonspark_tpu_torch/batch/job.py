@@ -359,12 +359,13 @@ class BatchJob:
                                 break
                     st.done_count += 1
                     st.record_count += int(msg.get("count", 0))
-                    remaining = len(st.pending) + st.total_outstanding()
+                    # set under the lock: two collectors setting it after
+                    # could leave an older count last
+                    self._g_remaining.set(len(st.pending) + st.total_outstanding())
                     st.cv.notify_all()
                 ledger.done(key, worker=eid, count=int(msg.get("count", 0)),
                             path=msg.get("path", ""))
                 self._m_shards.inc(outcome="done")
-                self._g_remaining.set(remaining)
                 if entry is not None:
                     self._h_shard.record(time.monotonic() - entry[1])
         except TimeoutError as e:

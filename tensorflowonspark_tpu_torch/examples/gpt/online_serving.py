@@ -17,11 +17,12 @@ Run:
 
     python -m tensorflowonspark_tpu_torch.examples.gpt.online_serving --cpu [--requests 12] [--kill]
     python -m tensorflowonspark_tpu_torch.examples.gpt.online_serving --cpu --tp 2 \
-        --warm_standbys 0 --kill
+        --kill --vocab 84
 
-``--tp 2`` makes each replica a gang of two processes, each holding a
-Megatron tp shard of the model (``serving/sharded.py``); ``--kill`` then
-SIGKILLs a gang member, and the whole gang fails over.
+``--tp 2`` makes each replica (and each warm standby) a gang of two
+processes, each holding a Megatron tp shard of the model
+(``serving/sharded.py``); ``--kill`` then SIGKILLs a gang member, the whole
+gang fails over, and the warm standby gang is promoted in its place.
 
 Without ``--cpu`` the replicas and the oracle run on the card, and
 ``--graphs`` arms the tier's capture cache (each replica's serve steps
@@ -81,7 +82,8 @@ def run(args: dict, reqs, *, replicas: int = 2, slots: int = 2, clients: int = 3
         warm_standbys: int = 0, kill_at_step: int | None = None, kill_node: int = 1,
         graphs: bool = False, mesh: dict | None = None,
         device=None, working_dir: str | None = None, timeout: float = 300.0,
-        worker_env: dict | None = None, builder=None) -> dict:
+        worker_env: dict | None = None, builder=None, disagg: dict | None = None,
+        batcher_kwargs: dict | None = None) -> dict:
     """Serve ``reqs`` through a ``ServingCluster`` from ``clients`` threads
     (client ``c`` sends requests ``c, c + clients, ...`` one after another,
     streaming), once the standbys are warm.  ``kill_at_step`` SIGKILLs
@@ -89,7 +91,9 @@ def run(args: dict, reqs, *, replicas: int = 2, slots: int = 2, clients: int = 3
     the second half of the requests then waits for the promoted standby's
     ``standby_ready`` (the heal), so the standby serves some of them.
     ``mesh`` (e.g. ``{"tp": 2}``) makes each replica a gang of
-    mesh-sharded processes, ``kill_node`` then any shard.
+    mesh-sharded processes, ``kill_node`` then any shard; ``disagg`` (with
+    ``batcher_kwargs`` setting ``kv_page_tokens``) splits the replicas into
+    prefill and decode pools.
     Returns the streams by request, each request's TTFT and end-to-end
     seconds, the wall of the traffic, the tier's ``metrics()``, each
     replica's last heartbeat metrics (``nodes``) and the executor ids
@@ -102,6 +106,7 @@ def run(args: dict, reqs, *, replicas: int = 2, slots: int = 2, clients: int = 3
     serving = ServingCluster.run(builder or model_builder, replicas, max_batch=slots,
                                  replica_args=args, warm_standbys=warm_standbys,
                                  aot_cache=True if graphs else None, mesh=mesh, device=device,
+                                 disagg=disagg, batcher_kwargs=batcher_kwargs,
                                  worker_env=env or None, working_dir=working_dir,
                                  reservation_timeout=timeout, client_timeout=timeout)
     results, ttft, e2e, errors = {}, {}, {}, []
@@ -196,8 +201,8 @@ def main(argv=None):
     p.add_argument("--graphs", action="store_true",
                    help="capture each replica's serve steps as CUDA graphs (the card only)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel gang size: each replica a gang of this many "
-                        "processes (no warm standbys)")
+                   help="tensor-parallel gang size: each replica (and each warm "
+                        "standby) a gang of this many processes")
     p.add_argument("--seed", type=int, default=0)
     for name, value in DEFAULTS.items():
         p.add_argument(f"--{name}", type=int, default=value)

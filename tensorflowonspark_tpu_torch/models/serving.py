@@ -238,6 +238,20 @@ def host_params(params: dict) -> dict:
             else _host(v) for n, v in params.items()}
 
 
+def merge_session_shards(session: dict, kvs: list) -> dict:
+    """The whole session of a tensor-parallel prefill: ``session`` is the
+    one the leader's batcher exported (its own heads), ``kvs`` every rank's
+    K/V leaves of it in rank order; the heads are joined (axis 2 of each
+    ``[pages, page_tokens, heads, head_dim]`` leaf) and the page hashes and
+    struct recomputed, so the result is what a single-process prefill of
+    the same weights exports."""
+    kv = [np.concatenate([np.asarray(k[i]) for k in kvs], axis=2)
+          for i in range(len(session["kv"]))]
+    n = int(session["pages"])
+    return {**session, "kv": kv, "page_hashes": hash_page_data(kv, n),
+            "struct": [(tuple(a.shape[1:]), str(a.dtype)) for a in kv]}
+
+
 # --------------------------------------------------------------- draft model
 
 class DraftModel:
@@ -742,12 +756,14 @@ class ContinuousBatcher:
         """The K/V pool leaves in cache order (layer by layer, K then V)."""
         return [lc[n] for lc in self.cache["layers"] for n in ("k", "v")]
 
-    def _kv_struct(self) -> list:
+    def _kv_struct(self, whole: bool = False) -> list:
         """Per-page layout of the pool leaves: ``((page_tokens, heads,
         head_dim), host dtype)`` per K/V leaf, exported with every transfer
-        and compared on import."""
-        pt = self.cfg.kv_page_tokens
-        return [((pt,) + tuple(leaf.shape[1:]), _host_dtype(leaf.dtype))
+        and compared on import.  Over ``tp`` a leaf holds this rank's heads;
+        ``whole`` gives the layout of every rank's heads side by side (a
+        session's, which crosses pools unsharded)."""
+        pt, parts = self.cfg.kv_page_tokens, 1 if self.tp is None or not whole else self.tp.size
+        return [((pt, leaf.shape[1] * parts) + tuple(leaf.shape[2:]), _host_dtype(leaf.dtype))
                 for leaf in self._pool_leaves()]
 
     def _pool_view(self, leaf: torch.Tensor) -> torch.Tensor:
@@ -819,7 +835,10 @@ class ContinuousBatcher:
         AND per-page content hashes, so a corrupt or raced transfer raises
         ``ValueError`` without touching the device — and seated on the next
         ``step()`` with a free slot and pages.  The seated request decodes
-        from its first token on without re-prefilling.  Returns the local
+        from its first token on without re-prefilling.  Over ``tp`` the
+        session is the whole one (every head, as a single-process prefill
+        exports it, or a prefill gang's leader gathers it): it is verified
+        whole, and this rank keeps its own heads.  Returns the local
         request id."""
         self._check_usable()
         if self._pages is None:
@@ -846,7 +865,7 @@ class ContinuousBatcher:
                              f"remaining {remaining})")
         n_pp = -(-prompt.size // pt)
         kv = session["kv"]
-        struct = self._kv_struct()
+        struct = self._kv_struct(whole=True)
         ok_shape = int(session.get("pages", -1)) == n_pp and len(kv) == len(struct)
         if ok_shape:
             for a, (shape, dt) in zip(kv, struct):
@@ -864,6 +883,10 @@ class ContinuousBatcher:
             bad = [j for j, (g, w) in enumerate(zip(got, want)) if g != w]
             raise ValueError(f"corrupt KV-page transfer: content hash mismatch on page(s) "
                              f"{bad} of {n_pp} — rejecting the session")
+        if self.tp is not None:
+            heads = self._pool_leaves()[0].shape[1]
+            kv = [np.asarray(a)[:, :, self.tp.rank * heads:(self.tp.rank + 1) * heads]
+                  for a in kv]
         total = prompt.size + len(tokens) + remaining
         if total > self.cfg.max_position_embeddings:
             raise ValueError(f"session needs {total} positions, exceeding "
@@ -873,7 +896,8 @@ class ContinuousBatcher:
                              f"the pool holds {self._pages.total_pages}")
         rid = next(self._ids)
         self._pending_adopt.append(
-            (rid, {**session, "prompt": prompt, "tokens": tokens, "remaining": remaining}))
+            (rid, {**session, "prompt": prompt, "tokens": tokens, "remaining": remaining,
+                   "kv": kv}))
         if on_token is not None:
             self._on_token[rid] = on_token
         if self.spec_k is not None:

@@ -1,11 +1,13 @@
 """Disaggregated prefill/decode: specialized gang pools with KV-page handoff.
 
-Port of ``tensorflowonspark_tpu/serving/disagg.py``.  Every pool member is
-a single-process replica here (gangs in disaggregated pools are not ported
-yet: the tier refuses them, ROADMAP A6 part 2, item 8); a session's K/V
-pages cross processes as host arrays
-and the decode batcher writes them into its pool in place, so a captured
-(CUDA-graph) decode batcher reads them from the storage its graphs hold.
+Port of ``tensorflowonspark_tpu/serving/disagg.py``.  A pool member is a
+single-process replica or, with ``mesh=``, a tensor-parallel gang
+(``serving/sharded.py``).  A session's K/V pages cross processes as host
+arrays, always UNSHARDED: a prefill gang's leader gathers its members'
+heads before the handoff, and every rank of a decode gang verifies the
+whole session and seats its own heads.  The decode batcher writes them
+into its pool in place, so a captured (CUDA-graph) decode batcher reads
+them from the storage its graphs hold.
 
 The JAX package's serving artifacts said it plainly: the decode loop,
 not compute, bounds serving throughput
@@ -111,13 +113,18 @@ def serve_disagg_replica(args, ctx) -> None:
     replacements — else positional via :func:`role_for_executor`), then
     delegate to the ordinary replica loop, which specializes on the
     role (``serving/replica.py``: prefill-only batcher + session flush,
-    or adopt intake)."""
+    or adopt intake) — a gang's through ``serve_sharded_replica``."""
     role = args.get("serve_role")
     if role is None:
         role = role_for_executor(args["serve_disagg"], ctx.executor_id,
                                  int(args.get("serve_gang_size") or 1))
         args = dict(args, serve_role=role)
     logger.info("disagg worker %d: role %s", ctx.executor_id, role)
+    if args.get("serve_mesh"):
+        from tensorflowonspark_tpu_torch.serving.sharded import serve_sharded_replica
+
+        serve_sharded_replica(args, ctx)
+        return
     from tensorflowonspark_tpu_torch.serving.replica import serve_replica
 
     serve_replica(args, ctx)

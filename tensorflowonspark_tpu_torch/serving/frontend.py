@@ -7,8 +7,8 @@ pools, the control-plane journal and the driver crash are the JAX
 package's; the replicas' batchers run on the card (``run(device=None)``)
 or, when asked, on the CPU.  Mesh-sharded gangs (``mesh``, ``gang_size``,
 ``shard_params``) run GPT over ``tp``, every rank of a gang stepping its own
-shards (``serving/sharded.py``); a gang with warm standbys or disaggregated
-pools raises ``NotImplementedError`` (ROADMAP A6 part 2, item 8).
+shards (``serving/sharded.py``), and compose with warm standbys (standby
+gangs) and disaggregated pools (prefill and decode gangs).
 
 :class:`ServeFrontend` is the process boundary of the serving tier: it
 listens on a TCP port, authenticates clients with the same mutual-HMAC
@@ -459,10 +459,10 @@ class ServingCluster:
         operate on whole gangs.  ``shard_params`` optionally overrides
         the parameter layout (a picklable ``(cfg, params, mesh) ->
         params`` giving this rank's shards; default: GPT's Megatron
-        rules over ``tp``).  The port's gangs shard over ``tp`` only, run
-        eagerly (no ``aot_cache``: a CUDA graph cannot capture their gloo
-        collectives), and take neither ``warm_standbys`` nor ``disagg``
-        (ROADMAP A6 part 2, item 8).
+        rules over ``tp``).  The port's gangs shard over ``tp`` only (a
+        mesh with ``pp`` or ``ep`` above 1 raises, ROADMAP A6 part 2, item
+        8c) and run eagerly (no ``aot_cache``: a CUDA graph cannot capture
+        their gloo collectives).
 
         ``disagg`` specializes the tier into DISAGGREGATED PREFILL/
         DECODE POOLS (docs/serving.md "Disaggregated prefill/decode"):
@@ -478,7 +478,10 @@ class ServingCluster:
         {...}}`` each pool gets its own independent autoscaler —
         TTFT-p95/queue pressure drives prefill, handoff-queue depth
         drives decode.  Composes with ``aot_cache`` (a captured decode
-        batcher seats an adopted session's pages in its pool in place)
+        batcher seats an adopted session's pages in its pool in place),
+        with ``mesh=`` (every pool gang is a tp gang: a prefill gang hands
+        off the whole session, its leader having gathered its members'
+        heads, and every rank of a decode gang seats its own heads of it)
         and with ``warm_standbys``: standbys are built
         ROLE-LESS (one spare fleet backs both specializations) and
         specialize at promotion — the promote control message carries
@@ -486,9 +489,10 @@ class ServingCluster:
         (``ContinuousBatcher.set_role``) and registers into that pool
         (promote-with-role).
 
-        ``warm_standbys`` keeps N fully-initialized spare replicas
-        (process up, serve steps run — captured, with ``aot_cache`` —
-        params UNLOADED,
+        ``warm_standbys`` keeps N fully-initialized spare replicas — spare
+        GANGS with ``mesh=``, each rank warmed up in lockstep — (process
+        up, serve steps run — captured, with ``aot_cache`` — params
+        UNLOADED,
         heartbeat phase ``standby``) that heal paths PROMOTE instead of
         cold-spawning — replica deaths, preemption drain-and-replace,
         and autoscaler scale-ups all consume the pool first, and the
@@ -496,7 +500,9 @@ class ServingCluster:
         "Warm standbys").  ``standby_clone`` (default) lets a promoted
         standby pull weights from a live peer replica over the queue/shm
         data plane instead of re-running the model builder (the
-        checkpoint-restore fallback).  ``replace_failed`` spawns a
+        checkpoint-restore fallback); a peer gang gathers its shards to
+        its leader first, and the standby gang's leader broadcasts the tree
+        for every rank to cut its own shard.  ``replace_failed`` spawns a
         replacement for CRASH/HANG deaths too (cold when no pool), so
         the tier never shrinks by failure; with a warm pool, crash heals
         promote regardless.  ``compile_cache`` has no counterpart here
@@ -532,12 +538,6 @@ class ServingCluster:
         """
         from tensorflowonspark_tpu_torch.serving.replica import serve_replica
 
-        if mesh is not None and (warm_standbys or disagg is not None):
-            raise NotImplementedError(
-                "ServingCluster.run(mesh=...) with "
-                f"{'warm_standbys' if warm_standbys else 'disagg'}=...: gangs with warm "
-                "standbys and with disaggregated pools are not ported yet "
-                "(ROADMAP A6 part 2, item 8)")
         if mesh is not None and aot_cache:
             raise ValueError(
                 "ServingCluster.run(mesh=..., aot_cache=True): a gang's batchers run "
@@ -652,7 +652,7 @@ class ServingCluster:
                         "with them cannot specialize into a prefill "
                         "pool at promotion")
             args["serve_disagg"] = disagg
-            roles = boot_roles(disagg)
+            roles = boot_roles(disagg, 1 if gang is None else gang.gang_size)
             map_fun = serve_disagg_replica
         # monitor=False: the training monitor's fail-fast abort is the
         # wrong policy here — a serving-mode monitor is attached below
@@ -883,7 +883,7 @@ class ServingCluster:
                                   for b in block[1:]), role=role,
                     model=model)
                 leaders.append(int(block[0]["executor_id"]))
-        if role == "decode":
+        if role == "decode" and self.gang_spec is None:
             # prefix-page donation (docs/serving.md): a fresh decode
             # replica starts with an EMPTY prefix index — pre-warm it
             # from a prefill pool's cache so its first adopts hit instead
@@ -912,7 +912,7 @@ class ServingCluster:
         standby specializes its engine at promotion and registers into
         the named pool (promote-with-role; standbys are built role-less
         so ONE pool backs both specializations).  Returns the new
-        replicas' executor ids."""
+        replicas' leader executor ids."""
         added: list[int] = []
         for _ in range(int(n)):
             eid = self.promote_standby(source, role=role, model=model)
@@ -941,7 +941,7 @@ class ServingCluster:
         that ``(model_id, version)``: one shared spare pool backs every
         hosted model, the promote message carries the version's builder
         payload, and the clone peer is restricted to replicas serving
-        that exact version.  Returns the promoted standby's executor id,
+        that exact version.  Returns the promoted leader's executor id,
         or None when the pool is empty/absent (callers fall back to a
         cold spawn)."""
         pool = self.standbys
@@ -972,7 +972,7 @@ class ServingCluster:
         got = pool.acquire()
         if got is None:
             return None
-        eid, info = got
+        eid, entry = got
         # adapter versions promote DELTA-ONLY: the payload already
         # carries the small delta and the standby rebuilds base+delta
         # locally — naming a clone peer would ship the full base over
@@ -987,7 +987,8 @@ class ServingCluster:
         # serve unregistered forever (early-routed requests just queue
         # on its plane until the post-promote serve loop drains them)
         try:
-            self.scheduler.add_replica(info, role=role, model=model)
+            self.scheduler.add_replica(entry["info"], members=entry["members"],
+                                       role=role, model=model)
         except Exception:
             # scheduler stopping / registration guard: the caller
             # cold-spawns instead; the pool backfills
@@ -1037,7 +1038,7 @@ class ServingCluster:
                     "" if model is None
                     else f", model={model[0]}@{model[1]}",
                     "none" if peer is None else peer["executor_id"])
-        if role == "decode":
+        if role == "decode" and self.gang_spec is None:
             # prefix-page donation: pre-warm the promoted decode replica's
             # prefix index from a prefill pool (the peer clone may have
             # shipped a unified peer's pages; a prefill pool holds the

@@ -14,8 +14,8 @@ new version's weights into that storage through ``load_params``, so every
 captured site serves them; a disaggregated decode replica writes an
 adopted session's pages into its KV pool in place.  A mesh-sharded gang's
 leader runs this loop with a ``gang`` (``serving/sharded.py``): the step
-descriptor goes to the members before each step, their acks come back
-after it.
+descriptor is broadcast over the gang's gloo world before each step, the
+members' token digests are gathered over it after the step.
 
 ``serve_replica`` is a ``map_fun`` launched through the ordinary cluster
 runtime (``TPUCluster.run`` / ``node.run``), so a serving replica gets the
@@ -190,10 +190,13 @@ def arm_draft(batcher, args, shard=None) -> None:
     batcher.set_draft(draft)
 
 
-def serve_clone_request(batcher, item: dict, ctx) -> None:
+def serve_clone_request(batcher, item: dict, ctx, params=None, prefix: bool = True) -> None:
     """Source side of peer weight cloning: ship this replica's params to
     the requester named in ``item`` (a promoted warm standby), off the
-    decode thread so a bulk transfer never stalls in-flight streams.
+    decode thread so a bulk transfer never stalls in-flight streams.  A
+    gang leader passes the whole tree its ranks gathered (``params``, host
+    arrays; None when it has none to give, and the standby builds instead)
+    and no prefix pages (``prefix=False``: its pages hold its heads only).
 
     The transfer rides the requester's own node queue plane — a
     ``QueueClient`` to ``item["reply_addr"]`` (zero-copy shm negotiated
@@ -213,7 +216,7 @@ def serve_clone_request(batcher, item: dict, ctx) -> None:
     prefix_pages = None
     try:
         export = getattr(batcher, "export_prefix_cache", None)
-        if export is not None:
+        if export is not None and prefix:
             prefix_pages = export()
     # tfos: ignore[broad-except] — the weight clone is the heal-critical
     # payload; a failed prefix-page snapshot only costs post-heal TTFT
@@ -228,13 +231,13 @@ def serve_clone_request(batcher, item: dict, ctx) -> None:
         try:
             # host-gather ONE copy; the queue plane's pickle-5 path moves
             # it out-of-band (shm zero-copy when driver-negotiated)
-            params = host_params(batcher.params)
+            tree = host_params(batcher.params) if params is None and prefix else params
             cli = QueueClient(tuple(item["reply_addr"]),
                               item["reply_authkey"], timeout=60.0)
             try:
                 cli.put(REQUEST_QUEUE,
                         {"op": "standby", "event": "params",
-                         "params": params, "src": ctx.executor_id,
+                         "params": tree, "src": ctx.executor_id,
                          "prefix_pages": prefix_pages},
                         timeout=60)
             finally:
@@ -412,15 +415,18 @@ def run_serve_loop(args, ctx, batcher, *, gang=None, label: str = "replica",
     the node queue plane until ``EndOfFeed`` / a drained preemption.
     Shared by :func:`serve_replica`, a promoted warm standby and the
     mesh-sharded gang leader (``serving/sharded.py``), which passes its
-    ``gang`` (a ``GangBarrier``): each ``gen`` request the batcher took is
-    handed to ``gang.mirror``, any other intake op to ``gang.refuse``
-    (which raises: the members could not apply it), each step runs as
-    ``gang.step(batcher, steps)`` (the descriptor posted first), and
-    ``gang.collect(steps, load, deltas)`` gathers the members' acks after
-    the step's deltas are flushed, so the barrier never delays token
-    delivery.  A gang exception (a lost shard) propagates out like a
-    device failure, crashing the worker so the driver classifies the whole
-    gang dead.
+    ``gang`` (a ``GangBarrier`` over the gang's gloo world): each ``gen``
+    request the batcher took and each session it adopted is handed to
+    ``gang.mirror``, a ``clone`` request to ``gang.serve_clone`` (every
+    rank gathers its shards for the requester), a hot swap or a prefix donation to ``gang.refuse`` (which raises: the
+    members could not apply it); each step runs as ``gang.step(batcher,
+    steps)`` (the descriptor broadcast first), a prefill gang's exported
+    sessions come back whole from ``gang.sessions``, ``gang.collect(steps,
+    load, deltas)`` gathers every rank's token digest after the step's
+    deltas are flushed, so the protocol never delays token delivery, and
+    an idle loop calls ``gang.tick()``.  A gang exception (a lost shard)
+    propagates out like a device failure, crashing the worker so the
+    driver classifies the whole gang dead.
 
     ``role`` specializes the loop for a disaggregated pool
     (docs/serving.md "Disaggregated prefill/decode"): every response
@@ -723,11 +729,14 @@ def run_serve_loop(args, ctx, batcher, *, gang=None, label: str = "replica",
                 if isinstance(item, Marker):
                     continue
                 if gang is not None and isinstance(item, dict) \
-                        and item.get("op") in ("clone", "model", "prefix", "adopt"):
+                        and item.get("op") in ("model", "prefix"):
                     gang.refuse(item["op"])
                 if isinstance(item, dict) and item.get("op") == "clone":
                     # a promoted standby asks for this replica's weights
-                    serve_clone_request(batcher, item, ctx)
+                    if gang is None:
+                        serve_clone_request(batcher, item, ctx)
+                    else:
+                        gang.serve_clone(batcher, item, ctx)
                     continue
                 if isinstance(item, dict) and item.get("op") == "model":
                     ev = item.get("event")
@@ -786,6 +795,8 @@ def run_serve_loop(args, ctx, batcher, *, gang=None, label: str = "replica",
                                        "event": "error", "error": str(e),
                                        **role_extra})
                         continue
+                    if gang is not None:
+                        gang.mirror(item)
                     rid_map[brid] = (item["rid"], item.get("trace"))
                     tracer.event(
                         "replica_adopt", item.get("trace"),
@@ -821,6 +832,8 @@ def run_serve_loop(args, ctx, batcher, *, gang=None, label: str = "replica",
                 if draining and queue_idle and (
                         _time.monotonic() - drain_started >= preempt_grace):
                     break   # grace-window drain complete: exit cleanly
+                if gang is not None:
+                    gang.tick()
                 continue
             done = batcher.step() if gang is None else gang.step(batcher, steps + 1)
             if step_delay:
@@ -883,8 +896,13 @@ def run_serve_loop(args, ctx, batcher, *, gang=None, label: str = "replica",
                 # session AFTER its first-token delta (same queue, FIFO:
                 # the driver sees TTFT close before the handoff).  The
                 # session's KV pages ride the queue/shm plane as host
-                # arrays — zero-copy on a shared host.
-                for brid, session in batcher.take_sessions():
+                # arrays — zero-copy on a shared host.  A prefill gang's
+                # leader gathers its members' heads: the session it hands
+                # off is whole, as a single replica's.
+                sessions = batcher.take_sessions()
+                if gang is not None:
+                    sessions = gang.sessions(sessions)
+                for brid, session in sessions:
                     rid, trace = rid_map.pop(brid)
                     first_sent.discard(brid)
                     tracer.event(
@@ -899,8 +917,8 @@ def run_serve_loop(args, ctx, batcher, *, gang=None, label: str = "replica",
                                    **role_extra})
                     served += 1
             if gang is not None:
-                # the members' acks AFTER the step's deltas are flushed,
-                # so the barrier never delays token delivery
+                # the digests AFTER the step's deltas are flushed, so the
+                # protocol never delays token delivery
                 gang.collect(steps, load, step_tokens)
     logger.info("%s %d %s: %d requests over %d steps "
                 "(%d prefill + %d decode dispatches)", label,

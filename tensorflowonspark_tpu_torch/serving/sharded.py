@@ -19,31 +19,50 @@ runs; rank = ``executor_id % gang_size`` picks the role):
 - **the gang's world.**  Each gang forms one ``torch.distributed`` world of
   its own (:func:`build_gang_mesh`): the rendezvous is the leader's
   ``host:coordinator_port`` from ``cluster_info``, ``world_size`` the gang
-  size, ``rank`` the executor id less the leader's.  One gang's death never
-  touches another gang's store or group, and a healed gang forms a fresh
-  world.  The ranks of a gang share their card over gloo; NCCL across
-  cards waits for a host with two or more of them.
+  size, ``rank`` the executor id less the leader's.  It is the gang's only
+  transport and its timeout, ``serve_gang_step_timeout``, its only
+  deadline.  One gang's death never touches another gang's store or group,
+  and a healed gang forms a fresh world.  The ranks of a gang share their
+  card over gloo; NCCL across cards waits for a host with two or more.
 - **rank 0, the leader.**  Runs intake, continuous batching and
   ``on_token`` streaming exactly as ``serve_replica`` does (the loop is
   shared: :func:`~tensorflowonspark_tpu_torch.serving.replica.
-  run_serve_loop`).  Before each step it posts the step descriptor — every
-  intake item it applied to its batcher since the last step — to each
-  member (:class:`GangBarrier`); after the step it collects each member's
-  ack, which carries a digest of the tokens the member emitted.  A digest
-  that differs from the leader's raises :class:`GangShardLost`.
-- **ranks 1..gang_size-1, the members.**  Apply the descriptor's items to
-  their own batcher in the same order, step (the model calls meet the
-  leader's in the collectives), ack with the digest, and report the
-  leader's step count through ``ctx.report_step(phase="serving")``, so the
-  driver's hang watchdog covers every shard and chaos plans get their
-  deterministic ``at_step`` trigger on any shard.
+  run_serve_loop`).  Before each step it broadcasts the step descriptor —
+  every intake item it applied to its batcher since the last step, a
+  ``gen`` request or an adopted session — over the world
+  (:class:`GangBarrier`); after the step one all-gather brings every
+  rank's token digest, and a digest that differs from the leader's raises
+  :class:`GangShardLost` naming the rank.  An idle leader broadcasts an
+  ``idle`` descriptor well inside the timeout.
+- **ranks 1..gang_size-1, the members.**  Block in the broadcast, apply
+  each descriptor in order (a step's items to their own batcher, the step
+  — whose model calls meet the leader's in the collectives — and the
+  digest gather; a ``clone``'s weight gather; a ``promote``'s shard load),
+  and report the leader's step count through ``ctx.report_step(phase=
+  "serving")``, so the driver's hang watchdog covers every shard and
+  chaos plans get their deterministic ``at_step`` trigger on any shard.
+  Between descriptors a member takes ``EndOfFeed`` and its own preemption
+  from its queue without blocking on it.
 
-Only ``gen`` requests are mirrored.  The JAX package's tier refuses a hot
-swap and a prefix donation to a gang, and a gang here runs with neither
-warm standbys nor disaggregated pools (``ServingCluster.run`` refuses
-both, ROADMAP A6 part 2, item 8), so a ``clone``, ``model``, ``prefix``
-or ``adopt`` item reaching a gang leader raises: it is never applied on
-the leader alone.
+The gang tiers compose as the JAX package's do:
+
+- **disaggregated pools** (``serving/disagg.py``): a prefill gang's ranks
+  export each session in lockstep and the leader gathers the members' K/V
+  over the world (:func:`gather_sessions`), so the session it hands off is
+  the unsharded session a single-process prefill replica exports; a decode
+  gang's leader mirrors each ``adopt`` into the descriptor, and every rank
+  verifies the whole session and seats its own heads on the same step;
+- **warm standbys** (``serving/standby.py``): every rank of a standby gang
+  builds, warms up in lockstep and unloads its shards; the promotion rides
+  a ``promote`` descriptor and every rank loads its shard
+  (``standby.promote_batcher``) — of the whole tree the leader cloned from a
+  peer gang (which gathers its shards over its own world,
+  :func:`gather_params`) or of its own build.
+
+A hot swap (``model``) or a prefix donation (``prefix``) reaching a gang
+leader raises, as the JAX package's tier refuses both: it is never applied
+on the leader alone.  Gangs over ``pp`` or ``ep`` are refused
+(:func:`check_servable`, ROADMAP A6 part 2, item 8c).
 
 Failure semantics (the point of the gang):
 
@@ -52,14 +71,13 @@ Failure semantics (the point of the gang):
   the process exit and the serving tier resolves any shard's death to the
   whole gang (``ReplicaScheduler`` keeps a member→leader map), marking the
   gang dead once and requeueing its in-flight requests to the survivors
-  with the skip-dedup replay; meanwhile the leader's next descriptor post,
-  collective or ack fails and it raises :class:`GangShardLost`, a loud
-  crash, never a half-width gang.  A collective that fails because a peer
-  died, or that a peer never joins, raises within the group's timeout,
-  ``serve_gang_step_timeout``;
-- a leader lost the same way leaves members idling on their queue (or
-  failing their next collective); the tier reaps them with a per-member
-  ``EndOfFeed``;
+  with the skip-dedup replay; meanwhile the leader's next broadcast,
+  collective or gather fails and it raises :class:`GangShardLost`, a loud
+  crash, never a half-width gang;
+- a leader lost the same way fails its members' next broadcast (at once
+  when its process is gone, else within the timeout): they exit non-zero,
+  and the tier, resolving every shard to the gang, still counts it dead
+  once;
 - preemption (SIGTERM / chaos ``replace``) of any shard drains the gang
   leader under its grace window and the tier replaces the full gang.
 
@@ -67,9 +85,9 @@ Failure semantics (the point of the gang):
 size dict; the port's gangs shard GPT over ``tp``), ``serve_gang_size``
 (processes per gang: the mesh's device count, one process a device),
 optional ``serve_shard_params`` (picklable ``(cfg, params, mesh) ->
-params``, this rank's shards), ``serve_gang_boot_timeout`` /
-``serve_gang_step_timeout`` (member hello and world rendezvous / per-step
-deadline, the gang's collectives included).
+params``, this rank's shards; a gang cut so is not cloned, its standbys
+build), ``serve_gang_boot_timeout`` / ``serve_gang_step_timeout`` (the
+world's rendezvous / every collective of the world, the step's included).
 """
 
 from __future__ import annotations
@@ -86,12 +104,10 @@ import zlib
 from tensorflowonspark_tpu_torch import metrics as _metrics
 from tensorflowonspark_tpu_torch.marker import EndOfFeed, Marker
 from tensorflowonspark_tpu_torch.preemption import PreemptionGuard
-from tensorflowonspark_tpu_torch.queues import QueueClient
 from tensorflowonspark_tpu_torch.serving.replica import (arm_draft, on_device, run_serve_loop,
                                                          serving_batcher_kwargs,
                                                          serving_device)
-from tensorflowonspark_tpu_torch.serving.scheduler import (REQUEST_QUEUE,
-                                                           RESPONSE_QUEUE)
+from tensorflowonspark_tpu_torch.serving.scheduler import REQUEST_QUEUE
 
 logger = logging.getLogger(__name__)
 
@@ -168,7 +184,7 @@ def check_servable(spec: GangSpec) -> None:
     if other:
         raise NotImplementedError(
             f"a sharded replica over mesh axes {other}: the port's gangs run GPT over "
-            "tp only (ROADMAP A6 part 2, item 8)")
+            "tp only (ROADMAP A6 part 2, item 8c)")
     if spec.gang_size != spec.devices:
         raise ValueError(
             f"gang_size={spec.gang_size} for a mesh of {spec.devices} device(s): a port "
@@ -237,148 +253,243 @@ def token_digest(deltas: dict) -> int:
     return zlib.crc32(repr([list(map(int, t)) for t in deltas.values()]).encode())
 
 
+def _root(group) -> int:
+    """The global rank of ``group``'s rank 0 (the gang's leader)."""
+    import torch.distributed as dist
+
+    return 0 if group is None else dist.get_global_rank(group, 0)
+
+
+def broadcast_descriptor(desc, group=None):
+    """The leader's step descriptor, sent from the group's rank 0 (``desc``
+    on the leader, ignored elsewhere) and returned on every rank; a lost
+    peer or a leader silent past the group's timeout raises."""
+    import torch.distributed as dist
+
+    obj = [desc]
+    dist.broadcast_object_list(obj, src=_root(group), group=group)
+    return obj[0]
+
+
+def gather_digests(seq: int, digest: int, group=None) -> list[tuple[int, int]]:
+    """Every rank's ``(step, token digest)``, in rank order: one all-gather
+    of an int64 pair."""
+    import torch
+    import torch.distributed as dist
+
+    mine = torch.tensor([int(seq), int(digest)], dtype=torch.int64)
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
+    return [(int(a), int(b)) for a, b in (p.tolist() for p in parts)]
+
+
+def gather_sessions(pairs: list, group=None) -> list | None:
+    """A prefill gang's exported sessions, unsharded: every rank passes its
+    batcher's ``take_sessions()`` (the same requests in the same order on
+    every rank, each holding this rank's heads); the leader gathers the
+    members' K/V and returns ``(request id, whole session)`` pairs — the
+    wire format, struct and page hashes of a single-process prefill's
+    session (``models.serving.merge_session_shards``) — and the members
+    None.  No collective when the step exported nothing."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.models.serving import merge_session_shards
+
+    if not pairs:
+        return [] if dist.get_rank(group) == 0 else None
+    mine = [s["kv"] for _, s in pairs]
+    leader = dist.get_rank(group) == 0
+    parts = [None] * dist.get_world_size(group) if leader else None
+    dist.gather_object(mine, parts, dst=_root(group), group=group)
+    if not leader:
+        return None
+    return [(rid, merge_session_shards(s, [p[j] for p in parts]))
+            for j, (rid, s) in enumerate(pairs)]
+
+
+def gather_params(params: dict, group=None) -> dict | None:
+    """The whole state dict of a gang cut by :func:`default_shard_params`,
+    as host arrays on the leader (None on the members): each rank's
+    Megatron-cut leaves gathered to rank 0 in one collective and joined on
+    their cut axis, the replicated leaves taken from the leader.  Plain
+    leaves only (:meth:`GangBarrier.serve_clone` gathers no quantized
+    tree)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.models.serving import host_params
+    from tensorflowonspark_tpu_torch.parallel.sharding import gpt_partition_rules
+
+    cut = {}
+    for name, spec in gpt_partition_rules().tree_specs(params).items():
+        for dim, entry in enumerate(spec):
+            if "tp" in (entry if isinstance(entry, tuple) else (entry,)):
+                cut[name] = dim
+    local = host_params(params)
+    leader = dist.get_rank(group) == 0
+    parts = [None] * dist.get_world_size(group) if leader else None
+    dist.gather_object({n: local[n] for n in cut}, parts, dst=_root(group), group=group)
+    if not leader:
+        return None
+    return {n: np.concatenate([p[n] for p in parts], axis=cut[n]) if n in cut else a
+            for n, a in local.items()}
+
+
 class GangBarrier:
-    """Leader-side step protocol over the members' node queue plane.
+    """Leader-side step protocol over the gang's own gloo world (the world
+    :func:`build_gang_mesh` forms; ``group`` None) — its only transport
+    and its only deadline (``step_timeout``, the world's collective
+    timeout).
 
-    One short-timeout :class:`QueueClient` per member (``shm=False`` —
-    control messages must not consume zero-copy ring slots).  ``hello``
-    collects each member's boot ``ready`` ack; :meth:`step` posts the step
-    descriptor (the intake items :meth:`mirror` queued) to every member and
-    runs the leader's own batcher step; :meth:`collect` gathers the acks
-    and holds each member's token digest to the leader's, raising
-    :class:`GangShardLost` naming the first shard that failed or differed.
-    """
+    Constructing it broadcasts the first descriptor (the boot handshake).
+    :meth:`step` broadcasts the step descriptor — every intake item the
+    leader applied since the last step (:meth:`mirror`: ``gen`` requests
+    and adopted sessions) and the step's number — then runs the leader's
+    batcher step, whose collectives meet the members'; :meth:`collect`
+    all-gathers each rank's ``(step, token digest)`` and raises
+    :class:`GangShardLost` naming the first rank that differs.
+    :meth:`tick` broadcasts an ``idle`` descriptor when none went out for
+    a quarter of the timeout, so an idle gang's members, blocked in the broadcast, never time out.  A
+    failed broadcast, step or gather is a lost shard, and the world is
+    then left as it is.  ``gatherable`` False: the gang's shards were cut
+    by a caller's ``serve_shard_params``, whose layout :func:`gather_params`
+    does not know, so a clone request gets no tree."""
 
-    def __init__(self, member_infos: list[dict], *,
-                 boot_timeout: float = 120.0, step_timeout: float = 30.0):
-        self._members = list(member_infos)
-        self._clients: dict[int, QueueClient] = {}
-        self._items: list[dict] = []
-        self.boot_timeout = float(boot_timeout)
+    def __init__(self, group=None, *, step_timeout: float = 30.0,
+                 gatherable: bool = True):
+        self.group = group
+        self.gatherable = gatherable
         self.step_timeout = float(step_timeout)
+        self.idle_every = self.step_timeout / 4
+        self._items: list[dict] = []
+        self._broken = False
         reg = _metrics.get_registry()
         self._m_barriers = reg.counter(
             "tfos_gang_barriers_total",
             "Step barriers completed by this gang leader.")
         self._h_barrier = reg.histogram(
             "tfos_gang_barrier_seconds",
-            "Post-to-last-ack latency of one gang step barrier.")
-        self._posted = 0.0
+            "Descriptor-broadcast-to-digest-gather latency of one gang step.")
+        self._h_clone = reg.histogram(
+            "tfos_gang_clone_seconds",
+            "Descriptor and weight gather of a clone this gang leader served, its steps\n"
+            "waiting (the send runs beside them).")
+        self._posted = self._sent = 0.0
+        self._send({"event": "idle"})
 
-    def _client(self, info: dict) -> QueueClient:
-        eid = int(info["executor_id"])
-        if eid not in self._clients:
-            self._clients[eid] = QueueClient(info["addr"], info["authkey"],
-                                             timeout=30.0, shm=False)
-        return self._clients[eid]
-
-    def _ack(self, info: dict, event: str, timeout: float) -> dict:
-        eid = int(info["executor_id"])
-        deadline = _time.monotonic() + timeout
-        booting = event == "ready"
-        while True:
-            remaining = deadline - _time.monotonic()
-            if remaining <= 0:
-                raise GangShardLost(
-                    f"gang shard {eid} did not ack '{event}' within "
-                    f"{timeout:.0f}s")
-            try:
-                msg = self._client(info).get(RESPONSE_QUEUE,
-                                             timeout=min(remaining, 5.0))
-            except TimeoutError:
-                continue
-            except ConnectionRefusedError as e:
-                # the boot hello may race a member whose queue server is
-                # still binding; a refused connect mid-SERVICE is a dead
-                # shard
-                if not booting:
-                    raise GangShardLost(
-                        f"gang shard {eid} lost ({event}): {e!r}") from e
-                with contextlib.suppress(Exception):
-                    self._clients.pop(eid).close()
-                _time.sleep(0.2)
-                continue
-            except Exception as e:
-                raise GangShardLost(
-                    f"gang shard {eid} lost ({event}): {e!r}") from e
-            if isinstance(msg, dict) and msg.get("op") == "gang" \
-                    and msg.get("event") == event:
-                return msg
-
-    def hello(self) -> None:
-        """Collect every member's boot ack — fail fast on a sick gang
-        before the leader advertises itself as routable."""
-        for info in self._members:
-            self._ack(info, "ready", self.boot_timeout)
-        logger.info("gang barrier up: %d member(s) ready",
-                    len(self._members))
+    def _send(self, desc: dict) -> None:
+        try:
+            broadcast_descriptor(desc, self.group)
+        except Exception as e:
+            self._broken = True
+            raise GangShardLost(f"gang descriptor {desc['event']!r} lost (a member gone, or "
+                                f"none within the group's timeout): {e!r}") from e
+        self._sent = _time.monotonic()
 
     def mirror(self, item: dict) -> None:
-        """Queue an intake item the leader applied to its batcher (a
-        ``gen`` request) for the next step descriptor."""
-        self._items.append({k: item[k] for k in ("prompt", "max_new_tokens", "temperature",
-                                                 "top_p", "seed") if k in item})
+        """Queue an intake item the leader applied to its batcher (a ``gen``
+        request, or an ``adopt`` whose whole session every rank verifies
+        and cuts) for the next step descriptor."""
+        if item.get("op") == "adopt":
+            self._items.append({"op": "adopt", "session": item["session"]})
+            return
+        self._items.append({"op": "gen", **{k: item[k] for k in (
+            "prompt", "max_new_tokens", "temperature", "top_p", "seed") if k in item}})
 
     def refuse(self, op: str) -> None:
         """An intake op the members cannot mirror: raise rather than apply
         it on the leader alone."""
         raise GangShardLost(
-            f"intake op {op!r} reached a gang leader: a gang mirrors only gen requests "
-            "onto its members (ROADMAP A6 part 2, item 8)")
+            f"intake op {op!r} reached a gang leader: a gang neither hot-swaps nor trades "
+            "prefix pages (the JAX package's tier refuses both)")
+
+    def tick(self) -> None:
+        """Keep an idle gang's members inside their timeout."""
+        if _time.monotonic() - self._sent >= self.idle_every:
+            self._send({"event": "idle"})
 
     def step(self, batcher, steps: int) -> list:
-        """Post step ``steps``'s descriptor to every member, then run the
-        leader's batcher step (whose collectives meet the members'); a
-        failed post or step is a lost shard."""
+        """Broadcast step ``steps``'s descriptor, then run the leader's
+        batcher step (whose collectives meet the members')."""
         self._posted = _time.monotonic()
-        desc = {"op": "gang", "event": "step", "seq": steps, "items": self._items}
+        desc = {"event": "step", "seq": steps, "items": self._items}
         self._items = []
-        for info in self._members:
-            eid = int(info["executor_id"])
-            try:
-                self._client(info).put(REQUEST_QUEUE, desc, timeout=10)
-            except Exception as e:
-                raise GangShardLost(
-                    f"gang shard {eid} lost (descriptor post at step "
-                    f"{steps}): {e!r}") from e
+        self._send(desc)
         try:
             return batcher.step()
         except Exception as e:
+            self._broken = True
             raise GangShardLost(f"gang step {steps} failed on the leader (a peer lost, or "
                                 f"no peer within the group's timeout): {e!r}") from e
 
+    def sessions(self, pairs: list) -> list:
+        """The step's exported sessions, unsharded (:func:`gather_sessions`)."""
+        try:
+            return gather_sessions(pairs, self.group)
+        except Exception as e:
+            self._broken = True
+            raise GangShardLost(f"gang session gather failed: {e!r}") from e
+
     def collect(self, steps: int, load: int, deltas: dict) -> None:
-        """Every member's ack of step ``steps``, each digest held to the
-        leader's own tokens of the step (``deltas``)."""
+        """Every rank's step number and token digest, held to the leader's
+        own tokens of the step (``deltas``)."""
         want = token_digest(deltas)
-        for info in self._members:
-            msg = self._ack(info, "ack", self.step_timeout)
-            if msg.get("seq") != steps or msg.get("digest") != want:
+        try:
+            got = gather_digests(steps, want, self.group)
+        except Exception as e:
+            self._broken = True
+            raise GangShardLost(f"gang digest gather of step {steps} failed: {e!r}") from e
+        for rank, (seq, digest) in enumerate(got[1:], 1):
+            if (seq, digest) != (steps, want):
                 raise GangShardLost(
-                    f"gang shard {info['executor_id']} acked step {msg.get('seq')} with "
-                    f"digest {msg.get('digest')}, the leader's step {steps} emitted "
-                    f"{want}: the shards' batchers diverged")
+                    f"gang rank {rank} ended step {seq} with digest {digest}, the leader's "
+                    f"step {steps} emitted {want}: the shards' batchers diverged")
         self._m_barriers.inc()
         self._h_barrier.record(_time.monotonic() - self._posted)
 
+    def serve_clone(self, batcher, item: dict, ctx) -> None:
+        """A promoted standby asks this gang for its weights: every rank
+        joins :func:`gather_params` (a ``clone`` descriptor first), and the
+        leader ships the whole tree to the requester as a single replica
+        would (``replica.serve_clone_request``); ``params`` None when the
+        gang's tree cannot be gathered, and the standby builds instead."""
+        from tensorflowonspark_tpu_torch.ops.quant import _QuantArray
+        from tensorflowonspark_tpu_torch.serving.replica import serve_clone_request
+
+        t0 = _time.monotonic()
+        gather = self.gatherable and not any(isinstance(v, _QuantArray)
+                                        for v in batcher.params.values())
+        self._send({"event": "clone", "gather": gather})
+        whole = None
+        if gather:
+            try:
+                whole = gather_params(batcher.params, self.group)
+            except Exception as e:
+                self._broken = True
+                raise GangShardLost(f"gang weight gather failed: {e!r}") from e
+        serve_clone_request(batcher, item, ctx, params=whole, prefix=False)
+        self._h_clone.record(_time.monotonic() - t0)
+
+    def promote(self, desc: dict) -> None:
+        """Broadcast a standby gang's promotion: every rank loads its shard
+        of ``desc["params"]`` (a cloned whole tree) or builds its own
+        (``standby.promote_batcher``)."""
+        self._send({"event": "promote", **desc})
+
     def stop(self) -> None:
-        """Best-effort gang stop + client close (leader exit, clean or
-        crashing): surviving members stop idling on their queue without
-        waiting for the driver's reap."""
-        for info in self._members:
+        """Broadcast ``stop`` on a clean exit (the members leave their
+        loop); after a lost shard the world is left as it is, and the
+        members' next collective fails instead."""
+        if not self._broken:
             with contextlib.suppress(Exception):
-                self._client(info).put(
-                    REQUEST_QUEUE, {"op": "gang", "event": "stop"},
-                    timeout=2)
-        for cli in self._clients.values():
-            with contextlib.suppress(Exception):
-                cli.close()
-        self._clients.clear()
+                broadcast_descriptor({"event": "stop"}, self.group)
 
 
 def _gang_batcher(args, ctx, spec: GangSpec):
     """This rank's world, mesh, shards and batcher (every rank builds the
-    same, so the boots meet in the same collectives)."""
+    same, so the boots meet in the same collectives): ``(batcher,
+    shard)``, ``shard(cfg, params)`` cutting a whole state dict into this
+    rank's shards on its device."""
     from tensorflowonspark_tpu_torch.models.gpt import TensorParallel
     from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher
     from tensorflowonspark_tpu_torch.parallel.mesh import axis_group
@@ -388,9 +499,13 @@ def _gang_batcher(args, ctx, spec: GangSpec):
                            boot_timeout=float(args.get("serve_gang_boot_timeout", 120.0)),
                            step_timeout=float(args.get("serve_gang_step_timeout", 30.0)))
     shard_fn = args.get("serve_shard_params") or default_shard_params
+
+    def shard(cfg, params):
+        return on_device(shard_fn(cfg, params, mesh), device)
+
     cfg, params = args["serve_model_builder"](args)
     batcher = ContinuousBatcher(
-        cfg, on_device(shard_fn(cfg, params, mesh), device),
+        cfg, shard(cfg, params),
         max_batch=int(args.get("serve_max_batch", 4)),
         eos_id=args.get("serve_eos_id"),
         tp=TensorParallel(axis_group(mesh, "tp")),
@@ -398,12 +513,18 @@ def _gang_batcher(args, ctx, spec: GangSpec):
     del params
     # the draft proposes over its own tp shards in the same group
     arm_draft(batcher, args, shard=lambda c, p: shard_fn(c, p, mesh))
-    return batcher
+    return batcher, shard
+
+
+def gang_barrier(args) -> GangBarrier:
+    """The leader's step protocol over its gang's world, from ``args``."""
+    return GangBarrier(step_timeout=float(args.get("serve_gang_step_timeout", 30.0)),
+                       gatherable=args.get("serve_shard_params") is None)
 
 
 def serve_sharded_replica(args, ctx) -> None:
-    """The gang map_fun: rank 0 leads (intake + serve loop + descriptor
-    posts), the other ranks step their own shard in lockstep (module
+    """The gang map_fun: rank 0 leads (intake, the serve loop, the step
+    descriptors), the other ranks step their own shard in lockstep (module
     docstring)."""
     import torch.distributed as dist
 
@@ -416,19 +537,10 @@ def serve_sharded_replica(args, ctx) -> None:
         raise ValueError("a sharded replica runs eagerly: its gloo collectives cannot be "
                          "captured in a CUDA graph (drop aot_cache)")
     try:
-        batcher = _gang_batcher(args, ctx, spec)
+        batcher, shard = _gang_batcher(args, ctx, spec)
         if rank != 0:
-            _member_loop(args, ctx, leader_eid, rank, batcher)
+            _member_loop(args, ctx, leader_eid, rank, batcher, shard=shard)
             return
-        members = sorted(
-            (n for n in ctx.cluster_info
-             if leader_eid < n["executor_id"] < leader_eid + spec.gang_size),
-            key=lambda n: n["executor_id"])
-        if len(members) != spec.gang_size - 1:
-            raise RuntimeError(
-                f"gang {leader_eid} expected {spec.gang_size - 1} member "
-                f"reservation(s), found {len(members)} — cluster size must be "
-                f"a multiple of gang_size={spec.gang_size}")
         reg = _metrics.get_registry()
         reg.gauge("tfos_gang_shards_count",
                   "Processes in this sharded replica's gang.").set(spec.gang_size)
@@ -436,29 +548,53 @@ def serve_sharded_replica(args, ctx) -> None:
                   "Devices in this sharded replica's mesh.").set(spec.devices)
         logger.info("gang %d leader (%s): serving over tp %d", leader_eid,
                     spec.describe(), batcher.tp.size)
-        barrier = GangBarrier(
-            members,
-            boot_timeout=float(args.get("serve_gang_boot_timeout", 120.0)),
-            step_timeout=float(args.get("serve_gang_step_timeout", 30.0)))
+        barrier = gang_barrier(args)
         try:
-            barrier.hello()
             run_serve_loop(args, ctx, batcher, gang=barrier,
-                           label=f"gang-{leader_eid} leader",
-                           role=args.get("serve_role"))
+                           label=f"gang-{leader_eid} leader", role=args.get("serve_role"))
         finally:
-            # clean exit or GangShardLost alike: tell surviving members
-            # to stop idling on their queue
+            # clean exit: the members leave their loop; a lost shard
+            # leaves the world broken, and their next collective fails
             barrier.stop()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _member_loop(args, ctx, leader_eid: int, rank: int, batcher) -> None:
-    """Shard member: apply each step descriptor's items to this rank's
-    batcher, step it, ack with the digest of its tokens, mirror the
-    leader's step count into this process's heartbeat, exit on gang stop /
-    ``EndOfFeed``."""
+def _drain_control(mgr, ctx, guard, state: dict) -> None:
+    """A member between descriptors: take ``EndOfFeed`` (the tier stopping
+    or reaping the gang) and its own preemption without blocking on its
+    queue; the member still follows the leader until ``stop``."""
+    while True:
+        try:
+            item = mgr.queue_get(REQUEST_QUEUE, timeout=0)
+        except (_queue.Empty, TimeoutError):
+            break
+        if isinstance(item, EndOfFeed):
+            state["stopping"] = True
+        elif not isinstance(item, Marker):
+            logger.warning("gang member %d: ignoring unexpected item %r",
+                           ctx.executor_id, type(item))
+    if guard.preempted and not state["announced"]:
+        # an idle member's reclaim still has to reach the driver: flip
+        # the phase so the tier drains and replaces the gang (steps stay
+        # at the leader's)
+        state["announced"] = True
+        ctx.report_step(max(1, _last_step(ctx)), phase="preempted")
+
+
+def _member_loop(args, ctx, leader_eid: int, rank: int, batcher, *, group=None,
+                 shard=None) -> None:
+    """Shard member: take each descriptor the leader broadcasts — a step's
+    items applied to this rank's batcher in order, the step, its session
+    and digest gathers; a clone's weight gather; a promotion's shard load
+    (``shard``: ``(cfg, params) -> this rank's shards``) — and mirror the
+    leader's step count into this process's heartbeat, until the leader's
+    ``stop``.  A broadcast or collective that fails (the leader lost, or
+    silent past the group's timeout) raises :class:`GangShardLost`, unless
+    the tier already sent this member ``EndOfFeed``."""
+    from tensorflowonspark_tpu_torch.serving import standby as _standby
+
     mgr = ctx.mgr
     reg = _metrics.get_registry()
     m_acks = reg.counter("tfos_gang_member_acks_total",
@@ -470,65 +606,59 @@ def _member_loop(args, ctx, leader_eid: int, rank: int, batcher) -> None:
 
     logger.info("gang %d member rank %d (executor %d) up", leader_eid,
                 rank, ctx.executor_id)
-    mgr.queue_put(RESPONSE_QUEUE,
-                  {"op": "gang", "event": "ready", "rank": rank,
-                   "eid": ctx.executor_id})
     guard = PreemptionGuard()
-    announced = False
+    state = {"stopping": False, "announced": False}
+    where = f"gang {leader_eid} member rank {rank}"
     with guard:
         while True:
             try:
-                item = mgr.queue_get(REQUEST_QUEUE, timeout=0.5)
-            except (_queue.Empty, TimeoutError):
-                if guard.preempted and not announced:
-                    # an idle member's reclaim still has to reach the
-                    # driver: flip the phase so the tier drains and
-                    # replaces the gang (steps stay at the leader's)
-                    announced = True
-                    ctx.report_step(max(1, _last_step(ctx)),
-                                    phase="preempted")
-                continue
-            if isinstance(item, EndOfFeed):
-                break
-            if isinstance(item, dict) and item.get("op") == "gang":
-                event = item.get("event")
-                if event == "stop":
+                desc = broadcast_descriptor(None, group)
+            except Exception as e:
+                if state["stopping"]:
                     break
-                if event == "step":
-                    steps = int(item["seq"])
-                    for it in item["items"]:
-                        batcher.submit(it["prompt"], int(it["max_new_tokens"]),
-                                       temperature=float(it.get("temperature", 0.0)),
-                                       top_p=float(it.get("top_p", 1.0)),
-                                       seed=int(it.get("seed", 0)), on_token=on_token)
-                    try:
-                        done = batcher.step()
-                    except Exception as e:
-                        raise GangShardLost(
-                            f"gang {leader_eid} member rank {rank}: step {steps} failed (the "
-                            f"leader lost, or no peer within the group's timeout): "
-                            f"{e!r}") from e
+                raise GangShardLost(f"{where}: no descriptor (the leader lost, or silent "
+                                    f"past the group's timeout): {e!r}") from e
+            event = desc["event"]
+            if event == "stop":
+                break
+            if event == "step":
+                steps = int(desc["seq"])
+                for it in desc["items"]:
+                    if it["op"] == "adopt":
+                        batcher.adopt_session(it["session"], on_token=on_token)
+                        continue
+                    batcher.submit(it["prompt"], int(it["max_new_tokens"]),
+                                   temperature=float(it.get("temperature", 0.0)),
+                                   top_p=float(it.get("top_p", 1.0)),
+                                   seed=int(it.get("seed", 0)), on_token=on_token)
+                try:
+                    done = batcher.step()
                     for brid in done:
                         batcher.result(brid, pop=True)
-                    digest = token_digest(deltas)
-                    deltas.clear()
-                    # ack FIRST: a chaos kill inside report_step must
-                    # land between steps, not while the leader waits
-                    mgr.queue_put(RESPONSE_QUEUE,
-                                  {"op": "gang", "event": "ack", "seq": steps,
-                                   "rank": rank, "digest": digest})
-                    m_acks.inc()
-                    _set_last_step(ctx, steps)
-                    if guard.preempted:
-                        announced = True
-                    ctx.report_step(
-                        steps,
-                        phase="preempted" if guard.preempted else "serving")
-                continue
-            if isinstance(item, Marker):
-                continue
-            logger.warning("gang member %d: ignoring unexpected item %r",
-                           ctx.executor_id, type(item))
+                    if batcher.prefill_only:
+                        gather_sessions(batcher.take_sessions(), group)
+                    gather_digests(steps, token_digest(deltas), group)
+                except Exception as e:
+                    raise GangShardLost(
+                        f"{where}: step {steps} failed (the leader lost, or no peer within "
+                        f"the group's timeout): {e!r}") from e
+                deltas.clear()
+                m_acks.inc()
+                _set_last_step(ctx, steps)
+                if guard.preempted:
+                    state["announced"] = True
+                # after the gathers: a chaos kill inside report_step lands
+                # between steps, not while the leader waits
+                ctx.report_step(steps, phase="preempted" if guard.preempted else "serving")
+            elif event == "clone":
+                if desc["gather"]:
+                    gather_params(batcher.params, group)
+            elif event == "promote":
+                _standby.promote_batcher(batcher, args, desc, desc.get("params"), shard=shard,
+                                         who=where)
+                logger.info("%s promoted (%s)", where,
+                            "cloned" if desc.get("params") is not None else "built")
+            _drain_control(mgr, ctx, guard, state)
     logger.info("gang %d member rank %d stopped%s", leader_eid, rank,
                 " (preempted)" if guard.preempted else "")
 

@@ -18,12 +18,15 @@ and ``cluster_serving`` through one worker, each against solo greedy runs.
 JAX example's flax init and is held to the JAX example's losses.
 ``switch_lm`` trains its MoE LM on two gloo workers at ep 2 (two of the
 four experts a rank) in the same child process, and its eval loss must
-fall.
+fall.  The examples' command lines are independent, so they run
+:data:`AT_ONCE` at a time from the first case on, each case reading its
+own.
 """
 
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -77,16 +80,36 @@ OUT_FLAGS = {"mnist_pipeline": "--export_dir", "serving_demo_speculative": None,
              "serving_demo_blocks": None, "cluster_serving": None}
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_example_runs(tmp_path, name):
-    argv, expected = CASES[name]
+#: example command lines run at once
+AT_ONCE = 3
+
+
+def _run_example(name: str, wd):
+    argv, _ = CASES[name]
     module, *flags = argv
     out_flag = OUT_FLAGS.get(name, "--model_dir")
     cmd = [sys.executable, "-m", f"tensorflowonspark_tpu_torch.examples.{module}", *flags,
-           *([out_flag, str(tmp_path / "out")] if out_flag else [])]
+           *([out_flag, str(wd / "out")] if out_flag else [])]
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(tmp_path), env=env,
+    return subprocess.run(cmd, capture_output=True, text=True, cwd=str(wd), env=env,
                           timeout=300)
+
+
+@pytest.fixture(scope="module")
+def example_runs(request, tmp_path_factory):
+    """Each selected example's finished process by name, :data:`AT_ONCE` of
+    them running at a time."""
+    names = sorted({item.callspec.params["name"] for item in request.session.items
+                    if getattr(item, "originalname", None) == "test_example_runs"})
+    with ThreadPoolExecutor(AT_ONCE) as pool:
+        yield {name: pool.submit(_run_example, name, tmp_path_factory.mktemp(name))
+               for name in names}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_example_runs(example_runs, name):
+    _, expected = CASES[name]
+    proc = example_runs[name].result()
     out = proc.stdout + proc.stderr
     assert proc.returncode == 0, out[-4000:]
     for line in expected:

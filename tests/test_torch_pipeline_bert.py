@@ -15,10 +15,13 @@ Tolerances: the weights read back from both exports agree within
 the gradient's sign, which float32 noise can flip where the gradient is
 ~0) and 1e-6 in median; the spans that ``TFModel.transform`` gives (the
 reference's export returns argmaxes, the port's the logits) agree on at
-least 95% of rows.
+least 95% of rows.  The two sides are independent until they are
+compared, so the reference's fit and transform run on a thread beside the
+port's.
 """
 
 import importlib
+from concurrent.futures import ThreadPoolExecutor
 
 import flax
 import jax
@@ -68,13 +71,14 @@ def test_bert_squad_pipeline_matches_reference(tmp_path):
                                           start_position=r.start_position,
                                           end_position=r.end_position) for r in rows],
                               num_partitions=2)
-    ref_model = (jax_pl.TFEstimator(reference.train_fn, ref_args,
-                                    worker_env={"JAX_PLATFORMS": "cpu"})
-                 .setClusterSize(1).setBatchSize(args.batch_size).setEpochs(1)
-                 .setExportDir(ref_args.export_dir)
-                 .setInputMapping({"input_ids": "input_ids"})
-                 .setOutputMapping({"start": "pred_start", "end": "pred_end"})
-                 .fit(ref_df))
+    ref_fit = (jax_pl.TFEstimator(reference.train_fn, ref_args,
+                                  worker_env={"JAX_PLATFORMS": "cpu"})
+               .setClusterSize(1).setBatchSize(args.batch_size).setEpochs(1)
+               .setExportDir(ref_args.export_dir)
+               .setInputMapping({"input_ids": "input_ids"})
+               .setOutputMapping({"start": "pred_start", "end": "pred_end"}))
+    pool = ThreadPoolExecutor(1)
+    ref_model = pool.submit(ref_fit.fit, ref_df)
 
     args.state_dict = params_from_flax(_flax_init(args))
     df = DataFrame(rows, num_partitions=2)
@@ -85,6 +89,11 @@ def test_bert_squad_pipeline_matches_reference(tmp_path):
              .setInputMapping(bert_squad.INPUT_MAPPING)
              .setOutputMapping(bert_squad.OUTPUT_MAPPING)
              .fit(df))
+    ref_model = ref_model.result()
+    ref_out = pool.submit(lambda: ref_model.transform(ref_df.select("input_ids")).collect())
+    out = model.transform(df.select(*bert_squad.INPUT_MAPPING)).collect()
+    ref_out = ref_out.result()
+    pool.shutdown()
 
     want = params_from_flax(jax.tree.map(np.asarray, flax.core.meta.unbox(
         JaxExportedModel.load(ref_args.export_dir).params)))
@@ -97,8 +106,6 @@ def test_bert_squad_pipeline_matches_reference(tmp_path):
     assert diffs.max() <= 2 * args.lr * STEPS, diffs.max()
     assert np.median(diffs) <= 1e-6, np.median(diffs)
 
-    ref_out = ref_model.transform(ref_df.select("input_ids")).collect()
-    out = model.transform(df.select(*bert_squad.INPUT_MAPPING)).collect()
     ref_spans = np.array([(int(r.pred_start), int(r.pred_end)) for r in ref_out])
     spans = np.array([(int(np.argmax(r.pred_start)), int(np.argmax(r.pred_end))) for r in out])
     assert len(spans) == len(rows)

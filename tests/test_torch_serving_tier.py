@@ -894,15 +894,17 @@ def test_tier_with_a_killed_replica_and_a_promoted_standby_equals_jax_greedy(tmp
 # ----------------------------------------------------- unported options
 
 @pytest.mark.parametrize("option, value", [
-    ("mesh", {"tp": 2}), ("gang_size", 2), ("shard_params", lambda cfg, p, mesh: p)])
+    ("mesh", {"pp": 2}), ("gang_size", 2), ("shard_params", lambda cfg, p, mesh: p)])
 def test_unported_options_raise_not_implemented(option, value):
-    """Each gang option on a tier with warm standbys (standby gangs are
-    not ported yet) raises before any worker boots."""
+    """Each gang option on a tier with warm standbys, over a mesh the
+    port's gangs do not serve yet (``pp``: standby gangs over ``tp`` are
+    ported, gangs over ``pp`` or ``ep`` are ROADMAP A6 part 2, item 8c),
+    raises before any worker boots."""
     from tensorflowonspark_tpu_torch.examples.gpt.online_serving import model_builder
     from tensorflowonspark_tpu_torch.serving import ServingCluster
 
-    kwargs = {"mesh": {"tp": 2}, option: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP A6 part 2, item 8"):
+    kwargs = {"mesh": {"pp": 2}, option: value}
+    with pytest.raises(NotImplementedError, match="ROADMAP A6 part 2, item 8c"):
         ServingCluster.run(model_builder, 1, warm_standbys=1, **kwargs)
 
 

@@ -11,16 +11,29 @@ over tp shards, ``ops.shard_quantized``) against the JAX package, on the CPU.
   tokens on both ranks equal the JAX package's ``greedy_generate`` on the
   same flax weights (float32, the JAX tests' widths: vocab 64, hidden 32,
   2 layers, 4 heads, ``rope``) exactly, and the port's own tp
-  ``greedy_generate`` in the same world;
+  ``greedy_generate`` in the same world.  The same world runs the gang
+  tiers' pieces: a tp 2 prefill gang's sessions gathered whole to its
+  leader against a single-process prefill (held to the JAX package by
+  ``tests/test_torch_disagg.py``), a tp 2 decode pair adopting them, and a
+  standby gang promoted from the builder and from a clone;
+- **the gang's step protocol** over its gloo world — one 6-rank world
+  (suite ``gang``) of three 2-rank gangs with a 2 s timeout: the
+  descriptor applied in order, a differing digest, a member that skips its
+  step, an idle standby gang past twice its timeout and its promotion, a
+  leader's stop and death;
 - **gang scheduler units** on the fake world (``tests/torch_serving_world.py``),
-  the counterparts of ``tests/test_serving_cluster.py:613-706``, and the
-  leader's step protocol (a member whose digest differs is a lost shard);
+  the counterparts of ``tests/test_serving_cluster.py:613-706``;
 - **end to end** — ``ServingCluster.run(builder, 2, mesh={"tp": 2})`` on
   the CPU with ``TFOS_CHAOS`` ``kill node=1 at_step=4`` (a member of gang
   0): every stream equals the JAX package's ``greedy_generate``, the gang
-  dies once naming both shards, and the tier shuts down cleanly;
-- the refusals: a gang with disaggregated pools, a gloo tp batcher asked
-  for a capture cache, a shard count that does not divide.
+  dies once naming both shards, and the tier shuts down cleanly; the same
+  with a warm standby gang promoted in its place; and a disaggregated
+  tier of a prefill gang, a decode gang and a standby gang
+  (the counterpart of ``tests/test_serving_cluster.py:2362``) whose
+  decode member is killed and whose standby gang is promoted into the
+  decode pool;
+- the refusals: a gang over ``pp`` or ``ep``, a gloo tp batcher asked for
+  a capture cache, a shard count that does not divide.
 """
 
 import json
@@ -29,8 +42,9 @@ import time
 import numpy as np
 import pytest
 
+from tensorflowonspark_tpu_torch.models.kv_pages import hash_page_data
 from tensorflowonspark_tpu_torch.serving import GangShardLost, GangSpec
-from tensorflowonspark_tpu_torch.serving.sharded import GangBarrier, gang_of, token_digest
+from tensorflowonspark_tpu_torch.serving.sharded import GangBarrier, gang_of
 from tests.torch_serving_world import _collect, _fake_tokens, _FakeWorld, _scheduler
 from tests.torch_world import run_world
 
@@ -129,6 +143,51 @@ def test_tp_batcher_equals_jax_greedy_and_the_tp_greedy(tp_world, case):
             assert r["decode_dispatches"] < r["decode_steps"]
             plain = rank["plain"]["tokens"]
             assert all(np.array_equal(a, b) for a, b in zip(r["tokens"], plain))
+
+
+def test_tp_prefill_gang_session_equals_a_single_process_prefill(tp_world):
+    """A tp 2 prefill gang's session, its heads gathered to the leader, is
+    the session a single-process prefill of the same weights exports: the
+    same struct, first token and pages, K/V within float32 ``atol 1e-5``,
+    and page hashes that verify its own K/V."""
+    _, got = tp_world
+    h = got[0]["handoff"]
+    assert len(h["gathered"]) == len(h["single"]) == 3
+    for g, s in zip(h["gathered"], h["single"]):
+        assert g["struct"] == s["struct"] and g["struct"][0] == ((8, 4, 8), "float32")
+        assert (g["tokens"], g["pages"], g["remaining"]) == (s["tokens"], s["pages"],
+                                                             s["remaining"])
+        np.testing.assert_array_equal(g["prompt"], s["prompt"])
+        for a, b in zip(g["kv"], s["kv"]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+        assert hash_page_data(g["kv"], g["pages"]) == g["page_hashes"]
+
+
+def test_tp_decode_pair_adopts_the_gathered_sessions(tp_world):
+    """Both ranks of a tp 2 decode pair seat their heads of each gathered
+    session and emit the JAX package's ``greedy_generate`` tokens; a
+    session carrying the prefill leader's heads alone is refused before it
+    touches the pool."""
+    want, got = tp_world
+    for rank in got:
+        h = rank["handoff"]
+        for toks, jax_toks in zip(h["decoded"], want["plain"]):
+            np.testing.assert_array_equal(toks, jax_toks)
+        assert "layout mismatch" in h["heads_alone"]
+
+
+@pytest.mark.parametrize("source", ["builder", "clone"])
+def test_standby_gang_promotes_and_serves_the_jax_greedy(tp_world, source):
+    """A standby gang's batcher, warmed up in lockstep and unloaded, is
+    promoted on both ranks — building its shards, or loading a clone
+    gathered whole from a serving gang (exactly the builder's tree) — and
+    emits the JAX package's ``greedy_generate`` tokens."""
+    want, got = tp_world
+    for rank in got:
+        for toks, jax_toks in zip(rank["standby"][source], want["plain"]):
+            np.testing.assert_array_equal(toks, jax_toks)
+    if source == "clone":
+        assert got[0]["standby"]["clone_exact"] is True
 
 
 def test_tp_shards_are_cut_in_the_port_layout(tp_world):
@@ -266,48 +325,64 @@ def test_gang_member_exit_detected_by_supervisor():
         s.stop()
 
 
-class _Member:
-    """A member's queue client for :class:`GangBarrier`: takes the posted
-    descriptors, answers each with an ack carrying ``digest``."""
-
-    def __init__(self, digest):
-        self.digest, self.posted = digest, []
-
-    def put(self, qname, item, timeout=None):
-        self.posted.append(item)
-
-    def get(self, qname, timeout=None):
-        return {"op": "gang", "event": "ack", "seq": self.posted[-1]["seq"],
-                "digest": self.digest(self.posted[-1])}
-
-    def close(self):
-        pass
+#: the gang protocol world's collective timeout (s)
+GANG_TIMEOUT = 2.0
 
 
-class _Batcher:
-    def step(self):
-        return []
+@pytest.fixture(scope="module")
+def gang_world(tmp_path_factory):
+    """The ``gang`` suite's six ranks: ``[rank 0 .. rank 5]``'s outputs
+    (gangs A, B and C are ranks 0-1, 2-3 and 4-5; rank 4 dies)."""
+    _, got = run_world("gang", {"timeout": GANG_TIMEOUT}, lambda: None,
+                       tmp_path_factory.mktemp("gang"), world=6, killed=(4,))
+    return got
 
 
-def test_gang_barrier_posts_the_descriptor_and_holds_the_digest():
-    """The leader posts each step's mirrored requests before it steps and
-    accepts an ack whose digest is its own tokens'; a member whose tokens
-    differ is a lost shard."""
-    deltas = {3: [7, 8]}
-    b = GangBarrier([{"executor_id": 1}], step_timeout=1.0)
-    member = b._clients[1] = _Member(lambda desc: token_digest(deltas))
-    b.mirror({"op": "gen", "rid": 9, "prompt": [1, 2], "max_new_tokens": 4, "seed": 0})
-    assert b.step(_Batcher(), 1) == []
-    assert member.posted[-1] == {"op": "gang", "event": "step", "seq": 1, "items": [
-        {"prompt": [1, 2], "max_new_tokens": 4, "seed": 0}]}
-    b.collect(1, 0, deltas)
-    b.step(_Batcher(), 2)
-    assert member.posted[-1]["items"] == []         # each item goes once
-    member.digest = lambda desc: token_digest({3: [7, 9]})
-    with pytest.raises(GangShardLost, match="diverged"):
-        b.collect(2, 0, deltas)
-    with pytest.raises(GangShardLost, match="cannot|mirrors only"):
-        b.refuse("clone")
+def test_gang_barrier_posts_the_descriptor_and_holds_the_digest(gang_world):
+    """Over the gang's gloo world: the member applies the broadcast
+    descriptor's items in the leader's order and the digest gather accepts
+    its step; at the next step the member emits other tokens and the
+    leader raises ``GangShardLost`` naming rank 1.  An intake op the
+    members cannot mirror raises too."""
+    leader, member = gang_world[0], gang_world[1]
+    assert leader["in_order"] is True
+    assert member["seen"] == [[1], [2, 3], [4, 5, 6]]
+    assert leader["digest"].startswith("gang rank 1 ended step 2 with digest")
+    assert "diverged" in leader["digest"]
+    with pytest.raises(GangShardLost, match="neither hot-swaps"):
+        GangBarrier.refuse(object.__new__(GangBarrier), "model")
+
+
+def test_gang_member_skipping_its_step_fails_the_gang_within_the_timeout(gang_world):
+    """A member that skips its step (its batcher steps without the tp
+    collectives): the leader's step raises ``GangShardLost`` within the
+    group's timeout, and so does the member's loop."""
+    skipped, member = gang_world[0]["skipped"], gang_world[1]["member"]
+    assert skipped["raised"].startswith("gang step 3 failed on the leader")
+    assert skipped["seconds"] < GANG_TIMEOUT + 2
+    assert member["raised"].startswith("gang 0 member rank 1: step 3 failed")
+    assert member["seconds"] < 3 * GANG_TIMEOUT + 10
+
+
+def test_idle_standby_gang_outlives_twice_its_timeout_and_is_promoted(gang_world):
+    """A standby gang with no traffic: its leader waits for the promotion
+    for 2.5 timeouts (``standby._standby_wait``), its idle descriptors
+    keeping the member, blocked in the broadcast, inside the timeout; the
+    promotion rides a descriptor (the member loads the broadcast tree),
+    a step runs, and the leader's stop ends the member's loop cleanly."""
+    leader, member = gang_world[2], gang_world[3]
+    assert leader["idle_seconds"] >= 2 * GANG_TIMEOUT and leader["stepped"] is True
+    assert member["member"]["raised"] is None and member["seen"] == [[7, 8]]
+    assert {k: [float(x) for x in v] for k, v in member["loaded"].items()} == {"w": [1.0, 2.0]}
+
+
+def test_gang_member_exits_after_its_leader_dies(gang_world):
+    """A leader that dies (SIGKILL) after a step: its member's next
+    broadcast raises ``GangShardLost`` within the timeout."""
+    assert gang_world[4]["stepped"] is True
+    member = gang_world[5]["member"]
+    assert member["raised"].startswith("gang 4 member rank 1: no descriptor")
+    assert member["seconds"] < GANG_TIMEOUT + 5
 
 
 # ------------------------------------------------------------- refusals
@@ -316,9 +391,9 @@ def test_gang_refusals_raise_before_any_worker_boots():
     from tensorflowonspark_tpu_torch.examples.gpt.online_serving import model_builder
     from tensorflowonspark_tpu_torch.serving import ServingCluster
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A6 part 2, item 8"):
-        ServingCluster.run(model_builder, 2, mesh={"tp": 2},
-                           disagg={"prefill": 1, "decode": 1},
+    with pytest.raises(NotImplementedError, match="ROADMAP A6 part 2, item 8c"):
+        ServingCluster.run(model_builder, 2, mesh={"tp": 2, "ep": 2},
+                           disagg={"prefill": 1, "decode": 1}, warm_standbys=1,
                            batcher_kwargs={"kv_page_tokens": 16})
     with pytest.raises(NotImplementedError, match="tp only"):
         ServingCluster.run(model_builder, 1, mesh={"pp": 2})
@@ -373,3 +448,102 @@ def test_tp_gangs_with_a_killed_member_equal_jax_greedy(tmp_path):
               (tmp_path / "tier" / "serving_events.jsonl").read_text().splitlines()]
     dead = [e for e in events if e["kind"] == "replica_dead"]
     assert len(dead) == 1 and dead[0]["shards"] == [0, 1], dead
+
+
+@pytest.mark.parametrize("kill_node", [0, 1], ids=["leader", "member"])
+def test_tp_gangs_with_a_warm_standby_gang_heal_a_killed_member(tmp_path, kill_node):
+    """``ServingCluster.run(builder, 2, mesh={"tp": 2}, warm_standbys=1)``
+    on the CPU: two gangs and a standby gang (executors 4-5); ``TFOS_CHAOS``
+    SIGKILLs gang 0's leader (executor 0) or its member (executor 1) at its
+    4th step, and the second half of the requests waits for the heal.
+    Every stream equals the JAX package's ``greedy_generate``, one
+    ``replica_dead`` names ``[0, 1]`` (a dead leader's member, which then
+    fails its next broadcast and exits non-zero, resolves to the gang
+    already dead), each request the gang held is requeued once, and the
+    standby gang, promoted by failure, serves."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from tensorflowonspark_tpu.models import GPT, GPTConfig
+    from tensorflowonspark_tpu_torch.examples.gpt import online_serving
+    from tensorflowonspark_tpu_torch.models.gpt import params_from_flax
+
+    jcfg = GPTConfig(**{**TINY, "vocab_size": 84}, dtype=jnp.float32)
+    flax_params = jax.tree.map(np.asarray, jax.jit(GPT(jcfg).init)(
+        jax.random.key(6), jnp.ones((1, 4), jnp.int32))["params"])
+    torch.save(params_from_flax(flax_params, jcfg), tmp_path / "weights.pt")
+    args = {"vocab": 84, "hidden": 32, "num_layers": 2, "num_heads": 4,
+            "max_position_embeddings": 64, "weights": str(tmp_path / "weights.pt")}
+    rng = np.random.default_rng(6)
+    reqs = [(rng.integers(0, 84, (t,)).tolist(), 10) for t in (5, 9) * 4]
+    out = online_serving.run(args, reqs, replicas=2, slots=2, clients=2, warm_standbys=1,
+                             kill_at_step=4, kill_node=kill_node, mesh={"tp": 2},
+                             device="cpu", working_dir=str(tmp_path / "tier"),
+                             worker_env={"OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""},
+                             timeout=180)
+    want = _jax_greedy(jcfg, flax_params, [(np.asarray(p, np.int32), n) for p, n in reqs])
+    for i, w in enumerate(want):
+        assert out["results"][i] == w.tolist(), f"request {i} diverged"
+    m = out["metrics"]
+    assert m["completed"] == len(reqs) and m["failed"] == 0
+    assert m["standby"]["promotions"] == {"failure": 1}
+    assert m["replicas"][4]["members"] == [5] and m["replicas"][4]["served"] > 0
+    assert {0, 1} <= out["dead"] and not {2, 3, 4, 5} & out["dead"]
+    events = [json.loads(line) for line in
+              (tmp_path / "tier" / "serving_events.jsonl").read_text().splitlines()]
+    dead = [e for e in events if e["kind"] == "replica_dead"]
+    assert len(dead) == 1 and dead[0]["shards"] == [0, 1], dead
+    requeued = [e["rid"] for e in events if e["kind"] == "request_requeued"]
+    assert 1 <= len(set(requeued)) == len(requeued) == m["requeued"] <= dead[0]["inflight"]
+    assert {e["from_replica"] for e in events if e["kind"] == "request_requeued"} <= {0}
+
+
+def test_tp_disagg_gangs_heal_a_killed_decode_member_by_promotion(tmp_path):
+    """The counterpart of ``tests/test_serving_cluster.py:2362`` over tp 2
+    gangs: ``ServingCluster.run(builder, 2, mesh={"tp": 2}, disagg=
+    {"prefill": 1, "decode": 1}, warm_standbys=1)`` on the CPU — a prefill
+    gang (executors 0-1), a decode gang (2-3), a standby gang (4-5) — with
+    ``TFOS_CHAOS`` SIGKILLing decode member executor 3 at its 3rd step.
+    Every stream equals the JAX package's ``greedy_generate``, one
+    ``replica_dead`` names shards ``[2, 3]``, nothing is lost, and the
+    standby gang is promoted into the decode pool (warm, by failure)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from tensorflowonspark_tpu.models import GPT, GPTConfig
+    from tensorflowonspark_tpu_torch.examples.gpt import online_serving
+    from tensorflowonspark_tpu_torch.models.gpt import params_from_flax
+
+    jcfg = GPTConfig(**{**TINY, "vocab_size": 84}, dtype=jnp.float32)
+    flax_params = jax.tree.map(np.asarray, jax.jit(GPT(jcfg).init)(
+        jax.random.key(8), jnp.ones((1, 4), jnp.int32))["params"])
+    torch.save(params_from_flax(flax_params, jcfg), tmp_path / "weights.pt")
+    args = {"vocab": 84, "hidden": 32, "num_layers": 2, "num_heads": 4,
+            "max_position_embeddings": 64, "weights": str(tmp_path / "weights.pt")}
+    rng = np.random.default_rng(8)
+    reqs = [(rng.integers(0, 84, (t,)).tolist(), 12) for t in (5, 9) * 4]
+    out = online_serving.run(args, reqs, replicas=2, slots=2, clients=2, warm_standbys=1,
+                             kill_at_step=3, kill_node=3, mesh={"tp": 2}, device="cpu",
+                             disagg={"prefill": 1, "decode": 1},
+                             batcher_kwargs={"kv_page_tokens": 8},
+                             working_dir=str(tmp_path / "tier"),
+                             worker_env={"OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""},
+                             timeout=180)
+    want = _jax_greedy(jcfg, flax_params, [(np.asarray(p, np.int32), n) for p, n in reqs])
+    for i, w in enumerate(want):
+        assert out["results"][i] == w.tolist(), f"request {i} diverged"
+    m = out["metrics"]
+    assert m["completed"] == len(reqs) and m["failed"] == 0 and m["requeued"] >= 1
+    assert m["handoffs"] >= len(reqs)
+    assert m["standby"]["promotions"] == {"failure": 1, "role:decode": 1}
+    assert m["replicas"][4]["role"] == "decode" and m["replicas"][4]["members"] == [5]
+    assert m["replicas"][4]["served"] > 0
+    assert {2, 3} <= out["dead"] and not {0, 1, 4, 5} & out["dead"]
+    events = [json.loads(line) for line in
+              (tmp_path / "tier" / "serving_events.jsonl").read_text().splitlines()]
+    dead = [e for e in events if e["kind"] == "replica_dead"]
+    assert len(dead) == 1 and dead[0]["shards"] == [2, 3], dead
+    replaced = [e for e in events if e["kind"] == "replica_replaced"]
+    assert [(e["replacement"], e["mode"], e["role"]) for e in replaced] == [(4, "warm", "decode")]

@@ -1,11 +1,12 @@
 """One rank of the port's side of ``tests/test_torch_pipeline_parallel.py``,
 ``tests/test_torch_moe.py``, the ``ep`` x ``dp`` case of
-``tests/test_torch_wide_deep.py`` and the tp batcher cases of
-``tests/test_torch_sharded_serving.py``.
+``tests/test_torch_wide_deep.py`` and the tp batcher, gang handoff, standby
+gang and gang protocol cases of ``tests/test_torch_sharded_serving.py``.
 
 Run as ``python -m tests.torch_model_parallel_worker SUITE RANK WORLD PORT
 DIR``: the rank joins a gloo group of ``WORLD`` CPU processes, runs every
-case of ``SUITE`` (``pipeline``, ``moe``, ``wide_deep`` or ``serving``) over
+case of ``SUITE`` (``pipeline``, ``moe``, ``wide_deep``, ``serving`` or
+``gang``) over
 ``DIR/inputs.pkl`` (numpy inputs and weights the test drew) in the same
 order as every other rank, and writes what it computed to
 ``DIR/out.RANK.pkl``.  Cases on a 2-rank mesh run on both halves of the
@@ -367,7 +368,9 @@ def serving_suite(cases):
                 "decode_dispatches": b.decode_dispatches, "decode_steps": b.decode_steps}
 
     f32, q8 = shards["f32"], shards["int8"]
-    out = {"plain": run("plain", f32, c["plain"]),
+    out = {"handoff": handoff_case(cfg, whole, f32, tp, c["plain"]),
+           "standby": standby_case(cfg, whole, f32, tp, mesh, c["plain"]),
+           "plain": run("plain", f32, c["plain"]),
            "speculative": run("speculative", f32, c["rep"], speculative_k=4),
            "paged": run("paged", f32, c["paged"], serial=True, kv_page_tokens=8),
            "draft": run("draft", f32, c["rep"], draft=True, speculative_k=4),
@@ -389,8 +392,223 @@ def serving_suite(cases):
     return out
 
 
+def _drive(b, reqs, adopt=False):
+    """Every request of ``reqs`` (``(prompt, budget)``, or whole sessions
+    with ``adopt``) through batcher ``b``: its stream and the sessions a
+    prefill-only ``b`` exported, in submission order."""
+    rids = [b.adopt_session(r) if adopt else b.submit(*r) for r in reqs]
+    res, sessions = {}, {}
+    while len(res) + len(sessions) < len(rids):
+        for rid in b.step():
+            res[rid] = b.result(rid, pop=True)
+        sessions.update(b.take_sessions())
+    return [res.get(r) for r in rids], [sessions.get(r) for r in rids]
+
+
+def handoff_case(cfg, whole, f32, tp, reqs):
+    """A tp 2 prefill gang's sessions gathered whole to its leader
+    (``serving.sharded.gather_sessions``, one step at a time as the gang
+    exports them) against a single-process prefill of the whole weights on
+    rank 0; then a tp 2 decode pair adopts the gathered sessions, and
+    refuses a session carrying the leader's heads alone."""
+    from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher
+    from tensorflowonspark_tpu_torch.serving.sharded import broadcast_descriptor, gather_sessions
+
+    kw = {"max_batch": 2, "kv_page_tokens": 8}
+    pb = ContinuousBatcher(cfg, f32, prefill_only=True, tp=tp, **kw)
+    rids = [pb.submit(p, n) for p, n in reqs]
+    got, local = {}, {}
+    while len(local) < len(rids):
+        pb.step()
+        pairs = pb.take_sessions()
+        local.update(pairs)
+        got.update(gather_sessions(pairs, tp.group) or {})
+    out = {}
+    if dist.get_rank() == 0:
+        single = _drive(ContinuousBatcher(cfg, whole, prefill_only=True, **kw), reqs)[1]
+        out = {"gathered": [got[r] for r in rids], "single": single}
+    sessions = broadcast_descriptor(out.get("gathered"), tp.group)
+    decode = ContinuousBatcher(cfg, f32, tp=tp, **kw)
+    out["decoded"] = _drive(decode, sessions, adopt=True)[0]
+    try:
+        decode.adopt_session(local[rids[0]])
+        out["heads_alone"] = None
+    except ValueError as e:
+        out["heads_alone"] = str(e)
+    return out
+
+
+def standby_case(cfg, whole, f32, tp, mesh, reqs):
+    """A standby gang's batcher warmed up in lockstep and unloaded, then
+    promoted on both ranks (``serving.standby.promote_batcher``): once
+    building its own shards, once loading a clone — a serving batcher's
+    shards gathered whole to rank 0 (``gather_params``) and broadcast."""
+    from tensorflowonspark_tpu_torch.models.serving import ContinuousBatcher
+    from tensorflowonspark_tpu_torch.serving.sharded import (broadcast_descriptor,
+                                                             default_shard_params,
+                                                             gather_params)
+    from tensorflowonspark_tpu_torch.serving.standby import _warm_batcher, promote_batcher
+
+    args = {"serve_model_builder": lambda a: (cfg, whole)}
+
+    def shard(c, p):
+        return default_shard_params(c, p, mesh)
+
+    b = ContinuousBatcher(cfg, f32, max_batch=2, tp=tp)
+    _warm_batcher(b)
+    out = {}
+    for source in ("builder", "clone"):
+        b.unload_params()
+        desc = {"params": None, "source": source}
+        if source == "clone":
+            tree = gather_params(f32, tp.group)
+            if dist.get_rank() == 0:
+                out["clone_exact"] = all(np.array_equal(tree[n], v.numpy()) for n, v in
+                                         whole.items()) and sorted(tree) == sorted(whole)
+            desc = broadcast_descriptor(dict(desc, params=tree), tp.group)
+        promote_batcher(b, args, desc, desc["params"], shard=shard)
+        out[source] = _drive(b, reqs)[0]
+    return out
+
+
+def gang_suite(cases):
+    """The gang's step protocol (``serving.sharded``) on three 2-rank
+    gangs of this 6-rank world, each its own group with a short timeout,
+    over a stand-in batcher whose step is one all-reduce in the group (a tp
+    step's collectives).  Gang A: items in order, a differing digest, a
+    member that skips its step.  Gang B, a standby gang: its leader waits
+    for the promotion (``standby._standby_wait``, ticking the protocol) past
+    twice the timeout, broadcasts it, steps once and stops.  Gang C: one step, then its leader dies (rank 4 is
+    SIGKILLed after writing its output)."""
+    import datetime
+
+    from tensorflowonspark_tpu_torch.serving.sharded import (GangBarrier, GangShardLost,
+                                                             _member_loop)
+    from tensorflowonspark_tpu_torch.serving.standby import _standby_wait
+
+    timeout = cases["timeout"]
+    groups = [dist.new_group([r, r + 1], timeout=datetime.timedelta(seconds=timeout))
+              for r in (0, 2, 4)]
+    rank = dist.get_rank()
+    gang, leader = rank // 2, rank % 2 == 0
+    group = groups[gang]
+
+    class Batcher:
+        prefill_only, cfg, loaded = False, None, None
+
+        def __init__(self):
+            self.seen, self.cb, self.n, self.plant = [], {}, 0, None
+
+        def load_params(self, params):
+            self.loaded = params
+
+        def submit(self, prompt, n, on_token=None, **kw):
+            self.seen.append([int(t) for t in prompt])
+            self.cb[len(self.seen) - 1] = on_token
+            return len(self.seen) - 1
+
+        def step(self):
+            dist.all_reduce(torch.ones(1), group=group)
+            self.n += 1
+            for rid, cb in self.cb.items():
+                if cb is not None:
+                    cb(rid, rid + self.n + (1 if self.plant == self.n else 0))
+            return []
+
+        def result(self, rid, pop=False):
+            return None
+
+    class Ctx:
+        executor_id = rank
+
+        class mgr:
+            @staticmethod
+            def queue_get(qname, timeout=None):
+                import queue
+                raise queue.Empty
+
+        @staticmethod
+        def report_step(step, phase=None):
+            pass
+
+    b, out = Batcher(), {}
+
+    class Promoting:
+        """A standby leader's queue: the promotion after ``after`` s."""
+
+        def __init__(self, after):
+            self.at = time.monotonic() + after
+
+        def queue_get(self, qname, timeout=None):
+            import queue
+            if time.monotonic() < self.at:
+                time.sleep(timeout)
+                raise queue.Empty
+            self.at = float("inf")
+            return {"op": "standby", "event": "promote", "source": "failure"}
+
+    def member():
+        t0 = time.monotonic()
+        try:
+            _member_loop({}, Ctx, rank - 1, 1, b, group=group, shard=lambda cfg, p: p)
+            out["member"] = {"raised": None}
+        except GangShardLost as e:
+            out["member"] = {"raised": str(e)}
+        out["member"]["seconds"] = time.monotonic() - t0
+        out["seen"], out["loaded"] = b.seen, b.loaded
+        return out
+
+    def deltas():
+        return {rid: [rid + b.n] for rid in b.cb}
+
+    if gang == 0:
+        if not leader:
+            b.plant = 2
+            b_step = b.step
+            b.step = lambda: b_step() if b.n < 2 else (setattr(b, "n", b.n + 1) or [])
+            return member()
+        bar = GangBarrier(group, step_timeout=timeout)
+        for p in ([1], [2, 3], [4, 5, 6]):
+            b.submit(p, 2, on_token=lambda *a: None)
+            bar.mirror({"op": "gen", "prompt": p, "max_new_tokens": 2})
+        bar.step(b, 1)
+        bar.collect(1, 0, deltas())
+        out["in_order"] = True
+        bar.step(b, 2)
+        try:
+            bar.collect(2, 0, deltas())
+            out["digest"] = None
+        except GangShardLost as e:
+            out["digest"] = str(e)
+        t0 = time.monotonic()
+        try:
+            bar.step(b, 3)
+            bar.collect(3, 0, deltas())
+            out["skipped"] = {"raised": None}
+        except GangShardLost as e:
+            out["skipped"] = {"raised": str(e)}
+        out["skipped"]["seconds"] = time.monotonic() - t0
+        return out
+    if not leader:
+        return member()
+    bar = GangBarrier(group, step_timeout=timeout)
+    if gang == 1:
+        t0 = time.monotonic()
+        promote = _standby_wait(Promoting(2.5 * timeout), tick=bar.tick)
+        out["idle_seconds"] = time.monotonic() - t0
+        bar.promote({"source": promote["source"], "params": {"w": [1.0, 2.0]}})
+    b.submit([7, 8], 2, on_token=lambda *a: None)
+    bar.mirror({"op": "gen", "prompt": [7, 8], "max_new_tokens": 2})
+    bar.step(b, 1)
+    bar.collect(1, 0, deltas())
+    out["stepped"] = True
+    if gang == 1:
+        bar.stop()
+    return out
+
+
 SUITES = {"pipeline": pipeline_suite, "moe": moe_suite, "wide_deep": wide_deep_suite,
-          "serving": serving_suite}
+          "serving": serving_suite, "gang": gang_suite}
 
 
 def main(suite: str, rank: int, world: int, port: int, wd: str) -> None:
@@ -407,6 +625,13 @@ def main(suite: str, rank: int, world: int, port: int, wd: str) -> None:
     out = SUITES[suite](cases)
     with open(f"{wd}/out.{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
+    if suite == "gang":
+        # the gangs' worlds end broken on purpose: no closing barrier, and
+        # gang C's leader dies as a killed leader does
+        sys.stdout.flush()
+        if rank == 4:
+            os.kill(os.getpid(), 9)
+        os._exit(0)
     dist.barrier()
     dist.destroy_process_group()
 

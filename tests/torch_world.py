@@ -11,10 +11,11 @@ from tensorflowonspark_tpu_torch.util import get_free_port
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_world(suite: str, cases: dict, jax_side, wd, world: int = 4):
+def run_world(suite: str, cases: dict, jax_side, wd, world: int = 4, killed=()):
     """Start ``world`` ranks of ``suite``, hand them ``cases`` (pickled
     into ``wd``), run ``jax_side()`` meanwhile, and return ``(its result,
-    [each rank's output])``."""
+    [each rank's output])``.  The ranks in ``killed`` must end SIGKILLed
+    (the suite kills them), every other rank with code 0."""
     port = get_free_port()
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
     env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
@@ -36,7 +37,8 @@ def run_world(suite: str, cases: dict, jax_side, wd, world: int = 4):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-6000:]
+    codes = [-9 if r in killed else 0 for r in range(world)]
+    assert [p.returncode for p in procs] == codes, "\n".join(logs)[-6000:]
     got = []
     for r in range(world):
         with open(wd / f"out.{r}.pkl", "rb") as f:
